@@ -1,0 +1,321 @@
+"""Drive the PyTorch/CUDA port (cnf2freq_tpu_torch) once on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order, each printing its lines (any failure exits non-zero):
+  device   require CUDA; print nvidia-smi's name and power limit
+  build    compile csrc/*.cu with nvcc (sm_90a) into build/kernels/
+  kernels  each kernel against its plain PyTorch version on the card at
+           the slice's shapes (M=192, B=1000), float32 and float64: max
+           abs/rel error against the stated tolerance, and CUDA-event
+           times taken in turns plain, kernel, kernel, plain
+  slice    simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20,
+           seed=7) on cuda in float32: preprocess(), iterate(early=True),
+           iterate() x 2, with every launch counter > 0 and finite outputs
+  parity   a 24 x 32 cohort, float64, two iterations on cuda and on the
+           CPU: haploweights and pair tables agree to 1e-9
+The last two lines are a JSON summary of the kernels and
+{"ok": true, "device": {...}}.  Imports nothing of JAX.
+"""
+
+import json
+import math
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+KERNELS = {
+    # name: (source, replaced TPU kernel)
+    "emission": ("cnf2freq_tpu_torch/csrc/emission.cu",
+                 "cnf2freq_tpu/ops/scan_v2.py:154"),
+    "fb_sweep": ("cnf2freq_tpu_torch/csrc/fb_sweep.cu",
+                 "cnf2freq_tpu/ops/scan_v2.py:631"),
+    "stats": ("cnf2freq_tpu_torch/csrc/stats.cu",
+              "cnf2freq_tpu/ops/stats_pallas.py:509"),
+    "turn": ("cnf2freq_tpu_torch/csrc/turn.cu",
+             "cnf2freq_tpu/ops/scan_v2.py:808"),
+}
+# (rtol, atol) per dtype; f32 sweeps compound rounding over 192 markers
+TOL = {torch.float64: (1e-9, 1e-12), torch.float32: (1e-3, 1e-5)}
+# turn weights are log-ratios of xor-correlations: entries whose reference
+# ratio is below exp(-cut) sit at the transform's rounding floor, so only
+# the entries above it are compared value by value, with an absolute slack
+# added to TOL.  In f32 the slack is the log of the 512-point transform's
+# worst relative rounding at the cut, eps * 512 * e^5 = 9.1e-3; in f64 it
+# is 1e-10, 1000x the 9.2e-14 measured at the slice's shapes (the worst
+# case there, eps * 512 * e^20 = 5.5e-5, would pass an f32-precision
+# kernel).
+TURN = {torch.float64: dict(cut=20.0, slack=1e-10),
+        torch.float32: dict(cut=5.0, slack=9.1e-3)}
+
+
+def fail(msg):
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def say(phase, **kw):
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
+          flush=True)
+
+
+def wrappers():
+    from cnf2freq_tpu_torch.ops import scan as ps
+    from cnf2freq_tpu_torch.ops import stats as pst
+    return {"emission": ps.emission, "fb_sweep": ps.fb_sweeps,
+            "stats": pst.stats, "turn": ps.turn_weights}
+
+
+def cuda_ms(fn, reps=3):
+    """Mean milliseconds of fn() over reps launches, by CUDA events."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def in_turns(plain, kernel):
+    """(kernel_ms, plain_ms) measured plain, kernel, kernel, plain."""
+    p1 = cuda_ms(plain)
+    k1 = cuda_ms(kernel)
+    k2 = cuda_ms(kernel)
+    p2 = cuda_ms(plain)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def compare(got, ref, dtype):
+    """(max abs err, max rel err, ok) under TOL[dtype]."""
+    rtol, atol = TOL[dtype]
+    g, r = got.double(), ref.double()
+    if not (torch.isfinite(g).all() and torch.isfinite(r).all()):
+        return math.inf, math.inf, False
+    diff = (g - r).abs()
+    rel = diff / r.abs().clamp(min=atol)
+    ok = bool((diff <= atol + rtol * r.abs()).all())
+    return float(diff.max()), float(rel.max()), ok
+
+
+def compare_all(gots, refs, dtype):
+    """compare() over matching tensors, aggregated."""
+    res = [compare(g, r, dtype) for g, r in zip(gots, refs)]
+    return (max(x[0] for x in res), max(x[1] for x in res),
+            all(x[2] for x in res))
+
+
+def compare_turn(got, ref, dtype):
+    """Log-ratio entries above -cut value by value (allowing the log of
+    the transform's relative rounding at the cut); entries below it only
+    have to stay below it on both sides."""
+    cut, slack = TURN[dtype]["cut"], TURN[dtype]["slack"]
+    hi = ref > -cut
+    floor_ok = bool((got[~hi] <= -cut + 1.0).all()
+                    and (got[hi] > -cut - 1.0).all())
+    g, r = got[hi].double(), ref[hi].double()
+    if not (torch.isfinite(g).all() and torch.isfinite(r).all()):
+        return math.inf, math.inf, False
+    rtol, atol = TOL[dtype]
+    diff = (g - r).abs()
+    ok = floor_ok and bool((diff <= atol + slack + rtol * r.abs()).all())
+    return (float(diff.max()), float((diff / r.abs().clamp(min=atol)).max()),
+            ok)
+
+
+def kernel_inputs(dtype):
+    """Slot tensors of the slice's cohort on the card, with randomised
+    haploweights and error rates so every block branch is exercised."""
+    from cnf2freq_tpu.config import ModelConfig, RuntimeParams
+    from cnf2freq_tpu.utils.simulate import simulate_f2
+    from cnf2freq_tpu_torch.hmm.family import gather_family
+    from cnf2freq_tpu_torch.ops import scan as ps
+    ped = simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20, seed=7)
+    for ind in ped.inds[1:]:
+        ped.fixtrees(ind.n)
+    ped.count_descendants()
+    fb = gather_family(ped, list(ped.dous), 0, ped.num_markers - 1,
+                       n_variants=1)
+    rng = np.random.default_rng(7)
+    fb.hw = rng.uniform(0.05, 0.95, fb.hw.shape)
+    fb.ms = np.where(fb.md > 0, rng.uniform(0.0, 0.3, fb.ms.shape), fb.ms)
+    fbt = fb.to("cuda", dtype)
+    dists = torch.as_tensor(np.diff(ped.markerposes), dtype=dtype,
+                            device="cuda")
+    return (fbt, ps.prep_slots(fbt, dtype), dists, ModelConfig(),
+            RuntimeParams())
+
+
+def check_kernels(dtype):
+    """Each kernel vs its plain version; returns {name: record}."""
+    from cnf2freq_tpu_torch.ops import scan as ps
+    from cnf2freq_tpu_torch.ops import stats as pst
+    fbt, st, dists, cfg, params = kernel_inputs(dtype)
+    B, _, M, _ = fbt.md.shape
+    out = {}
+
+    def record(name, got, ref, kernel, plain, cmp=compare, **tol):
+        a, r, ok = cmp(got, ref, dtype)
+        k_ms, p_ms = in_turns(plain, kernel)
+        out[name] = dict(max_abs_err=a, max_rel_err=r, ok=ok, ms=k_ms,
+                         plain_ms=p_ms)
+        rtol, atol = TOL[dtype]
+        say("kernels", dtype=str(dtype).split(".")[-1], kernel=name,
+            max_abs_err=f"{a:.3e}", max_rel_err=f"{r:.3e}", rtol=rtol,
+            atol=atol, **tol, ok=ok, ms=f"{k_ms:.4f}",
+            plain_ms=f"{p_ms:.4f}")
+
+    e = ps.emission(st, M, cfg)
+    torch.cuda.synchronize()
+    record("emission", e, ps.emission_reference(st, M, cfg),
+           lambda: ps.emission(st, M, cfg),
+           lambda: ps.emission_reference(st, M, cfg))
+
+    fb2 = ps.fb_sweeps(e, dists, cfg, params)
+    ref2 = ps.fb_scan_v2(e, dists, cfg, params)
+    torch.cuda.synchronize()
+    record("fb_sweep", fb2, ref2,
+           lambda: ps.fb_sweeps(e, dists, cfg, params),
+           lambda: ps.fb_scan_v2(e, dists, cfg, params), cmp=compare_all)
+
+    total = ps.combined_loglik_v2(fb2, st.sh)
+    args = (st, fb2.fw_pre, fb2.bw, fb2.fw_pre_f, fb2.bw_f, total, B, cfg)
+    record("stats", pst.stats(*args), pst.stats_reference(*args),
+           lambda: pst.stats(*args), lambda: pst.stats_reference(*args),
+           cmp=compare_all)
+
+    desc = fbt.descendants.to(dtype)
+    record("turn", ps.turn_weights(fb2, st.sh, desc, cfg, B),
+           ps.turn_weights_v2(fb2, st.sh, desc, cfg, B),
+           lambda: ps.turn_weights(fb2, st.sh, desc, cfg, B),
+           lambda: ps.turn_weights_v2(fb2, st.sh, desc, cfg, B),
+           cmp=compare_turn, **TURN[dtype])
+    del e, fb2, ref2
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_slice():
+    """The main path at 1000 x 192 in float32; returns launch counts."""
+    from cnf2freq_tpu.utils.simulate import simulate_f2
+    from cnf2freq_tpu_torch import Driver
+    ped = simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20, seed=7)
+    drv = Driver(ped, dtype=torch.float32, device="cuda")
+    wr = wrappers()
+    for fn in wr.values():
+        fn.launches = 0
+    stages = [("preprocess", drv.preprocess),
+              ("iterate_early", lambda: drv.iterate(early=True)),
+              ("iterate_1", drv.iterate), ("iterate_2", drv.iterate)]
+    for name, fn in stages:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        extra = {} if out is None else dict(
+            loglik=f"{out['loglik']:.6f}", hitnnn=out["hitnnn"],
+            scalefactor=f"{out['scalefactor']:.6g}",
+            inverted=out["inverted"])
+        say("slice", stage=name, seconds=f"{sec:.3f}", **extra)
+        if out is not None and not math.isfinite(out["loglik"]):
+            fail(f"non-finite log-likelihood after {name}")
+    launches = {k: fn.launches for k, fn in wr.items()}
+    hw = np.stack([ind.haploweight for ind in ped.inds[1:]])
+    tabs = np.stack(list(drv.pair_tables.values()))
+    finite = bool(np.isfinite(hw).all() and np.isfinite(tabs).all()
+                  and (hw >= 0).all() and (hw <= 1).all())
+    say("slice", launches=json.dumps(launches), finite=finite,
+        pair_tables=len(drv.pair_tables))
+    if not finite:
+        fail("non-finite or out-of-range slice outputs")
+    if min(launches.values()) <= 0:
+        fail(f"a kernel of the main path never launched: {launches}")
+    return launches
+
+
+def run_parity():
+    """24 x 32 cohort, float64, two iterations on cuda and on the CPU."""
+    from cnf2freq_tpu.utils.simulate import simulate_f2
+    from cnf2freq_tpu_torch import Driver, copy_pedigree
+    base = simulate_f2(n_f2=24, n_markers=32, n_founder_pairs=2, seed=11)
+    peds = {dev: copy_pedigree(base) for dev in ("cuda", "cpu")}
+    drivers = {dev: Driver(p, dtype=torch.float64, device=dev)
+               for dev, p in peds.items()}
+    for d in drivers.values():
+        d.preprocess()
+        d.iterate(early=True)
+        d.iterate()
+    hw = {dev: np.stack([i.haploweight for i in p.inds[1:]])
+          for dev, p in peds.items()}
+    md = {dev: np.stack([i.markerdata for i in p.inds[1:]])
+          for dev, p in peds.items()}
+    tabs = {dev: d.pair_tables for dev, d in drivers.items()}
+    hw_err = float(np.abs(hw["cuda"] - hw["cpu"]).max())
+    pair_err = max(float(np.abs(tabs["cuda"][n] - tabs["cpu"][n]).max())
+                   for n in tabs["cpu"])
+    md_same = bool(np.array_equal(md["cuda"], md["cpu"]))
+    ok = hw_err <= 1e-9 and pair_err <= 1e-9 and md_same
+    say("parity", haploweight_max_abs=f"{hw_err:.3e}",
+        pair_max_abs=f"{pair_err:.3e}", markerdata_equal=md_same, tol=1e-9,
+        ok=ok)
+    if not ok:
+        fail("cuda and CPU float64 runs disagree")
+
+
+def main():
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    say("device", card=card, name=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count(), torch=torch.__version__,
+        cuda=torch.version.cuda)
+
+    from cnf2freq_tpu_torch import _build
+    t0 = time.perf_counter()
+    _build.load_kernels(verbose=True)
+    report = os.path.join(_build.build_dir(), "ptxas.txt")
+    text = open(report).read() if os.path.exists(report) else ""
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+    spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                             text))
+    say("build", seconds=f"{time.perf_counter() - t0:.2f}",
+        dir=_build.build_dir(), flags=" ".join(_build.NVCC_FLAGS),
+        entry_functions=len(regs), max_registers=max(regs, default=None),
+        spill_store_bytes=spills, ptxas_report=report)
+
+    checks = {dt: check_kernels(dt) for dt in (torch.float64, torch.float32)}
+    bad = [(str(dt), k) for dt, c in checks.items()
+           for k, v in c.items() if not v["ok"]]
+    if bad:
+        fail(f"kernels disagree with their plain versions: {bad}")
+    launches = run_slice()
+    run_parity()
+
+    f32 = checks[torch.float32]
+    summary = [dict(name=k, route="cuda", source=src, replaces=rep,
+                    launches=launches[k],
+                    max_abs_err=f32[k]["max_abs_err"], ms=f32[k]["ms"],
+                    plain_ms=f32[k]["plain_ms"])
+               for k, (src, rep) in KERNELS.items()]
+    print(json.dumps({"kernels": summary}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

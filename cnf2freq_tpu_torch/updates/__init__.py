@@ -1,0 +1,1 @@
+"""updates of the PyTorch/CUDA port (mirrors cnf2freq_tpu/updates)."""
