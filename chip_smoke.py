@@ -4,18 +4,31 @@
 
 Phases, in order, each printing its lines (any failure exits non-zero):
   device   require CUDA; print nvidia-smi's name and power limit
-  build    compile csrc/*.cu with nvcc (sm_90a) into build/kernels/
+  build    compile csrc/*.cu with nvcc (sm_90a), one nvcc per source, all
+           started together, and link them into one library in
+           build/kernels/
   kernels  each kernel against its plain PyTorch version on the card at
-           the slice's shapes (M=192, B=1000), float32 and float64: max
+           the slices' shapes (M=192, B=1000), float32 and float64: max
            abs/rel error against the stated tolerance, and CUDA-event
            times taken in turns plain, kernel, kernel, plain
   slice    simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20,
-           seed=7) on cuda in float32: preprocess(), iterate(early=True),
-           iterate() x 2, with every launch counter > 0 and finite outputs
+           seed=7) on cuda in float32 with adaptive_relhaplo=False (the
+           v2 pipeline): preprocess(), iterate(early=True), iterate() x 2,
+           with every launch counter of the path > 0 and finite outputs
+  slice_coherence
+           the same cohort with adaptive relhaplo (the default; the
+           classic pipeline with coherence): preprocess(),
+           iterate(early=True), iterate() x 2; fails on a launch counter
+           of the path at 0, a non-finite output, a haploweight outside
+           [0, 1], a relhaplo outside [1e-4, 1 - 1e-4], or no relhaplo
+           moved from its loaded value
   parity   a 24 x 32 cohort, float64, two iterations on cuda and on the
-           CPU: haploweights and pair tables agree to 1e-9
-The last two lines are a JSON summary of the kernels and
-{"ok": true, "device": {...}}.  Imports nothing of JAX.
+           CPU, with adaptive relhaplo off and on: haploweights, relhaplo
+           and pair tables agree to 1e-9, markerdata exactly
+The launch counters are set to 0 just before each slice and read just
+after it.  The last three lines are a JSON summary of the kernels, the
+card's name and power limit, and {"ok": true, "device": {...}}.  Imports
+nothing of JAX and nothing of the JAX package.
 """
 
 import json
@@ -30,16 +43,33 @@ import numpy as np
 import torch
 
 KERNELS = {
-    # name: (source, replaced TPU kernel)
+    # name: (source, replaced TPU kernel, path it lies on)
     "emission": ("cnf2freq_tpu_torch/csrc/emission.cu",
-                 "cnf2freq_tpu/ops/scan_v2.py:154"),
+                 "cnf2freq_tpu/ops/scan_v2.py:154", "slice"),
     "fb_sweep": ("cnf2freq_tpu_torch/csrc/fb_sweep.cu",
-                 "cnf2freq_tpu/ops/scan_v2.py:631"),
+                 "cnf2freq_tpu/ops/scan_v2.py:631", "slice"),
     "stats": ("cnf2freq_tpu_torch/csrc/stats.cu",
-              "cnf2freq_tpu/ops/stats_pallas.py:509"),
+              "cnf2freq_tpu/ops/stats_pallas.py:509", "slice"),
     "turn": ("cnf2freq_tpu_torch/csrc/turn.cu",
-             "cnf2freq_tpu/ops/scan_v2.py:808"),
+             "cnf2freq_tpu/ops/scan_v2.py:808", "slice"),
+    "fb_classic": ("cnf2freq_tpu_torch/csrc/fb_classic.cu",
+                   "cnf2freq_tpu/ops/fb_pallas.py:55", "slice_coherence"),
+    "stats_bmns": ("cnf2freq_tpu_torch/csrc/stats.cu",
+                   "cnf2freq_tpu/ops/stats_pallas.py:612",
+                   "slice_coherence"),
 }
+# operations per unit of work, counted from each kernel's arithmetic (for
+# the bound; every kernel here is far below the card's compute balance):
+# emission per (marker, unit): 512 parent-block entries x ~20 + 512
+# outputs x 8; sweeps per (unit, shift, marker) and direction: 64 x 4
+# (clip, emit, sum, divide) + two 6-stage FWHTs (2 x 6 x 64) + 2 x 64
+# scalings; statistics per (marker, unit): ~19,800 (block math and
+# contractions); turn per (marker, unit): three 512-point WHTs (3 x 9 x
+# 512) + 4 x 512
+OPS = {"emission": 14336, "fb_sweep": 2 * 1152, "stats": 19800,
+       "turn": 15872, "fb_classic": 2 * 1152, "stats_bmns": 19800}
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12       # float32 outside the tensor cores
 # (rtol, atol) per dtype; f32 sweeps compound rounding over 192 markers
 TOL = {torch.float64: (1e-9, 1e-12), torch.float32: (1e-3, 1e-5)}
 # turn weights are log-ratios of xor-correlations: entries whose reference
@@ -52,6 +82,7 @@ TOL = {torch.float64: (1e-9, 1e-12), torch.float32: (1e-3, 1e-5)}
 # kernel).
 TURN = {torch.float64: dict(cut=20.0, slack=1e-10),
         torch.float32: dict(cut=5.0, slack=9.1e-3)}
+RELHAPLO_CLIP = 1e-4
 
 
 def fail(msg):
@@ -65,10 +96,12 @@ def say(phase, **kw):
 
 
 def wrappers():
+    from cnf2freq_tpu_torch.ops import fb as pfb
     from cnf2freq_tpu_torch.ops import scan as ps
     from cnf2freq_tpu_torch.ops import stats as pst
     return {"emission": ps.emission, "fb_sweep": ps.fb_sweeps,
-            "stats": pst.stats, "turn": ps.turn_weights}
+            "stats": pst.stats, "turn": ps.turn_weights,
+            "fb_classic": pfb.fb_sweeps, "stats_bmns": pst.stats_pallas}
 
 
 def cuda_ms(fn, reps=3):
@@ -91,6 +124,25 @@ def in_turns(plain, kernel):
     k2 = cuda_ms(kernel)
     p2 = cuda_ms(plain)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def nbytes(*xs):
+    """Bytes of tensors (nested tuples allowed), each counted once."""
+    total = 0
+    for x in xs:
+        if torch.is_tensor(x):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, (tuple, list)):
+            total += nbytes(*x)
+    return total
+
+
+def bound(name, moved, work):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = OPS[name] * work / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def compare(got, ref, dtype):
@@ -131,12 +183,11 @@ def compare_turn(got, ref, dtype):
 
 
 def kernel_inputs(dtype):
-    """Slot tensors of the slice's cohort on the card, with randomised
+    """The slice's cohort on the card as a family batch, with randomised
     haploweights and error rates so every block branch is exercised."""
-    from cnf2freq_tpu.config import ModelConfig, RuntimeParams
-    from cnf2freq_tpu.utils.simulate import simulate_f2
+    from cnf2freq_tpu_torch.config import ModelConfig, RuntimeParams
     from cnf2freq_tpu_torch.hmm.family import gather_family
-    from cnf2freq_tpu_torch.ops import scan as ps
+    from cnf2freq_tpu_torch.utils.simulate import simulate_f2
     ped = simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20, seed=7)
     for ind in ped.inds[1:]:
         ped.fixtrees(ind.n)
@@ -149,67 +200,112 @@ def kernel_inputs(dtype):
     fbt = fb.to("cuda", dtype)
     dists = torch.as_tensor(np.diff(ped.markerposes), dtype=dtype,
                             device="cuda")
-    return (fbt, ps.prep_slots(fbt, dtype), dists, ModelConfig(),
-            RuntimeParams())
+    return fbt, dists, ModelConfig(), RuntimeParams()
 
 
 def check_kernels(dtype):
     """Each kernel vs its plain version; returns {name: record}."""
+    from cnf2freq_tpu_torch.hmm.emission import assemble_e_all, build_blocks
+    from cnf2freq_tpu_torch.hmm.forward_backward import (FBResult,
+                                                         combined_loglik)
+    from cnf2freq_tpu_torch.hmm.transition import (interval_recomb,
+                                                   transition_eigenvalues)
+    from cnf2freq_tpu_torch.ops import fb as pfb
     from cnf2freq_tpu_torch.ops import scan as ps
     from cnf2freq_tpu_torch.ops import stats as pst
-    fbt, st, dists, cfg, params = kernel_inputs(dtype)
+    fbt, dists, cfg, params = kernel_inputs(dtype)
+    st = ps.prep_slots(fbt, dtype)
     B, _, M, _ = fbt.md.shape
     out = {}
 
-    def record(name, got, ref, kernel, plain, cmp=compare, **tol):
+    def record(name, got, ref, kernel, plain, moved, work, cmp=compare,
+               **tol):
         a, r, ok = cmp(got, ref, dtype)
         k_ms, p_ms = in_turns(plain, kernel)
+        b_ms, b_by = bound(name, moved, work)
         out[name] = dict(max_abs_err=a, max_rel_err=r, ok=ok, ms=k_ms,
-                         plain_ms=p_ms)
+                         plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
         rtol, atol = TOL[dtype]
         say("kernels", dtype=str(dtype).split(".")[-1], kernel=name,
             max_abs_err=f"{a:.3e}", max_rel_err=f"{r:.3e}", rtol=rtol,
             atol=atol, **tol, ok=ok, ms=f"{k_ms:.4f}",
-            plain_ms=f"{p_ms:.4f}")
+            plain_ms=f"{p_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by)
 
+    # -- the v2 pipeline ([M, 512, R] layout) ---------------------------
     e = ps.emission(st, M, cfg)
     torch.cuda.synchronize()
     record("emission", e, ps.emission_reference(st, M, cfg),
            lambda: ps.emission(st, M, cfg),
-           lambda: ps.emission_reference(st, M, cfg))
+           lambda: ps.emission_reference(st, M, cfg),
+           nbytes(st.md, st.ms, st.hw, st.ex, st.at, e), M * st.R)
 
+    lam_pad = ps.sweep_eigenvalues(dists, cfg, params, dtype)
     fb2 = ps.fb_sweeps(e, dists, cfg, params)
     ref2 = ps.fb_scan_v2(e, dists, cfg, params)
     torch.cuda.synchronize()
     record("fb_sweep", fb2, ref2,
            lambda: ps.fb_sweeps(e, dists, cfg, params),
-           lambda: ps.fb_scan_v2(e, dists, cfg, params), cmp=compare_all)
+           lambda: ps.fb_scan_v2(e, dists, cfg, params),
+           nbytes(e, lam_pad, tuple(fb2)), st.R * 8 * M, cmp=compare_all)
+    del ref2
 
     total = ps.combined_loglik_v2(fb2, st.sh)
     args = (st, fb2.fw_pre, fb2.bw, fb2.fw_pre_f, fb2.bw_f, total, B, cfg)
-    record("stats", pst.stats(*args), pst.stats_reference(*args),
+    got = pst.stats(*args)
+    record("stats", got, pst.stats_reference(*args),
            lambda: pst.stats(*args), lambda: pst.stats_reference(*args),
-           cmp=compare_all)
+           nbytes(tuple(st), args[1:6], got), M * B, cmp=compare_all)
 
     desc = fbt.descendants.to(dtype)
-    record("turn", ps.turn_weights(fb2, st.sh, desc, cfg, B),
-           ps.turn_weights_v2(fb2, st.sh, desc, cfg, B),
+    got = ps.turn_weights(fb2, st.sh, desc, cfg, B)
+    idx = torch.as_tensor(ps.turn_offsets(cfg), device="cuda")
+    record("turn", got, ps.turn_weights_v2(fb2, st.sh, desc, cfg, B),
            lambda: ps.turn_weights(fb2, st.sh, desc, cfg, B),
            lambda: ps.turn_weights_v2(fb2, st.sh, desc, cfg, B),
-           cmp=compare_turn, **TURN[dtype])
-    del e, fb2, ref2
+           nbytes(fb2.fw_post, fb2.bw, fb2.fw_post_f, fb2.bw_f, st.sh, desc,
+                  idx, got), M * B, cmp=compare_turn, **TURN[dtype])
+    del e, fb2, got, args
+    torch.cuda.empty_cache()
+
+    # -- the classic pipeline ([B, M, NS, S] layout) --------------------
+    e = assemble_e_all(build_blocks(fbt, cfg, dtype=dtype), cfg)
+    lam = transition_eigenvalues(cfg, interval_recomb(cfg, params, dists))
+    fbc = pfb.fb_sweeps(e, lam)
+    ref = pfb.fb_sweeps_reference(e, lam)
+    torch.cuda.synchronize()
+    record("fb_classic", fbc, ref, lambda: pfb.fb_sweeps(e, lam),
+           lambda: pfb.fb_sweeps_reference(e, lam),
+           nbytes(e, lam, fbc), B * 8 * M, cmp=compare_all)
+    del ref
+
+    fbres = FBResult(*fbc)
+    total = combined_loglik(fbres, fbt.shiftignore)
+    args = (fbt, fbres.fw_pre, fbres.bw, fbres.fw_pre_f, fbres.bw_f, total,
+            cfg)
+    got = pst.stats_pallas(*args)
+    record("stats_bmns", got, pst.stats_bmns_reference(*args),
+           lambda: pst.stats_pallas(*args),
+           lambda: pst.stats_bmns_reference(*args),
+           nbytes(fbt.md, fbt.ms, fbt.hw, fbt.exists.int(), fbt.attop.int(),
+                  fbt.flag2ignore, fbt.shiftignore, args[1:6], got),
+           M * B, cmp=compare_all)
+    del e, fbc, fbres, got, args
     torch.cuda.empty_cache()
     return out
 
 
-def run_slice():
-    """The main path at 1000 x 192 in float32; returns launch counts."""
-    from cnf2freq_tpu.utils.simulate import simulate_f2
+def run_slice(phase, adaptive):
+    """The slice at 1000 x 192 in float32 through Driver.preprocess() and
+    Driver.iterate(); returns the launch counts of the kernels of its
+    path, read just after the run."""
     from cnf2freq_tpu_torch import Driver
+    from cnf2freq_tpu_torch.utils.simulate import simulate_f2
     ped = simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20, seed=7)
-    drv = Driver(ped, dtype=torch.float32, device="cuda")
-    wr = wrappers()
-    for fn in wr.values():
+    rh0 = np.stack([ind.relhaplo for ind in ped.inds[1:]]).copy()
+    drv = Driver(ped, dtype=torch.float32, device="cuda",
+                 adaptive_relhaplo=adaptive)
+    wr = {k: fn for k, fn in wrappers().items() if KERNELS[k][2] == phase}
+    for fn in wrappers().values():
         fn.launches = 0
     stages = [("preprocess", drv.preprocess),
               ("iterate_early", lambda: drv.iterate(early=True)),
@@ -224,50 +320,70 @@ def run_slice():
             loglik=f"{out['loglik']:.6f}", hitnnn=out["hitnnn"],
             scalefactor=f"{out['scalefactor']:.6g}",
             inverted=out["inverted"])
-        say("slice", stage=name, seconds=f"{sec:.3f}", **extra)
+        say(phase, stage=name, seconds=f"{sec:.3f}", **extra)
         if out is not None and not math.isfinite(out["loglik"]):
-            fail(f"non-finite log-likelihood after {name}")
+            fail(f"{phase}: non-finite log-likelihood after {name}")
     launches = {k: fn.launches for k, fn in wr.items()}
     hw = np.stack([ind.haploweight for ind in ped.inds[1:]])
+    rh = np.stack([ind.relhaplo for ind in ped.inds[1:]])
     tabs = np.stack(list(drv.pair_tables.values()))
     finite = bool(np.isfinite(hw).all() and np.isfinite(tabs).all()
-                  and (hw >= 0).all() and (hw <= 1).all())
-    say("slice", launches=json.dumps(launches), finite=finite,
-        pair_tables=len(drv.pair_tables))
-    if not finite:
-        fail("non-finite or out-of-range slice outputs")
+                  and np.isfinite(rh).all())
+    hw_ok = bool((hw >= 0).all() and (hw <= 1).all())
+    moved = int((rh != rh0).sum())
+    say(phase, launches=json.dumps(launches), finite=finite,
+        haploweights_in_range=hw_ok, pair_tables=len(drv.pair_tables),
+        relhaplo_moved=moved, relhaplo_min=f"{rh.min():.6g}",
+        relhaplo_max=f"{rh.max():.6g}")
+    if not (finite and hw_ok):
+        fail(f"{phase}: non-finite or out-of-range outputs")
     if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path never launched: {launches}")
+        fail(f"{phase}: a kernel of the path never launched: {launches}")
+    if adaptive:
+        if moved == 0:
+            fail(f"{phase}: no relhaplo moved from its loaded value")
+        if rh.min() < RELHAPLO_CLIP or rh.max() > 1 - RELHAPLO_CLIP:
+            fail(f"{phase}: relhaplo outside [1e-4, 1 - 1e-4]")
+    elif moved:
+        fail(f"{phase}: relhaplo moved with adaptive relhaplo off")
     return launches
 
 
-def run_parity():
+def run_parity(adaptive):
     """24 x 32 cohort, float64, two iterations on cuda and on the CPU."""
-    from cnf2freq_tpu.utils.simulate import simulate_f2
     from cnf2freq_tpu_torch import Driver, copy_pedigree
+    from cnf2freq_tpu_torch.utils.simulate import simulate_f2
     base = simulate_f2(n_f2=24, n_markers=32, n_founder_pairs=2, seed=11)
     peds = {dev: copy_pedigree(base) for dev in ("cuda", "cpu")}
-    drivers = {dev: Driver(p, dtype=torch.float64, device=dev)
+    drivers = {dev: Driver(p, dtype=torch.float64, device=dev,
+                           adaptive_relhaplo=adaptive)
                for dev, p in peds.items()}
     for d in drivers.values():
         d.preprocess()
         d.iterate(early=True)
         d.iterate()
-    hw = {dev: np.stack([i.haploweight for i in p.inds[1:]])
-          for dev, p in peds.items()}
-    md = {dev: np.stack([i.markerdata for i in p.inds[1:]])
-          for dev, p in peds.items()}
+
+    def stack(field):
+        return {dev: np.stack([getattr(i, field) for i in p.inds[1:]])
+                for dev, p in peds.items()}
+
+    hw, rh, md = stack("haploweight"), stack("relhaplo"), stack("markerdata")
     tabs = {dev: d.pair_tables for dev, d in drivers.items()}
     hw_err = float(np.abs(hw["cuda"] - hw["cpu"]).max())
+    rh_err = float(np.abs(rh["cuda"] - rh["cpu"]).max())
     pair_err = max(float(np.abs(tabs["cuda"][n] - tabs["cpu"][n]).max())
                    for n in tabs["cpu"])
     md_same = bool(np.array_equal(md["cuda"], md["cpu"]))
-    ok = hw_err <= 1e-9 and pair_err <= 1e-9 and md_same
-    say("parity", haploweight_max_abs=f"{hw_err:.3e}",
-        pair_max_abs=f"{pair_err:.3e}", markerdata_equal=md_same, tol=1e-9,
-        ok=ok)
+    moved = int((rh["cpu"] != 0.5).sum())
+    ok = hw_err <= 1e-9 and rh_err <= 1e-9 and pair_err <= 1e-9 and md_same
+    say("parity", adaptive_relhaplo=adaptive,
+        haploweight_max_abs=f"{hw_err:.3e}", relhaplo_max_abs=f"{rh_err:.3e}",
+        relhaplo_moved=moved, pair_max_abs=f"{pair_err:.3e}",
+        markerdata_equal=md_same, tol=1e-9, ok=ok)
     if not ok:
-        fail("cuda and CPU float64 runs disagree")
+        fail(f"cuda and CPU float64 runs disagree (adaptive={adaptive})")
+    if adaptive and not moved:
+        fail("parity: adaptive relhaplo left relhaplo at its loaded value")
 
 
 def main():
@@ -293,23 +409,27 @@ def main():
                                              text))
     say("build", seconds=f"{time.perf_counter() - t0:.2f}",
         dir=_build.build_dir(), flags=" ".join(_build.NVCC_FLAGS),
-        entry_functions=len(regs), max_registers=max(regs, default=None),
-        spill_store_bytes=spills, ptxas_report=report)
+        sources=len(_build.sources()), entry_functions=len(regs),
+        max_registers=max(regs, default=None), spill_store_bytes=spills,
+        ptxas_report=report)
 
     checks = {dt: check_kernels(dt) for dt in (torch.float64, torch.float32)}
     bad = [(str(dt), k) for dt, c in checks.items()
            for k, v in c.items() if not v["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
-    launches = run_slice()
-    run_parity()
+    launches = run_slice("slice", adaptive=False)
+    launches.update(run_slice("slice_coherence", adaptive=True))
+    run_parity(adaptive=False)
+    run_parity(adaptive=True)
 
     f32 = checks[torch.float32]
     summary = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=launches[k],
                     max_abs_err=f32[k]["max_abs_err"], ms=f32[k]["ms"],
-                    plain_ms=f32[k]["plain_ms"])
-               for k, (src, rep) in KERNELS.items()]
+                    plain_ms=f32[k]["plain_ms"], bound_ms=f32[k]["bound_ms"],
+                    bound_by=f32[k]["bound_by"], library_ms=None)
+               for k, (src, rep, _) in KERNELS.items()]
     print(json.dumps({"kernels": summary}))
     print(card)
     print(json.dumps({"ok": True, "device": {

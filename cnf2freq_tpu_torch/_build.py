@@ -1,9 +1,11 @@
 """Build and bind the CUDA kernels of ``csrc/``.
 
-The kernels are compiled at first use with ``nvcc`` into one shared
-library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers: the build takes seconds, not minutes).  Every exported function
-is ``int cnf_<kernel>_<f32|f64>(..., void* stream)`` and returns the
+The kernels are compiled at first use into one shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers: the build
+takes seconds, not minutes).  Each ``csrc/*.cu`` file is compiled to an
+object by its own ``nvcc`` process, all started together, and the
+objects are linked once.  Every exported function is
+``int cnf_<kernel>_<f32|f64>(..., void* stream)`` and returns the
 ``cudaError_t`` of its launch.
 
 The library goes to ``$CNF2FREQ_TORCH_BUILD`` if set, else to
@@ -29,7 +31,7 @@ _LOCK = threading.Lock()
 _LIB = None
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 
 def build_dir() -> str:
@@ -49,13 +51,49 @@ def _nvcc() -> str:
 
 
 def sources():
-    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")) +
-                  glob.glob(os.path.join(_CSRC, "*.cuh")))
+    """The kernel sources, one object each."""
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def _build(lib_path: str, verbose: bool) -> None:
+    """Compile every source to an object, one nvcc each, all at once;
+    link them into ``lib_path``."""
+    nvcc = _nvcc()
+    flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
+    tmp = f"{lib_path}.{os.getpid()}"
+    os.makedirs(tmp + ".d", exist_ok=True)
+    try:
+        jobs = []
+        for src in sources():
+            obj = os.path.join(tmp + ".d", os.path.basename(src) + ".o")
+            proc = subprocess.Popen([nvcc] + flags + ["-c", src, "-o", obj],
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((src, obj, proc))
+        reports, failed = [], []
+        for src, _, proc in jobs:
+            text = proc.communicate()[0]
+            reports.append(f"== {os.path.basename(src)}\n{text}")
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)}:\n{text}")
+        if failed:
+            raise RuntimeError("nvcc failed on " + "\n".join(failed))
+        r = subprocess.run([nvcc, "-shared"] + NVCC_FLAGS[:2] +
+                           ["-o", tmp + ".so"] + [o for _, o, _ in jobs],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + r.stdout + r.stderr)
+        if verbose:
+            with open(os.path.join(build_dir(), "ptxas.txt"), "w") as f:
+                f.write("\n".join(reports))
+        os.replace(tmp + ".so", lib_path)
+    finally:
+        shutil.rmtree(tmp + ".d", ignore_errors=True)
 
 
 def load_kernels(verbose: bool = False) -> ctypes.CDLL:
     """The kernel library, built on first use.  ``verbose`` adds
-    ``-Xptxas -v`` to a fresh build and writes the compiler's report to
+    ``-Xptxas -v`` to a fresh build and writes the compilers' reports to
     ptxas.txt in the build directory."""
     global _LIB
     with _LOCK:
@@ -63,26 +101,16 @@ def load_kernels(verbose: bool = False) -> ctypes.CDLL:
             return _LIB
         if not torch.cuda.is_available():
             raise RuntimeError("the CUDA kernels need a CUDA device")
-        flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in sources():
+        for src in sources() + sorted(glob.glob(os.path.join(_CSRC,
+                                                             "*.cuh"))):
             with open(src, "rb") as f:
                 h.update(os.path.basename(src).encode() + f.read())
-        out_dir = build_dir()
-        os.makedirs(out_dir, exist_ok=True)
-        lib_path = os.path.join(out_dir,
+        os.makedirs(build_dir(), exist_ok=True)
+        lib_path = os.path.join(build_dir(),
                                 f"libcnf2freq_kernels_{h.hexdigest()[:16]}.so")
         if not os.path.exists(lib_path):
-            tmp = f"{lib_path}.{os.getpid()}.tmp"
-            cmd = [_nvcc()] + flags + ["-o", tmp] + \
-                [s for s in sources() if s.endswith(".cu")]
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError("nvcc failed:\n" + r.stdout + r.stderr)
-            if verbose:
-                with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
-                    f.write(r.stdout + r.stderr)
-            os.replace(tmp, lib_path)
+            _build(lib_path, verbose)
         lib = ctypes.CDLL(lib_path)
         lib.cnf_error_string.restype = ctypes.c_char_p
         lib.cnf_error_string.argtypes = [ctypes.c_int]

@@ -10,6 +10,20 @@
 //   focal's allele values 1 and 2 on either root side) and pair [2][2].
 // Outputs are written straight in the [B, M, ...] layout.
 //
+// Two entries share the kernel body, which reads its inputs through a
+// layout (index arithmetic only, no transposed copies):
+//   cnf_stats_*       the v2 layout of ops/scan.py: slot tensors
+//                     [7,2,M,R], sweeps [M,512,R], factors [M,8,R];
+//                     consecutive warps take consecutive units of one
+//                     marker;
+//   cnf_stats_bmns_*  the [B,M,NS,S] layout of the coherence-carrying
+//                     scan (replaces the same TPU kernel behind its own
+//                     launcher, stats_pallas.py::stats_pallas): family
+//                     batch fields [B,7,M,2] / [B,7,M] / [B,7], sweeps
+//                     [B,M,512], factors [B,M,8]; consecutive warps take
+//                     consecutive markers of one unit, so a warp reads
+//                     its pair's 512 sweep values contiguously.
+//
 // Bound on the H100: the 2 x 512 sweep values read per pair (~1.6 GB at
 // M=192, R=1024 in f32) plus ~20k flops of block math per pair, which
 // puts it near the balance point; the TPU tile kept ~24 KB live per pair,
@@ -27,6 +41,70 @@
 namespace {
 
 constexpr int kWarps = 4;
+
+// index arithmetic of the v2 layout (R = padded batch, B real units)
+struct V2Layout {
+  int M, R, B;
+  __device__ void pair(long long p, int& m, int& r) const {
+    m = (int)(p / B);
+    r = (int)(p % B);
+  }
+  __device__ size_t md(int s, int a, int m, int r) const {
+    return ((size_t)(s * 2 + a) * M + m) * R + r;
+  }
+  __device__ size_t hw(int s, int m, int r) const {
+    return ((size_t)s * M + m) * R + r;
+  }
+  __device__ size_t ex(int s, int r) const { return (size_t)s * R + r; }
+  // sweep value x of pair (m, r) is sweep(m, r) + x * xstride()
+  __device__ size_t sweep(int m, int r) const {
+    return (size_t)m * 512 * R + r;
+  }
+  __device__ size_t xstride() const { return R; }
+  __device__ size_t fac(int m, int n, int r) const {
+    return ((size_t)m * 8 + n) * R + r;
+  }
+};
+
+// index arithmetic of the [B, M, NS, S] layout
+struct BMNSLayout {
+  int M, B;
+  __device__ void pair(long long p, int& m, int& r) const {
+    r = (int)(p / M);
+    m = (int)(p % M);
+  }
+  __device__ size_t md(int s, int a, int m, int r) const {
+    return (((size_t)r * 7 + s) * M + m) * 2 + a;
+  }
+  __device__ size_t hw(int s, int m, int r) const {
+    return ((size_t)r * 7 + s) * M + m;
+  }
+  __device__ size_t ex(int s, int r) const { return (size_t)r * 7 + s; }
+  __device__ size_t sweep(int m, int r) const {
+    return ((size_t)r * M + m) * 512;
+  }
+  __device__ size_t xstride() const { return 1; }
+  __device__ size_t fac(int m, int n, int r) const {
+    return ((size_t)r * M + m) * 8 + n;
+  }
+};
+
+template <typename T, class L>
+__device__ __forceinline__ cnf::Slot<T> load_slot(
+    const int* md, const T* ms, const T* hw, const int* ex, const int* at,
+    int s, int m, int r, const L& lay) {
+  cnf::Slot<T> out;
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const size_t i = lay.md(s, a, m, r);
+    out.md[a] = md[i];
+    out.ms[a] = ms[i];
+  }
+  out.hw = hw[lay.hw(s, m, r)];
+  out.exists = ex[lay.ex(s, r)];
+  out.attop = at[lay.ex(s, r)];
+  return out;
+}
 
 template <typename T>
 struct Scratch {
@@ -57,7 +135,7 @@ __device__ __forceinline__ T Wat(const Scratch<T>& s, int b, int a, int v,
   return s.W[((v * 2 + u) * 2 + t) * 64 + b * 8 + a];
 }
 
-template <typename T>
+template <typename T, class L>
 __global__ void __launch_bounds__(kWarps * 32)
     stats_kernel(const int* __restrict__ md, const T* __restrict__ ms,
                  const T* __restrict__ hw, const int* __restrict__ ex,
@@ -66,21 +144,22 @@ __global__ void __launch_bounds__(kWarps * 32)
                  const T* __restrict__ bw, const T* __restrict__ fw_pre_f,
                  const T* __restrict__ bw_f, const T* __restrict__ total,
                  T* __restrict__ b12_out, T* __restrict__ acc_out,
-                 T* __restrict__ pair_out, int M, int R, int B) {
+                 T* __restrict__ pair_out, const L lay) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   Scratch<T>& s = reinterpret_cast<Scratch<T>*>(smem_raw)[warp];
   const long long pair = (long long)blockIdx.x * kWarps + warp;
-  if (pair >= (long long)M * B) return;
-  const int m = (int)(pair / B), r = (int)(pair % B);
-  const size_t stride = R;
+  const int M = lay.M;
+  if (pair >= (long long)M * lay.B) return;
+  int m, r;
+  lay.pair(pair, m, r);
+  const size_t stride = lay.xstride();
 
   // ---- inputs --------------------------------------------------------
-  if (lane < 7) s.sl[lane] = cnf::load_slot(md, ms, hw, ex, at, lane, m, r,
-                                            M, R);
+  if (lane < 7) s.sl[lane] = load_slot(md, ms, hw, ex, at, lane, m, r, lay);
   const int f2ig = f2[r];
   if (lane < 8) {
-    const size_t fi = ((size_t)m * 8 + lane) * stride + r;
+    const size_t fi = lay.fac(m, lane, r);
     const T allowed = (lane & sh[r]) == 0 ? T(1) : T(0);
     s.wexp[lane] = exp(fw_pre_f[fi] + bw_f[fi] - total[r]) * allowed;
   }
@@ -91,7 +170,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     // allele-value roots of the first side (redone for the second below)
     cnf::root_block(s.sl[0], lane, 0, s.rootmv[lane - 1]);
   }
-  const size_t base = (size_t)m * 512 * stride + r;
+  const size_t base = lay.sweep(m, r);
   for (int x = lane; x < 512; x += 32)
     s.W[x] = fw_pre[base + x * stride] * bw[base + x * stride] * s.wexp[x >> 6];
   __syncwarp();
@@ -294,23 +373,23 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <typename T>
+template <typename T, class L>
 int launch_stats(const int* md, const T* ms, const T* hw, const int* ex,
                  const int* at, const int* f2, const int* sh, const T* fw_pre,
                  const T* bw, const T* fw_pre_f, const T* bw_f,
-                 const T* total, T* b12, T* accum, T* pair, int M, int R,
-                 int B, void* stream) {
-  if (M <= 0 || B <= 0) return 0;
+                 const T* total, T* b12, T* accum, T* pair, const L& lay,
+                 void* stream) {
+  if (lay.M <= 0 || lay.B <= 0) return 0;
   const size_t smem = sizeof(Scratch<T>) * kWarps;
   cudaError_t err = cudaFuncSetAttribute(
-      stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      stats_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long pairs = (long long)M * B;
+  const long long pairs = (long long)lay.M * lay.B;
   const dim3 grid((unsigned)((pairs + kWarps - 1) / kWarps));
-  stats_kernel<T><<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+  stats_kernel<T, L><<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
       md, ms, hw, ex, at, f2, sh, fw_pre, bw, fw_pre_f, bw_f, total, b12,
-      accum, pair, M, R, B);
+      accum, pair, lay);
   return (int)cudaGetLastError();
 }
 
@@ -325,7 +404,8 @@ int cnf_stats_f32(const int* md, const float* ms, const float* hw,
                   float* accum, float* pair, int M, int R, int B,
                   void* stream) {
   return launch_stats<float>(md, ms, hw, ex, at, f2, sh, fw_pre, bw, fw_pre_f,
-                             bw_f, total, b12, accum, pair, M, R, B, stream);
+                             bw_f, total, b12, accum, pair,
+                             V2Layout{M, R, B}, stream);
 }
 
 int cnf_stats_f64(const int* md, const double* ms, const double* hw,
@@ -335,8 +415,30 @@ int cnf_stats_f64(const int* md, const double* ms, const double* hw,
                   const double* total, double* b12, double* accum,
                   double* pair, int M, int R, int B, void* stream) {
   return launch_stats<double>(md, ms, hw, ex, at, f2, sh, fw_pre, bw,
-                              fw_pre_f, bw_f, total, b12, accum, pair, M, R,
-                              B, stream);
+                              fw_pre_f, bw_f, total, b12, accum, pair,
+                              V2Layout{M, R, B}, stream);
+}
+
+int cnf_stats_bmns_f32(const int* md, const float* ms, const float* hw,
+                       const int* ex, const int* at, const int* f2,
+                       const int* sh, const float* fw_pre, const float* bw,
+                       const float* fw_pre_f, const float* bw_f,
+                       const float* total, float* b12, float* accum,
+                       float* pair, int M, int B, void* stream) {
+  return launch_stats<float>(md, ms, hw, ex, at, f2, sh, fw_pre, bw, fw_pre_f,
+                             bw_f, total, b12, accum, pair,
+                             BMNSLayout{M, B}, stream);
+}
+
+int cnf_stats_bmns_f64(const int* md, const double* ms, const double* hw,
+                       const int* ex, const int* at, const int* f2,
+                       const int* sh, const double* fw_pre, const double* bw,
+                       const double* fw_pre_f, const double* bw_f,
+                       const double* total, double* b12, double* accum,
+                       double* pair, int M, int B, void* stream) {
+  return launch_stats<double>(md, ms, hw, ex, at, f2, sh, fw_pre, bw,
+                              fw_pre_f, bw_f, total, b12, accum, pair,
+                              BMNSLayout{M, B}, stream);
 }
 
 }  // extern "C"

@@ -2,14 +2,21 @@
 
 Port of ``cnf2freq_tpu/driver.py`` on its non-resident, unmeshed,
 unblocked, non-parity, native-flip branch: per chromosome and chunk of
-analysis units, the scan (ops/scan.py kernels) and the segment-sum merges
-run on the device and fold into per-individual accumulators that stay
-device tensors; the flip scorer runs on the device, the component solve
-on the host (C++ core); the capped-gradient updates run on the device
-and write the new parameters back into the shared ``Pedigree``.
+analysis units, the scan and the segment-sum merges run on the device and
+fold into per-individual accumulators that stay device tensors; the flip
+scorer runs on the device, the component solve on the host (C++ core);
+the capped-gradient updates run on the device and write the new
+parameters back into the shared ``Pedigree``.
 
-Adaptive relhaplo (the coherence pass) is not carried yet: relhaplo stays
-inert at its loaded values, the reference binary's own behaviour.
+Adaptive relhaplo is on by default, as in the JAX package: the scan then
+carries the adjacent-phase coherence of every slot (the classic
+[B, M, NS, S] pipeline of ``engine.chromosome_scan``, computed in one pass
+inside the scan as the JAX package's mesh route does), the coherence is
+scattered onto per-individual sums, and relhaplo is refreshed from them
+before the parameter updates.  ``adaptive_relhaplo=False`` runs the v2
+pipeline with relhaplo inert, the reference binary's own behaviour.
+
+The Driver runs on the card unless it is given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -21,21 +28,21 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from cnf2freq_tpu.config import (ModelConfig, RuntimeParams, SEXMARKER,
-                                 UNKNOWN, ZP_NO_EQUIVALENCE)
-from cnf2freq_tpu.pedigree import Pedigree
-
+from .config import (SEXMARKER, UNKNOWN, ZP_NO_EQUIVALENCE, ModelConfig,
+                     RuntimeParams)
 from .engine import scan_merged
 from .hmm.emission import build_blocks
 from .hmm.family import gather_family
 from .hmm.transition import rate_matrix
 from .ops.scan import R_QUANTUM
+from .pedigree import Pedigree
 from .updates.parameter_updates import update_haploweights, update_infprobs
 from .updates.phaseflip import (FlipCandidate, _components, apply_flips,
                                 extract_candidates, family_variables,
                                 make_flip_scorer, select_winner,
                                 solve_component)
 from .updates.relskew import relskew_ratio
+from .updates.scatter import scatter_coherence
 
 
 def copy_pedigree(ped: Pedigree) -> Pedigree:
@@ -56,6 +63,13 @@ class DriverState:
 
 # hot markers per chromosome that get a joint flip solve
 MAX_FLIP_MARKERS = 16
+# [M, 512] tensors per unit that a scan chunk holds: v2 pipeline (e, three
+# sweep stores, statistics and turn temporaries); classic pipeline with
+# coherence (e, three sweep stores, the turn transforms, one slot's
+# coherence temporaries)
+UNIT_TENSORS = {False: 8, True: 16}
+# relhaplo stays inside (RELHAPLO_CLIP, 1 - RELHAPLO_CLIP)
+RELHAPLO_CLIP = 1e-4
 # phase-anchor choice: relative width of a variance tie, and the variance
 # below which a marker counts as uninformative (the rounding residue of
 # an exact zero is ~1e-28)
@@ -91,8 +105,8 @@ def _torch_dtype(dtype) -> torch.dtype:
 
 class Driver:
     def __init__(self, ped: Pedigree, params: Optional[RuntimeParams] = None,
-                 dtype=torch.float64, device="cpu",
-                 adaptive_relhaplo: bool = False):
+                 dtype=torch.float64, device="cuda",
+                 adaptive_relhaplo: bool = True):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device "
@@ -106,21 +120,14 @@ class Driver:
         self.params = params or RuntimeParams()
         self.state = DriverState(scalefactor=self.params.scalefactor)
         self.dtype = _torch_dtype(dtype)
-        # measured adjacent-phase coherence feeding relhaplo: not carried
-        # yet (relhaplo stays inert, as in the reference binary)
+        # measured adjacent-phase coherence feeding relhaplo
         self.adaptive_relhaplo = adaptive_relhaplo
-        self._check_relhaplo()
         # units per scan chunk: "auto" sizes chunks to the device memory,
         # None scans the whole cohort at once, an int fixes the size
         self.batch_size = "auto"
         self._pair_tables: Dict[int, np.ndarray] = {}
         self._pair_pending: list = []
         self._cache: dict = {}
-
-    def _check_relhaplo(self):
-        if self.adaptive_relhaplo:
-            raise NotImplementedError(
-                "adaptive relhaplo (the coherence pass) is not ported yet")
 
     def _t(self, x, dtype=None):
         return torch.as_tensor(np.asarray(x), device=self.device,
@@ -154,11 +161,12 @@ class Driver:
         self._pair_pending.clear()
         return self._pair_tables
 
-    def _chunk_size(self, n_units: int, m_markers: int) -> int:
+    def _chunk_size(self, n_units: int, m_markers: int,
+                    with_coherence: bool = False) -> int:
         """Units per scan chunk.  "auto" on the card: half the free device
-        memory over ~8 [M, 512] tensors per unit (emissions, three sweep
-        stores, statistics and turn temporaries), in whole warps of units;
-        on the CPU the whole cohort."""
+        memory over the [M, 512] tensors a unit holds in the scan
+        (``UNIT_TENSORS``), in whole warps of units; on the CPU the whole
+        cohort."""
         if self.batch_size is None:
             return n_units
         if self.batch_size != "auto":
@@ -167,7 +175,7 @@ class Driver:
             return n_units
         free, _ = torch.cuda.mem_get_info(self.device)
         itemsize = torch.finfo(self.dtype).bits // 8
-        per_unit = 8 * m_markers * 512 * itemsize
+        per_unit = UNIT_TENSORS[with_coherence] * m_markers * 512 * itemsize
         bs = int(0.5 * free // per_unit)
         if bs >= n_units:
             return n_units
@@ -438,7 +446,6 @@ class Driver:
     # One iteration (doit)
     # ------------------------------------------------------------------
     def iterate(self, early: bool = False):
-        self._check_relhaplo()
         ped, cfg, params = self.ped, self.cfg, self.params
         dev, dt = self.device, self.dtype
         st = self.state
@@ -455,6 +462,10 @@ class Driver:
         infacc = torch.zeros((NI, M, 2, 2), dtype=dt, device=dev)
         winners: List[Optional[FlipCandidate]] = []
         loglik = torch.zeros((), dtype=torch.float64, device=dev)
+        need_coh = self.adaptive_relhaplo and bool(cfg.relskews)
+        if need_coh:
+            coh_num = torch.zeros((NI, M), dtype=dt, device=dev)
+            coh_den = torch.zeros((NI, M), dtype=dt, device=dev)
         self._pair_pending.clear()
 
         # vacant slots map to the sentinel row NI (dropped by the merges)
@@ -470,19 +481,27 @@ class Driver:
             Mc = hi - lo
             dists = self._t(np.diff(ped.markerposes[lo:hi]))
             rm = self._t(rate_matrix(cfg, params, Mc - 1, ped.actrec, lo))
-            bs = self._chunk_size(len(dous), Mc)
+            bs = self._chunk_size(len(dous), Mc, need_coh)
             weight_parts = []
             for b0 in range(0, len(dous), bs):
                 chunk = dous[b0:b0 + bs]
                 fb = gather_family(ped, chunk, lo, hi - 1,
                                    n_variants=1).to(dev, dt)
-                res, hb_p, hc_p, inf_p = scan_merged(fb, dists, lut, rm, cfg,
-                                                     params, NI)
+                res, hb_p, hc_p, inf_p = scan_merged(
+                    fb, dists, lut, rm, cfg, params, NI,
+                    with_coherence=need_coh)
                 self._pair_pending.append((list(chunk), lo, res.pair))
                 loglik += res.total.sum()
                 haplobase[:, lo:hi] += hb_p
                 haplocount[:, lo:hi] += hc_p
                 infacc[:, lo:hi] += inf_p
+                if need_coh:
+                    # the last marker has no right neighbour: its interval
+                    # coherence stays neutral
+                    coh = res.coherence.clone()
+                    coh[:, Mc - 1] = 0.5
+                    scatter_coherence(fb.slot_ind, fb.descendants, lo, coh,
+                                      coh_num, coh_den, lut)
                 if not early:
                     weight_parts.append(res.turn_weight)
                 del res
@@ -497,6 +516,8 @@ class Driver:
             winners.append(winner)
             del weight_parts
 
+        if need_coh:
+            self._refresh_relhaplo(ids, coh_num, coh_den)
         any_inv = any(w is not None for w in winners)
         sf = 0.0 if any_inv else st.scalefactor
         hits = self._process_infprobs(ids, infacc, sf)
@@ -504,6 +525,19 @@ class Driver:
         self._adapt_scalefactor(any_inv, hits, len(dous))
         return dict(hitnnn=hits, inverted=any_inv,
                     scalefactor=st.scalefactor, loglik=float(loglik))
+
+    def _refresh_relhaplo(self, ids, coh_num, coh_den):
+        """Adaptive relhaplo: the descendant-weighted mean coherence where
+        any was measured, clipped to [RELHAPLO_CLIP, 1 - RELHAPLO_CLIP]."""
+        num = coh_num.to("cpu", torch.float64).numpy()
+        den = coh_den.to("cpu", torch.float64).numpy()
+        got = den > 0
+        vals = np.where(got, num / np.maximum(den, 1), 0.5)
+        for i, n in enumerate(ids):
+            ind = self.ped.by_id(n)
+            if ind.relhaplo is not None and got[i].any():
+                ind.relhaplo[got[i]] = np.clip(vals[i, got[i]], RELHAPLO_CLIP,
+                                               1 - RELHAPLO_CLIP)
 
     # -- flip optimisation ----------------------------------------------
     def _flip_static(self, dous, chrom):
@@ -618,7 +652,7 @@ class Driver:
                       ) -> Optional[FlipCandidate]:
         """Joint flip solve over the scored hot markers (chromosome-local
         marker indices)."""
-        from cnf2freq_tpu.native import load_flipsolve
+        from .native import load_flipsolve
         ped = self.ped
         idx, mg, gains, S_top = self._canonical_scores(scored)
         varlists, pat, allowed, comp_struct, comp_of_fam = \

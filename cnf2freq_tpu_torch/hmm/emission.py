@@ -20,8 +20,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from cnf2freq_tpu.config import (ModelConfig, SEXMARKER, UNKNOWN, ZP_NONE,
-                                 ZP_PROPAGATE)
+from ..config import (SEXMARKER, UNKNOWN, ZP_NONE, ZP_PROPAGATE,
+                      ModelConfig)
 
 from .family import FamilyBatch
 

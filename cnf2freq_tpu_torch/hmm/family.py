@@ -8,8 +8,7 @@ Numpy gather of everything the emission model needs into dense arrays over
 Slot order: 0=focal, 1=parent0, 2=gp00, 3=gp01, 4=parent1, 5=gp10, 6=gp11.
 
 Carried from ``cnf2freq_tpu/hmm/family.py`` (same arrays, same rules):
-that package's ``hmm/__init__`` imports its JAX emission module, so the
-numpy gather cannot be imported from there without JAX.
+the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -20,8 +19,8 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from cnf2freq_tpu.config import ModelConfig
-from cnf2freq_tpu.pedigree import Pedigree
+from ..config import ModelConfig
+from ..pedigree import Pedigree
 
 _INT_FIELDS = ("md", "flag2ignore", "shiftignore", "descendants",
                "slot_ind")

@@ -16,7 +16,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from cnf2freq_tpu.config import ModelConfig, RuntimeParams
+from ..config import ModelConfig, RuntimeParams
 
 
 @lru_cache(maxsize=8)

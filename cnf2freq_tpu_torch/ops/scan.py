@@ -28,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cnf2freq_tpu.config import MINFACTOR, ModelConfig, RuntimeParams
+from ..config import MINFACTOR, ModelConfig, RuntimeParams
 
 from .. import _build
 from ..hmm.family import FamilyBatch

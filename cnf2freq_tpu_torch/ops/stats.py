@@ -7,17 +7,22 @@ helpers: enum axes LEADING, one flattened data axis trailing (the TPU's
 math mirrors hmm/emission.py, specialised to the engine's standard probe
 configuration (zp == ZP_NONE, ci == False, update == 0).
 
-``stats`` is the wrapper: a CPU tensor goes to ``stats_reference``; a CUDA
-tensor launches ``csrc/stats.cu`` (which replaces the TPU kernel
-``stats_pallas._kernel`` launched from ``scan_v2.stats_from_v2``) or
-raises.
+``stats`` is the wrapper of the v2 layout: a CPU tensor goes to
+``stats_reference``; a CUDA tensor launches ``csrc/stats.cu`` (which
+replaces the TPU kernel ``stats_pallas._kernel`` launched from
+``scan_v2.stats_from_v2``) or raises.  ``stats_pallas`` is the wrapper of
+the [B, M, NS, S] layout of the coherence-carrying scan (the TPU's own
+launcher ``stats_pallas.stats_pallas`` of the same kernel): a CPU tensor
+goes to ``stats_bmns_reference``, a CUDA tensor launches the second entry
+of ``csrc/stats.cu``, which reads the sweeps and the family batch in
+place.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cnf2freq_tpu.config import SEXMARKER, UNKNOWN, ModelConfig
+from ..config import SEXMARKER, UNKNOWN, ModelConfig
 
 from .. import _build
 
@@ -461,3 +466,97 @@ def stats(st, fw_pre, bw, fw_pre_f, bw_f, total, B: int, cfg: ModelConfig):
 
 
 stats.launches = 0
+
+
+def stats_bmns_reference(fb, fw_pre, bw, fw_pre_f, bw_f, total,
+                         cfg: ModelConfig, max_pairs: int = 1 << 15):
+    """Plain PyTorch statistics from the [B, M, NS, S] sweeps.
+
+    fb: torch FamilyBatch ([B, 7, M, ...]); fw_pre/bw [B, M, NS, S] with
+    the feature index shift-major (x = ns*64 + g); fw_pre_f/bw_f
+    [B, M, NS]; total [B].  Runs stats_tile over slabs of whole units of
+    at most ``max_pairs`` (unit, marker) pairs.
+    Returns (b12 [B,M,7,2], accum [B,M,7,2,2], pair [B,M,2,2])."""
+    B, M = fw_pre.shape[:2]
+    dt = fw_pre.dtype
+    step = max(1, max_pairs // M)
+    outs = []
+    for b0 in range(0, B, step):
+        bs = slice(b0, min(B, b0 + step))
+        K = bs.stop - b0
+        N = K * M
+
+        def per_unit(x):            # [K] -> [K*M]
+            return x[bs, None].expand(K, M).reshape(N)
+
+        def slot_unit(x):           # [K, 7] -> [7, K*M]
+            return x[bs].T[:, :, None].expand(7, K, M).reshape(7, N)
+
+        def sweep(x):               # [K, M, 512] -> [fp1,fp0,s2,s1,s0,N]
+            return x[bs].reshape(K, M, 2, 2, 2, 8, 8).permute(
+                5, 6, 2, 3, 4, 0, 1).reshape(8, 8, 2, 2, 2, N)
+
+        def factors(x):             # [K, M, 8] -> [s2,s1,s0,N]
+            return x[bs].reshape(K, M, 2, 2, 2).permute(
+                2, 3, 4, 0, 1).reshape(2, 2, 2, N)
+
+        b12, acc, pair = stats_tile(
+            fb.md[bs].permute(1, 3, 0, 2).reshape(7, 2, N),
+            fb.ms[bs].to(dt).permute(1, 3, 0, 2).reshape(7, 2, N),
+            fb.hw[bs].to(dt).permute(1, 0, 2).reshape(7, N),
+            slot_unit(fb.exists), slot_unit(fb.attop),
+            per_unit(fb.flag2ignore), per_unit(fb.shiftignore),
+            sweep(fw_pre), sweep(bw), factors(fw_pre_f), factors(bw_f),
+            per_unit(total), cfg)
+
+        def back(x, shape):         # [shape..., K*M] -> [K, M, shape...]
+            nl = len(shape)
+            x = x.reshape(shape + (K, M))
+            return x.permute((nl, nl + 1) + tuple(range(nl)))
+
+        outs.append((back(b12, (7, 2)), back(acc, (7, 2, 2)),
+                     back(pair, (2, 2))))
+    return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
+
+
+def stats_pallas(fb, fw_pre, bw, fw_pre_f, bw_f, total, cfg: ModelConfig):
+    """Statistics from the [B, M, NS, S] sweeps: (b12 [B,M,7,2], accum
+    [B,M,7,2,2], pair [B,M,2,2]).  CPU tensors run
+    ``stats_bmns_reference``; CUDA tensors launch the [B, M, NS, S] entry
+    of csrc/stats.cu."""
+    if fw_pre.device.type == "cpu":
+        return stats_bmns_reference(fb, fw_pre, bw, fw_pre_f, bw_f, total,
+                                    cfg)
+    _build.check_config(cfg)
+    B, M = fw_pre.shape[:2]
+    dt = fw_pre.dtype
+    i32 = torch.int32
+    md = fb.md.to(i32).contiguous()
+    ms = fb.ms.to(dt).contiguous()
+    hw = fb.hw.to(dt).contiguous()
+    ex, at = (x.to(i32).contiguous() for x in (fb.exists, fb.attop))
+    f2, sh = (x.to(i32).contiguous() for x in (fb.flag2ignore,
+                                                fb.shiftignore))
+    _build.check(fw_pre, dt, (B, M, 8, 64), "fw_pre")
+    _build.check(bw, dt, (B, M, 8, 64), "bw")
+    _build.check(fw_pre_f, dt, (B, M, 8), "fw_pre_f")
+    _build.check(bw_f, dt, (B, M, 8), "bw_f")
+    _build.check(total, dt, (B,), "total")
+    _build.check(md, i32, (B, 7, M, 2), "md")
+    _build.check(ms, dt, (B, 7, M, 2), "ms")
+    _build.check(hw, dt, (B, 7, M), "hw")
+    _build.check(ex, i32, (B, 7), "exists")
+    _build.check(at, i32, (B, 7), "attop")
+    _build.check(f2, i32, (B,), "flag2ignore")
+    _build.check(sh, i32, (B,), "shiftignore")
+    kw = dict(dtype=dt, device=fw_pre.device)
+    b12 = torch.empty((B, M, 7, 2), **kw)
+    accum = torch.empty((B, M, 7, 2, 2), **kw)
+    pair = torch.empty((B, M, 2, 2), **kw)
+    _build.launch("stats_bmns", dt, md, ms, hw, ex, at, f2, sh, fw_pre, bw,
+                  fw_pre_f, bw_f, total, b12, accum, pair, M, B)
+    stats_pallas.launches += 1
+    return b12, accum, pair
+
+
+stats_pallas.launches = 0

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from cnf2freq_tpu.config import RuntimeParams
+from ..config import RuntimeParams
 
 from .capped import cappedgd
 

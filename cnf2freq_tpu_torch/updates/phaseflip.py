@@ -4,14 +4,13 @@ Port of ``cnf2freq_tpu/updates/phaseflip.py``.  Per chromosome, turn
 weights are clamped, adjusted by the relskew clause terms, summed into
 per-family flip-pattern scores and reduced to the top-k gainful markers
 on the device (``make_flip_scorer``); the joint per-marker solve over
-families sharing individuals runs on the host in the shared C++ core
-(``cnf2freq_tpu.native``).
+families sharing individuals runs on the host in the C++ core
+(``native/flipsolve.cc``, the port's copy of the JAX package's).
 
 The numpy solver side (``_components``, ``solve_component``,
 ``FlipCandidate``, ``extract_candidates``, ``select_winner``,
-``apply_flips``, ``family_variables``) is carried over unchanged: its
-JAX-package module cannot be imported without JAX, because
-``cnf2freq_tpu/updates/__init__`` imports the JAX capped-gradient module.
+``apply_flips``, ``family_variables``) is carried over unchanged: the
+port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from cnf2freq_tpu.pedigree import Pedigree
+from ..pedigree import Pedigree
 
 WEIGHT_CLAMP_LO = -1_000_000.0
 WEIGHT_CLAMP_HI = 25_000.0
@@ -64,7 +63,12 @@ def _skew_terms(hw, rh, hb, hc, desc, M: int, halo: bool):
     B = hw.shape[0]
     dtype = hw.dtype
     Mi = M if halo else M - 1
-    tiny = 1e-323 if dtype == torch.float64 else 1e-38
+    # the smallest normal number, not a subnormal: at an anchored marker
+    # (haploweight exactly 0 or 1) the log guard meets a zero weight, and
+    # 0 * log(guard) must stay 0 wherever subnormals are flushed (the JAX
+    # package's 1e-323 flushes to 0 on XLA CPU and the TPU, making the
+    # term NaN there)
+    tiny = torch.finfo(dtype).tiny
 
     def slog(x):
         return torch.log(torch.clamp(x, min=tiny))

@@ -1,8 +1,8 @@
 """Accumulator-scatter helpers shared by the merges.
 
 Port of the pieces of ``cnf2freq_tpu/updates/scatter.py`` that the
-non-resident iteration uses: the movehaplos tiny term and the
-duplicate-slot masks.
+non-resident iteration uses: the movehaplos tiny term, the duplicate-slot
+masks and the coherence scatter behind adaptive relhaplo.
 """
 
 from __future__ import annotations
@@ -25,3 +25,23 @@ def dup_masks(slot_ind: torch.Tensor):
                      device=slot_ind.device).tril(-1)
     first = occ & ~(eq & tri[None]).any(dim=2)
     return eq, first
+
+
+def scatter_coherence(slot_ind: torch.Tensor, descendants: torch.Tensor,
+                      lo: int, coh: torch.Tensor, coh_num: torch.Tensor,
+                      coh_den: torch.Tensor, lut: torch.Tensor) -> None:
+    """coh [B, M, 7] adjacent-phase coherence -> descendant-weighted sums
+    on the individuals' rows of coh_num / coh_den [NI, M_total] (in place,
+    columns lo..lo+M); every occupied slot contributes, so a duplicate
+    member adds twice.  lut maps an individual id to its row."""
+    B, M, S = coh.shape
+    NI = coh_num.shape[0]
+    occupied = slot_ind > 0
+    rows = torch.where(occupied, lut[slot_ind.long()], NI).reshape(B * S)
+    desc = descendants.to(coh.dtype)[:, None, None]
+    num = (desc * coh).transpose(1, 2).reshape(B * S, M)
+    den = desc.expand(B, S, M).reshape(B * S, M)
+    for acc, val in ((coh_num, num), (coh_den, den)):
+        part = torch.zeros((NI + 1, M), dtype=acc.dtype, device=acc.device)
+        part.index_add_(0, rows, val.to(acc.dtype))
+        acc[:, lo:lo + M] += part[:NI]

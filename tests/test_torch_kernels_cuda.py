@@ -1,8 +1,8 @@
 """The CUDA kernels of cnf2freq_tpu_torch/csrc against their plain PyTorch
 versions, on the card (marker ``cuda``; skipped without a CUDA device).
 
-Run on a machine with the card:
-    python -m pytest tests/test_torch_kernels_cuda.py -m cuda
+Run on a machine with the card (tests/conftest.py imports JAX):
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
 Tolerances: float64 rtol=1e-9 (summation order only), float32 rtol=1e-3
 (rounding compounded over the marker sweeps).  Turn weights are compared
 above a cut, where they are log-ratios of xor-correlations still clear of
@@ -15,6 +15,11 @@ import pytest
 import torch
 from torch_port_util import cohort, torch_batch
 
+from cnf2freq_tpu_torch.hmm.emission import assemble_e_all, build_blocks
+from cnf2freq_tpu_torch.hmm.forward_backward import FBResult, combined_loglik
+from cnf2freq_tpu_torch.hmm.transition import (interval_recomb,
+                                               transition_eigenvalues)
+from cnf2freq_tpu_torch.ops import fb as pfb
 from cnf2freq_tpu_torch.ops import scan as ps
 from cnf2freq_tpu_torch.ops import stats as pst
 
@@ -48,9 +53,13 @@ def _close(got, ref, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("kernel", ["emission", "fb_sweep", "stats", "turn"])
+@pytest.mark.parametrize("kernel", ["emission", "fb_sweep", "stats", "turn",
+                                    "fb_classic", "stats_bmns"])
 def test_kernel_matches_plain(card, kernel, dtype):
     fbt, st, d, cfg, params, B, M = _inputs(card, dtype)
+    if kernel in ("fb_classic", "stats_bmns"):
+        _check_classic(kernel, fbt, d, cfg, params, dtype)
+        return
     e = ps.emission(st, M, cfg)
     if kernel == "emission":
         _close([e], [ps.emission_reference(st, M, cfg)], dtype)
@@ -74,6 +83,20 @@ def test_kernel_matches_plain(card, kernel, dtype):
                                atol=TOL[dtype]["atol"] + slack)
 
 
+def _check_classic(kernel, fbt, d, cfg, params, dtype):
+    """The [B, M, NS, S] kernels of the coherence-carrying scan."""
+    e = assemble_e_all(build_blocks(fbt, cfg, dtype=dtype), cfg)
+    lam = transition_eigenvalues(cfg, interval_recomb(cfg, params, d))
+    got = pfb.fb_sweeps(e, lam)
+    if kernel == "fb_classic":
+        _close(got, pfb.fb_sweeps_reference(e, lam), dtype)
+        return
+    fbres = FBResult(*got)
+    tot = combined_loglik(fbres, fbt.shiftignore)
+    args = (fbt, fbres.fw_pre, fbres.bw, fbres.fw_pre_f, fbres.bw_f, tot, cfg)
+    _close(pst.stats_pallas(*args), pst.stats_bmns_reference(*args), dtype)
+
+
 def test_wrapper_counts_and_checks(card):
     fbt, st, d, cfg, params, B, M = _inputs(card, torch.float64)
     before = ps.emission.launches
@@ -81,3 +104,10 @@ def test_wrapper_counts_and_checks(card):
     assert ps.emission.launches == before + 1
     with pytest.raises(ValueError):
         ps.emission(st._replace(ms=st.ms.transpose(2, 3)), M, cfg)
+    e = assemble_e_all(build_blocks(fbt, cfg), cfg)
+    lam = transition_eigenvalues(cfg, interval_recomb(cfg, params, d))
+    before = pfb.fb_sweeps.launches
+    pfb.fb_sweeps(e, lam)
+    assert pfb.fb_sweeps.launches == before + 1
+    with pytest.raises(ValueError):
+        pfb.fb_sweeps(e.transpose(0, 1), lam)
