@@ -10,7 +10,9 @@ Phases, in order, each printing its lines (any failure exits non-zero):
   kernels  each kernel against its plain PyTorch version on the card at
            the slices' shapes (M=192, B=1000), float32 and float64: max
            abs/rel error against the stated tolerance, and CUDA-event
-           times taken in turns plain, kernel, kernel, plain
+           times taken in turns plain, kernel, kernel, plain: the kernel
+           in 6 rounds of 20 launches (median, min and max), the plain
+           version in 2 rounds of 3
   slice    simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20,
            seed=7) on cuda in float32 with adaptive_relhaplo=False (the
            v2 pipeline): preprocess(), iterate(early=True), iterate() x 2,
@@ -35,6 +37,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -104,26 +107,31 @@ def wrappers():
             "fb_classic": pfb.fb_sweeps, "stats_bmns": pst.stats_pallas}
 
 
-def cuda_ms(fn, reps=3):
-    """Mean milliseconds of fn() over reps launches, by CUDA events."""
+def cuda_rounds(fn, rounds, reps):
+    """Milliseconds per launch of fn() in each of ``rounds`` rounds of
+    ``reps`` launches, by CUDA events, after one warm-up call."""
     fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    out = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(stop) / reps)
+    return out
 
 
 def in_turns(plain, kernel):
-    """(kernel_ms, plain_ms) measured plain, kernel, kernel, plain."""
-    p1 = cuda_ms(plain)
-    k1 = cuda_ms(kernel)
-    k2 = cuda_ms(kernel)
-    p2 = cuda_ms(plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    """(kernel round times, plain_ms) measured plain, kernel, kernel,
+    plain: the kernel in 2 x 3 rounds of 20 launches, the slow plain
+    version in one round of 3 on either side."""
+    p1 = cuda_rounds(plain, 1, 3)
+    k = cuda_rounds(kernel, 3, 20) + cuda_rounds(kernel, 3, 20)
+    p2 = cuda_rounds(plain, 1, 3)
+    return k, (p1[0] + p2[0]) / 2
 
 
 def nbytes(*xs):
@@ -221,7 +229,8 @@ def check_kernels(dtype):
     def record(name, got, ref, kernel, plain, moved, work, cmp=compare,
                **tol):
         a, r, ok = cmp(got, ref, dtype)
-        k_ms, p_ms = in_turns(plain, kernel)
+        rounds, p_ms = in_turns(plain, kernel)
+        k_ms = statistics.median(rounds)
         b_ms, b_by = bound(name, moved, work)
         out[name] = dict(max_abs_err=a, max_rel_err=r, ok=ok, ms=k_ms,
                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
@@ -229,7 +238,9 @@ def check_kernels(dtype):
         say("kernels", dtype=str(dtype).split(".")[-1], kernel=name,
             max_abs_err=f"{a:.3e}", max_rel_err=f"{r:.3e}", rtol=rtol,
             atol=atol, **tol, ok=ok, ms=f"{k_ms:.4f}",
-            plain_ms=f"{p_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+            ms_min=f"{min(rounds):.4f}", ms_max=f"{max(rounds):.4f}",
+            rounds=f"{len(rounds)}x20", plain_ms=f"{p_ms:.4f}",
+            bound_ms=f"{b_ms:.4f}", bound_by=b_by)
 
     # -- the v2 pipeline ([M, 512, R] layout) ---------------------------
     e = ps.emission(st, M, cfg)

@@ -1,6 +1,9 @@
 """The CUDA kernels of cnf2freq_tpu_torch/csrc against their plain PyTorch
 versions, on the card (marker ``cuda``; skipped without a CUDA device).
 
+``test_stats_edge_branches`` edits the family batch so that every branch
+of the block math that the statistics kernel's tables replace occurs.
+
 Run on a machine with the card (tests/conftest.py imports JAX):
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
 Tolerances: float64 rtol=1e-9 (summation order only), float32 rtol=1e-3
@@ -10,6 +13,8 @@ the transform's rounding floor, with an absolute slack added: in f32 the
 log of the 512-point transform's worst relative rounding at the cut
 (eps * 512 * e^5), in f64 1e-10.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -95,6 +100,75 @@ def _check_classic(kernel, fbt, d, cfg, params, dtype):
     tot = combined_loglik(fbres, fbt.shiftignore)
     args = (fbt, fbres.fw_pre, fbres.bw, fbres.fw_pre_f, fbres.bw_f, tot, cfg)
     _close(pst.stats_pallas(*args), pst.stats_bmns_reference(*args), dtype)
+
+
+def _edge_batch(seed=5):
+    """The ``_inputs`` family batch edited so that every branch of
+    root_block, parent_term and gp_term occurs: unknown values in every
+    slot, collapsed slots, zero error rates, the sex pseudo-allele 9,
+    vacant parents and grandparents, attop focals and parents, and random
+    shiftignore and flag2ignore bits.  Units whose likelihood the edits
+    make zero get their marker data back."""
+    _, fb, dists, cfg, params = cohort(B=37, M=11, seed=9, with_vacant=True)
+    orig = copy.deepcopy(fb)
+    rng = np.random.default_rng(seed)
+    md, ms = fb.md.copy(), fb.ms.copy()
+    md = np.where(rng.uniform(size=md.shape) < 0.2, 0, md)
+    # allele 2 renamed 9 at whole (unit, marker)s, which then have no
+    # unknown slot (an unknown slot takes no 9)
+    nine = rng.uniform(size=(md.shape[0], 1, md.shape[2], 1)) < 0.3
+    ms = np.where(nine & (md == 0), 0.2, ms)
+    md = np.where(nine, np.where(md == 2, 9, np.maximum(md, 1)), md)
+    col = rng.uniform(size=md.shape[:3]) < 0.2
+    md[..., 1] = np.where(col, md[..., 0], md[..., 1])
+    ms[..., 1] = np.where(col, ms[..., 0], ms[..., 1])
+    ms = np.where(rng.uniform(size=ms.shape) < 0.15, 0.0, ms)
+    ex, at = fb.exists.copy(), fb.attop.copy()
+    B = md.shape[0]
+    for b in range(B):
+        case = b % 6
+        if case == 1:
+            ex[b, [1, 2, 3]] = False        # vacant parent 0 and its parents
+        elif case == 2:
+            ex[b, 5] = False                # one vacant grandparent
+        elif case == 3:
+            ex[b, 4], at[b, 4] = True, True  # attop parent 1
+        elif case == 4:
+            at[b, 0] = True                 # attop focal
+        elif case == 5:
+            ex[b, [2, 6]] = False
+            at[b, 1] = True
+    fb.md, fb.ms, fb.exists, fb.attop = md.astype(np.int32), ms, ex, at
+    fb.flag2ignore = rng.integers(0, 128, B).astype(np.int32)
+    fb.shiftignore = rng.integers(0, 8, B).astype(np.int32)
+    # restore the marker data of units with likelihood zero (plain f64)
+    fbt = torch_batch(fb)
+    st = ps.prep_slots(fbt, torch.float64)
+    fb2 = ps.fb_sweeps(ps.emission(st, fbt.md.shape[2], cfg),
+                       torch.as_tensor(dists), cfg, params)
+    dead = (ps.combined_loglik_v2(fb2, st.sh)[:B] < -1e14).numpy()
+    fb.md[dead], fb.ms[dead] = orig.md[dead], orig.ms[dead]
+    assert dead.sum() < B // 4
+    return fb, dists, cfg, params
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kernel", ["stats", "stats_bmns"])
+def test_stats_edge_branches(card, kernel, dtype):
+    fb, dists, cfg, params = _edge_batch()
+    fbt = torch_batch(fb).to(card, dtype)
+    B, _, M, _ = fbt.md.shape
+    d = torch.as_tensor(dists, dtype=dtype, device=card)
+    if kernel == "stats_bmns":
+        _check_classic(kernel, fbt, d, cfg, params, dtype)
+        return
+    st = ps.prep_slots(fbt, dtype)
+    fb2 = ps.fb_sweeps(ps.emission(st, M, cfg), d, cfg, params)
+    tot = ps.combined_loglik_v2(fb2, st.sh)
+    args = (st, fb2.fw_pre, fb2.bw, fb2.fw_pre_f, fb2.bw_f, tot, B, cfg)
+    ref = pst.stats_reference(*args)
+    assert all(bool(torch.isfinite(r).all()) for r in ref)
+    _close(pst.stats(*args), ref, dtype)
 
 
 def test_wrapper_counts_and_checks(card):
