@@ -10,35 +10,51 @@
 // The backward sweep seeds ones / zero factors at the last marker and
 // uses lam row m-1 when stepping from marker m to m-1.
 //
-// Bound on the H100: memory.  Per marker a thread reads 64 emissions and
-// writes 64 values of each stored sweep tensor (fw_pre, fw_post, bw: ~1.6
-// GB at M=192, R=1024 in f32, plus 2 reads of e); the 2 x 6 x 32
-// butterflies per step are cheap.  The marker axis is sequential, so the
-// parallelism is R x 8 threads.  Design: one thread per (unit, shift)
-// keeps its carry in registers across the whole marker loop (the TPU kept
-// it in VMEM across a sequential grid axis), the FWHT runs as unrolled
-// register butterflies, normalisation is per shift so no reduction
-// crosses threads, and the 32 threads of a warp are 32 consecutive units
-// of one shift, so every load and store is coalesced over r.
+// Bound on the H100: memory in principle (e read by both sweeps, fw_pre,
+// fw_post and bw written: ~1.6 GB at M=192, R=1024 in f32), but the
+// marker axis is sequential, so what limits a launch is how many
+// (unit, shift) chains are in flight and how long one marker step takes:
+// R x 8 chains per sweep, a chain of dependent loads, a sum, divides, a
+// log and two FWHTs per step.  Design: K lanes share one chain (Lanes<T>
+// below); lane q holds states q*(64/K) + j in registers across the whole
+// marker loop.  FWHT strides below 64/K stay in the lane, strides from
+// 64/K up go through __shfl_xor_sync on the lane bits of q; the
+// renormalising sum is the lane's partial sum plus log2 K xor-shuffles,
+// so every lane of a chain holds the same s and takes the same branch.
+// A warp covers 32/K consecutive units of one shift, so for a fixed j
+// one load or store touches K rows x 32/K units: whole 32-byte sectors
+// for K <= 4 in f32 and K <= 8 in f64.  Forward and backward sweeps are
+// the two halves of one grid (blockIdx.z), both in flight together, and
+// the next marker's e slice is loaded before the current step's
+// arithmetic.  The division stays IEEE (no reciprocal, no fast math).
+//
+// Kept K, from a variant run at M=192, R=1024 (K = 1, 2, 4, 8, 32 timed
+// in turns; NVIDIA H100 80GB HBM3, 700.00 W): K = 4 in float, 0.914 ms a
+// launch, 80 registers; K = 8 in double, 2.114 ms, 108 registers; no
+// local memory in either.  Sector fill decides first (float K = 8 took
+// 3.5 ms, K = 32 9.7 ms), then one wave of blocks (double K = 4, at 162
+// registers, fits 3 blocks an SM: 4.6 ms).  The one-thread-per-chain body
+// this replaced took 3.739 ms (float) and 7.142 ms (double) on the same
+// card, its 64 carries in local memory.
 #include <cuda_runtime.h>
 
 #include "blocks.cuh"
 
 namespace {
 
+constexpr int kThreads = 128;
+
+// lanes per (unit, shift) chain, kept per type
 template <typename T>
-__device__ __forceinline__ void fwht64(T (&p)[64]) {
-#pragma unroll
-  for (int h = 1; h < 64; h <<= 1)
-#pragma unroll
-    for (int i = 0; i < 64; i += 2 * h)
-#pragma unroll
-      for (int j = i; j < i + h; ++j) {
-        const T a = p[j], b = p[j + h];
-        p[j] = a + b;
-        p[j + h] = a - b;
-      }
-}
+struct Lanes;
+template <>
+struct Lanes<float> {
+  static constexpr int k = 4;
+};
+template <>
+struct Lanes<double> {
+  static constexpr int k = 8;
+};
 
 // the adjustprobs zero clip 1e-300, as the type holds it: 0 in float,
 // where only negative rounding residue is clipped
@@ -53,86 +69,164 @@ struct Clip<double> {
   static constexpr double v = 1e-300;
 };
 
-// adjustprobs: clip, multiply by e, renormalise; p in place, f updated
-template <typename T>
-__device__ __forceinline__ void emit_norm(T (&p)[64], T& f, const T* e,
-                                          size_t stride) {
+// the K lanes of this lane's chain (aligned groups of K lanes)
+template <int K>
+__device__ __forceinline__ unsigned chain_mask(int lane) {
+  static_assert(K > 0 && K < 32 && (K & (K - 1)) == 0,
+                "K: a power of two below 32");
+  return ((1u << K) - 1u) << (lane & ~(K - 1));
+}
+
+// unnormalised FWHT64 over the chain: strides 1..P/2 in the lane, strides
+// P..32 across the lanes q ^ (h / P)
+template <typename T, int K>
+__device__ __forceinline__ void fwht64(T (&p)[64 / K], int q,
+                                       unsigned mask) {
+  constexpr int P = 64 / K;
+#pragma unroll
+  for (int h = 1; h < P; h <<= 1)
+#pragma unroll
+    for (int i = 0; i < P; i += 2 * h)
+#pragma unroll
+      for (int j = i; j < i + h; ++j) {
+        const T a = p[j], b = p[j + h];
+        p[j] = a + b;
+        p[j + h] = a - b;
+      }
+#pragma unroll
+  for (int b = 1; b < K; b <<= 1) {
+    const bool upper = (q & b) != 0;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const T o = __shfl_xor_sync(mask, p[j], b);
+      p[j] = upper ? o - p[j] : p[j] + o;
+    }
+  }
+}
+
+// adjustprobs: clip, multiply by e, renormalise; p in place, f updated.
+// The xor-butterfly sum gives every lane of the chain the same s.
+template <typename T, int K>
+__device__ __forceinline__ void emit_norm(T (&p)[64 / K], T& f,
+                                          const T (&e)[64 / K],
+                                          unsigned mask) {
+  constexpr int P = 64 / K;
   const T clip = Clip<T>::v;
   T s = T(0);
 #pragma unroll
-  for (int g = 0; g < 64; ++g) {
-    const T q = (p[g] < clip ? T(0) : p[g]) * e[g * stride];
-    p[g] = q;
-    s += q;
+  for (int j = 0; j < P; ++j) {
+    const T v = (p[j] < clip ? T(0) : p[j]) * e[j];
+    p[j] = v;
+    s += v;
   }
+#pragma unroll
+  for (int o = 1; o < K; o <<= 1) s += __shfl_xor_sync(mask, s, o);
   if (s > T(0)) {
 #pragma unroll
-    for (int g = 0; g < 64; ++g) p[g] = p[g] / s;
+    for (int j = 0; j < P; ++j) p[j] = p[j] / s;
     f = f + log(s);
   } else {
 #pragma unroll
-    for (int g = 0; g < 64; ++g) p[g] = T(0);
+    for (int j = 0; j < P; ++j) p[j] = T(0);
     f = T(cnf::kMinFactor);
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void transition(T (&p)[64], const T* lam) {
-  fwht64(p);
+template <typename T, int K>
+__device__ __forceinline__ void transition(T (&p)[64 / K],
+                                           const T (&lam)[64 / K], int q,
+                                           unsigned mask) {
+  constexpr int P = 64 / K;
+  fwht64<T, K>(p, q, mask);
 #pragma unroll
-  for (int g = 0; g < 64; ++g) p[g] *= lam[g];
-  fwht64(p);
+  for (int j = 0; j < P; ++j) p[j] *= lam[j];
+  fwht64<T, K>(p, q, mask);
 #pragma unroll
-  for (int g = 0; g < 64; ++g) p[g] *= T(1.0 / 64.0);
+  for (int j = 0; j < P; ++j) p[j] *= T(1.0 / 64.0);
 }
 
-template <typename T>
-__global__ void fwd_kernel(const T* __restrict__ e, const T* __restrict__ lam,
-                           T evengen, T* __restrict__ fw_pre,
-                           T* __restrict__ fw_post, T* __restrict__ fw_pre_f,
-                           T* __restrict__ fw_post_f, int M, int R) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = blockIdx.y;
-  if (r >= R) return;
-  const size_t stride = R;
-  T p[64];
+// the lane's P values of row block `at` (stride R) into v
+template <typename T, int K>
+__device__ __forceinline__ void load_rows(T (&v)[64 / K],
+                                          const T* __restrict__ at,
+                                          size_t stride) {
 #pragma unroll
-  for (int g = 0; g < 64; ++g) p[g] = evengen;
-  T f = T(0);
-  for (int m = 0; m < M; ++m) {
-    const size_t base = ((size_t)m * 512 + n * 64) * stride + r;
-    const size_t fi = ((size_t)m * 8 + n) * stride + r;
-#pragma unroll
-    for (int g = 0; g < 64; ++g) fw_pre[base + g * stride] = p[g];
-    fw_pre_f[fi] = f;
-    emit_norm(p, f, e + base, stride);
-#pragma unroll
-    for (int g = 0; g < 64; ++g) fw_post[base + g * stride] = p[g];
-    fw_post_f[fi] = f;
-    transition(p, lam + (size_t)m * 64);
-  }
+  for (int j = 0; j < 64 / K; ++j) v[j] = at[j * stride];
 }
 
-template <typename T>
-__global__ void bwd_kernel(const T* __restrict__ e, const T* __restrict__ lam,
-                           T* __restrict__ bw, T* __restrict__ bw_f, int M,
-                           int R) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = blockIdx.y;
-  if (r >= R) return;
+template <typename T, int K>
+__device__ __forceinline__ void store_rows(T* __restrict__ at,
+                                           const T (&v)[64 / K],
+                                           size_t stride) {
+#pragma unroll
+  for (int j = 0; j < 64 / K; ++j) at[j * stride] = v[j];
+}
+
+template <typename T, int K>
+__device__ __forceinline__ void load_lam(T (&v)[64 / K],
+                                         const T* __restrict__ row) {
+#pragma unroll
+  for (int j = 0; j < 64 / K; ++j) v[j] = __ldg(row + j);
+}
+
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads)
+    fb_sweep_kernel(const T* __restrict__ e, const T* __restrict__ lam,
+                    T evengen, T* __restrict__ fw_pre,
+                    T* __restrict__ fw_post, T* __restrict__ bw,
+                    T* __restrict__ fw_pre_f, T* __restrict__ fw_post_f,
+                    T* __restrict__ bw_f, int M, int R) {
+  constexpr int P = 64 / K;
+  const int q = threadIdx.x & (K - 1);
+  const int r = blockIdx.x * (kThreads / K) + threadIdx.x / K;
+  if (r >= R) return;  // the chain's K lanes share r, so all leave
+  const unsigned mask = chain_mask<K>(threadIdx.x & 31);
   const size_t stride = R;
-  T p[64];
-#pragma unroll
-  for (int g = 0; g < 64; ++g) p[g] = T(1);
+  const size_t mstep = (size_t)512 * stride;
+  // element (m, n*64 + q*P + j, r) is base + m*mstep + j*stride;
+  // factor (m, n, r) is fbase + m*fstep
+  const size_t base = ((size_t)blockIdx.y * 64 + q * P) * stride + r;
+  const size_t fbase = (size_t)blockIdx.y * stride + r;
+  const size_t fstep = (size_t)8 * stride;
+  const T* lamq = lam + q * P;
+  T p[P], ec[P], en[P], lr[P];
   T f = T(0);
-  for (int m = M - 1; m >= 0; --m) {
-    const size_t base = ((size_t)m * 512 + n * 64) * stride + r;
+
+  if (blockIdx.z == 0) {
 #pragma unroll
-    for (int g = 0; g < 64; ++g) bw[base + g * stride] = p[g];
-    bw_f[((size_t)m * 8 + n) * stride + r] = f;
-    if (m > 0) {
-      emit_norm(p, f, e + base, stride);
-      transition(p, lam + (size_t)(m - 1) * 64);
+    for (int j = 0; j < P; ++j) p[j] = evengen;
+    load_rows<T, K>(ec, e + base, stride);
+    for (int m = 0; m < M; ++m) {
+      const size_t i = base + (size_t)m * mstep;
+      const size_t fi = fbase + (size_t)m * fstep;
+      // the next marker's e (clamped at the last; re-read, unused)
+      load_rows<T, K>(en, e + base + (size_t)min(m + 1, M - 1) * mstep,
+                      stride);
+      load_lam<T, K>(lr, lamq + (size_t)m * 64);
+      store_rows<T, K>(fw_pre + i, p, stride);
+      if (q == 0) fw_pre_f[fi] = f;
+      emit_norm<T, K>(p, f, ec, mask);
+      store_rows<T, K>(fw_post + i, p, stride);
+      if (q == 0) fw_post_f[fi] = f;
+      transition<T, K>(p, lr, q, mask);
+#pragma unroll
+      for (int j = 0; j < P; ++j) ec[j] = en[j];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < P; ++j) p[j] = T(1);
+    load_rows<T, K>(ec, e + base + (size_t)(M - 1) * mstep, stride);
+    for (int m = M - 1; m >= 0; --m) {
+      store_rows<T, K>(bw + base + (size_t)m * mstep, p, stride);
+      if (q == 0) bw_f[fbase + (size_t)m * fstep] = f;
+      if (m > 0) {  // uniform over the chain
+        load_rows<T, K>(en, e + base + (size_t)(m - 1) * mstep, stride);
+        load_lam<T, K>(lr, lamq + (size_t)(m - 1) * 64);
+        emit_norm<T, K>(p, f, ec, mask);
+        transition<T, K>(p, lr, q, mask);
+#pragma unroll
+        for (int j = 0; j < P; ++j) ec[j] = en[j];
+      }
     }
   }
 }
@@ -142,15 +236,12 @@ int launch_fb(const T* e, const T* lam, T evengen, T* fw_pre, T* fw_post,
               T* bw, T* fw_pre_f, T* fw_post_f, T* bw_f, int M, int R,
               void* stream) {
   if (M <= 0 || R <= 0) return 0;
-  // one warp per block: R/32 x 8 blocks spread over every SM
-  const dim3 block(32);
-  const dim3 grid((R + 31) / 32, 8);
-  cudaStream_t s = (cudaStream_t)stream;
-  fwd_kernel<T><<<grid, block, 0, s>>>(e, lam, evengen, fw_pre, fw_post,
-                                       fw_pre_f, fw_post_f, M, R);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  bwd_kernel<T><<<grid, block, 0, s>>>(e, lam, bw, bw_f, M, R);
+  constexpr int K = Lanes<T>::k;
+  constexpr int units = kThreads / K;
+  // x: unit tiles, y: shift, z: forward / backward sweep
+  const dim3 grid((R + units - 1) / units, 8, 2);
+  fb_sweep_kernel<T, K><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      e, lam, evengen, fw_pre, fw_post, bw, fw_pre_f, fw_post_f, bw_f, M, R);
   return (int)cudaGetLastError();
 }
 

@@ -16,11 +16,27 @@
 //
 // Bound on the H100: memory (2 x 512 loads per pair against 3 x 9 x 256
 // butterflies); the 128 outputs are written straight in the final
-// [B, M, 128] layout.  Design: one warp per (m, r), 16 values per lane
-// (x = lane*16 + i): butterflies of stride < 16 stay inside the lane,
-// strides 16..256 go through __shfl_xor_sync.  Consecutive warps of a
-// block take consecutive units of one marker, so a block's loads of one
-// feature row share cache sectors.
+// [B, M, 128] layout.  In [M, 512, R] one pair's 512 values lie at stride
+// R, so a warp that loads one unit touches 32 sectors for 32 words.
+// Design: a block takes one marker and U = kUnits consecutive units.
+// First U x 8 threads put the per-(unit, shift) exp factors into shared
+// memory; then the block stages the [512 x U] tiles of fw_post and bw in
+// shared memory with the unit index fastest across threads, so each warp
+// load covers whole sectors, scaling by the factors on the way; rows are
+// padded by 32/U values so those stores hit 32 distinct banks.  Then one
+// warp per unit transforms its 512 values with x = i*32 + lane
+// (conflict-free shared reads): strides 32..256 stay in the lane,
+// strides 1..16 go through __shfl_xor_sync.  D reuses the unit's fw_post
+// row.  Each butterfly stage is its own fixed 16-step loop: written as
+// one loop nest over the strides, the two 16-value arrays were left in
+// local memory, which cost 3x the time.
+//
+// Kept U, from a variant run at M=192, B=1000 (U = 8, 16 timed in turns;
+// NVIDIA H100 80GB HBM3, 700.00 W): U = 8 in both types, 0.451 ms a
+// launch in float (64 registers, 33 KB of tiles a block) and 0.992 ms in
+// double (80 registers, 66 KB); U = 16 took 0.682 / 1.287 ms.  The
+// warp-per-pair body that loaded straight from device memory took
+// 1.502 / 2.780 ms on the same card.
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -29,7 +45,8 @@
 
 namespace {
 
-constexpr int kWarps = 8;
+// units (= warps) a block: 16 was slower in both types
+constexpr int kUnits = 8;
 
 template <typename T>
 struct Tiny;
@@ -42,87 +59,143 @@ struct Tiny<double> {
   static __device__ __forceinline__ double v() { return DBL_MIN; }
 };
 
-template <typename T>
-__device__ __forceinline__ void wht512(T (&v)[16], int lane) {
+// a unit's tile row: 512 values and 32/kUnits of padding
+constexpr int kRowLen = 512 + 32 / kUnits;
+
+// butterflies of stride H*32 inside the lane (i and i | H); one fixed
+// 16-step loop per stage keeps every index static, so the values stay in
+// registers
+template <int H, typename T>
+__device__ __forceinline__ void lane_stage(T (&v)[16]) {
 #pragma unroll
-  for (int h = 1; h < 16; h <<= 1)
-#pragma unroll
-    for (int i = 0; i < 16; i += 2 * h)
-#pragma unroll
-      for (int j = i; j < i + h; ++j) {
-        const T a = v[j], b = v[j + h];
-        v[j] = a + b;
-        v[j + h] = a - b;
-      }
-#pragma unroll
-  for (int bit = 1; bit < 32; bit <<= 1) {
-    const bool upper = lane & bit;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const T other = __shfl_xor_sync(0xffffffffu, v[i], bit);
-      v[i] = upper ? other - v[i] : v[i] + other;
+  for (int i = 0; i < 16; ++i)
+    if ((i & H) == 0) {
+      const T a = v[i], b = v[i | H];
+      v[i] = a + b;
+      v[i | H] = a - b;
     }
+}
+
+// butterflies of stride BIT across the lanes lane and lane ^ BIT
+template <int BIT, typename T>
+__device__ __forceinline__ void shuffle_stage(T (&v)[16], int lane) {
+  const bool upper = (lane & BIT) != 0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const T other = __shfl_xor_sync(0xffffffffu, v[i], BIT);
+    v[i] = upper ? other - v[i] : v[i] + other;
   }
 }
 
+// 512-point WHT over a warp with x = i*32 + lane
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
+__device__ __forceinline__ void wht512(T (&v)[16], int lane) {
+  lane_stage<1>(v);
+  lane_stage<2>(v);
+  lane_stage<4>(v);
+  lane_stage<8>(v);
+  shuffle_stage<1>(v, lane);
+  shuffle_stage<2>(v, lane);
+  shuffle_stage<4>(v, lane);
+  shuffle_stage<8>(v, lane);
+  shuffle_stage<16>(v, lane);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kUnits * 32)
     turn_kernel(const T* __restrict__ fw_post, const T* __restrict__ bw,
                 const T* __restrict__ fw_post_f, const T* __restrict__ bw_f,
                 const int* __restrict__ sh, const T* __restrict__ desc,
                 const int* __restrict__ idx, T* __restrict__ out, int M,
                 int R, int B) {
-  __shared__ T dsh[kWarps][512];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long pair = (long long)blockIdx.x * kWarps + warp;
-  if (pair >= (long long)M * B) return;
-  const int m = (int)(pair / B), r = (int)(pair % B);
+  constexpr int U = kUnits, L = kRowLen;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const ft = reinterpret_cast<T*>(smem);  // [U][L], then D
+  T* const bt = ft + U * L;                  // [U][L]
+  __shared__ T fexp[U][8], bexp[U][8];
+  const int tid = threadIdx.x;
+  const int m = blockIdx.y;
+  const int r0 = blockIdx.x * U;
   const size_t stride = R;
 
-  const int shig = sh[r];
-  const T big = T(-1e38);
-  T ffm = big, bfm = T(0);
+  // per-(unit, shift) factors, unit fastest
+  if (tid < U * 8) {
+    const int u = tid % U, n = tid / U, r = r0 + u;
+    T fe = T(0), be = T(0);
+    if (r < B) {
+      const int shig = sh[r];
+      const T big = T(-1e38);
+      T ffm = big, bfm = T(0);
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const T ff = fw_post_f[((size_t)m * 8 + n) * stride + r];
-    const T bf = bw_f[((size_t)m * 8 + n) * stride + r];
-    const T ffa = (n & shig) == 0 ? ff : big;
-    ffm = n == 0 ? ffa : fmax(ffm, ffa);
-    bfm = n == 0 ? bf : fmax(bfm, bf);
+      for (int k = 0; k < 8; ++k) {
+        const T ff = fw_post_f[((size_t)m * 8 + k) * stride + r];
+        const T bf = bw_f[((size_t)m * 8 + k) * stride + r];
+        const T ffa = (k & shig) == 0 ? ff : big;
+        ffm = k == 0 ? ffa : fmax(ffm, ffa);
+        bfm = k == 0 ? bf : fmax(bfm, bf);
+      }
+      const T ffn = fw_post_f[((size_t)m * 8 + n) * stride + r];
+      fe = (n & shig) == 0 ? exp(ffn - ffm) : T(0);
+      be = exp(bw_f[((size_t)m * 8 + n) * stride + r] - bfm);
+    }
+    fexp[u][n] = fe;
+    bexp[u][n] = be;
   }
-  const int n = lane >> 2;  // shift of this lane's 16 features
-  const T ffn = fw_post_f[((size_t)m * 8 + n) * stride + r];
-  const T fexp = (n & shig) == 0 ? exp(ffn - ffm) : T(0);
-  const T bexp = exp(bw_f[((size_t)m * 8 + n) * stride + r] - bfm);
+  __syncthreads();
 
+  // the [512 x U] tiles: thread (x0 = tid / U, u = tid % U) takes rows
+  // x0 + 32k, so a warp's load covers 32/U rows x U units
+  {
+    const int u = tid % U, x0 = tid / U, r = r0 + u;
+    const size_t base = (size_t)m * 512 * stride + r;
+    T fv[16], bv[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const size_t at = base + (size_t)(x0 + 32 * k) * stride;
+      fv[k] = r < B ? fw_post[at] : T(0);
+      bv[k] = r < B ? bw[at] : T(0);
+    }
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int x = x0 + 32 * k;
+      ft[u * L + x] = fv[k] * fexp[u][x >> 6];
+      bt[u * L + x] = bv[k] * bexp[u][x >> 6];
+    }
+  }
+  __syncthreads();
+
+  // one warp per unit
+  const int lane = tid & 31, w = tid >> 5, r = r0 + w;
+  if (r >= B) return;  // whole warps; no block barrier follows
+  T* const dr = ft + w * L;
+  const T* const br = bt + w * L;
   T f[16], b[16];
-  const size_t base = (size_t)m * 512 * stride + r;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const size_t x = lane * 16 + i;
-    f[i] = fw_post[base + x * stride] * fexp;
-    b[i] = bw[base + x * stride] * bexp;
+    f[i] = dr[i * 32 + lane];
+    b[i] = br[i * 32 + lane];
   }
   wht512(f, lane);
   wht512(b, lane);
 #pragma unroll
   for (int i = 0; i < 16; ++i) f[i] *= b[i];
   wht512(f, lane);
+  __syncwarp();
 #pragma unroll
-  for (int i = 0; i < 16; ++i) dsh[warp][lane * 16 + i] = f[i] * T(1.0 / 512.0);
+  for (int i = 0; i < 16; ++i) dr[i * 32 + lane] = f[i] * T(1.0 / 512.0);
   __syncwarp();
 
   const T tiny = Tiny<T>::v();
-  const T v0 = dsh[warp][0];
+  const T v0 = dr[0];
   const T logv0 = log(v0 > tiny ? v0 : tiny);
   const T d = desc[r];
   T* o = out + ((size_t)r * M + m) * 128;
 #pragma unroll
   for (int t = lane; t < 128; t += 32) {
-    const T v = dsh[warp][idx[t]];
+    const T v = dr[idx[t]];
     const T logv = log(v > tiny ? v : tiny);
-    const T w = (v > T(0) && v0 > T(0)) ? logv - logv0 : T(cnf::kMinFactor);
-    o[t] = w * d;
+    const T wt = (v > T(0) && v0 > T(0)) ? logv - logv0 : T(cnf::kMinFactor);
+    o[t] = wt * d;
   }
 }
 
@@ -131,9 +204,14 @@ int launch_turn(const T* fw_post, const T* bw, const T* fw_post_f,
                 const T* bw_f, const int* sh, const T* desc, const int* idx,
                 T* out, int M, int R, int B, void* stream) {
   if (M <= 0 || B <= 0) return 0;
-  const long long pairs = (long long)M * B;
-  const dim3 grid((unsigned)((pairs + kWarps - 1) / kWarps));
-  turn_kernel<T><<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
+  constexpr size_t smem = 2 * kUnits * kRowLen * sizeof(T);
+  // above 48 KB (double) the dynamic shared memory needs the attribute
+  cudaError_t err = cudaFuncSetAttribute(
+      turn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + kUnits - 1) / kUnits, M);
+  turn_kernel<T><<<grid, kUnits * 32, smem, (cudaStream_t)stream>>>(
       fw_post, bw, fw_post_f, bw_f, sh, desc, idx, out, M, R, B);
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,10 @@
 versions, on the card (marker ``cuda``; skipped without a CUDA device).
 
 ``test_stats_edge_branches`` edits the family batch so that every branch
-of the block math that the statistics kernel's tables replace occurs.
+of the block math that the statistics kernel's tables replace occurs;
+``test_fb_sweep_edges`` and ``test_turn_edges`` hold the sweep and turn
+kernels at their edges (one or two markers, an R not a multiple of 64,
+zero emission blocks; a single allowed shift, D <= 0).
 
 Run on a machine with the card (tests/conftest.py imports JAX):
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
@@ -169,6 +172,77 @@ def test_stats_edge_branches(card, kernel, dtype):
     ref = pst.stats_reference(*args)
     assert all(bool(torch.isfinite(r).all()) for r in ref)
     _close(pst.stats(*args), ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["M1", "M2", "R96", "zero_e"])
+def test_fb_sweep_edges(card, case, dtype):
+    """One or two markers; an R that is a multiple of 32 but not of 64;
+    whole shift blocks of e at zero, which take every lane of a chain
+    through the MINFACTOR branch and carry zeros into the next step."""
+    B, M = {"M1": (37, 1), "M2": (37, 2), "R96": (90, 5),
+            "zero_e": (37, 11)}[case]
+    _, fb, dists, cfg, params = cohort(B=B, M=M, seed=9, with_vacant=True)
+    fbt = torch_batch(fb).to(card, dtype)
+    st = ps.prep_slots(fbt, dtype)
+    if case == "R96":
+        assert st.R == 96
+    d = torch.as_tensor(dists, dtype=dtype, device=card)
+    e = ps.emission(st, M, cfg)
+    dead = [(0, 3), (5, 7)] + [(n, 11) for n in range(8)]  # (shift, unit)
+    if case == "zero_e":
+        for n, r in dead:
+            e[1, n * 64:(n + 1) * 64, r] = 0
+    got = ps.fb_sweeps(e, d, cfg, params)
+    _close(got, ps.fb_scan_v2(e, d, cfg, params), dtype)
+    if case == "zero_e":
+        for n, r in dead:
+            blk = slice(n * 64, (n + 1) * 64)
+            assert (got.fw_post[1, blk, r] == 0).all()
+            assert (got.fw_pre[2, blk, r] == 0).all()
+            assert (got.bw[0, blk, r] == 0).all()
+            for f in (got.fw_post_f[1], got.fw_post_f[2], got.bw_f[0]):
+                assert f[n, r] == -1e15
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_turn_edges(card, dtype):
+    """Units whose shiftignore masks every shift but 0, and units whose
+    sweeps are edited so that D is exactly 0 or negative at offsets (and
+    at offset 0) with D[0] > 0 elsewhere: every such entry takes the
+    MINFACTOR branch on both sides, exactly."""
+    fbt, st, d, cfg, params, B, M = _inputs(card, dtype)
+    fb2 = ps.fb_sweeps(ps.emission(st, M, cfg), d, cfg, params)
+    sh = st.sh.clone()
+    sh[[1, 8, 20]] = 7
+    fw_post, bw = fb2.fw_post.clone(), fb2.bw.clone()
+    fw_post_f, bw_f = fb2.fw_post_f.clone(), fb2.bw_f.clone()
+    exact = [2, 4, 6]
+    for r in exact:
+        fw_post[:, :, r] = 0
+        bw[:, :, r] = 0
+        fw_post_f[:, :, r] = 0
+        bw_f[:, :, r] = 0
+        fw_post[:, 5, r] = 1
+    bw[:, 9, 2] = 1                   # D[0] = 0: the whole row
+    bw[:, 5, 4] = 1                   # D[0] > 0, D = 0 off offset 0
+    bw[:, 5, 6] = 1                   # D[0] > 0, D[12] < 0
+    bw[:, 5 ^ 12, 6] = -0.5
+    sh[exact] = 0
+    fb2 = fb2._replace(fw_post=fw_post, bw=bw, fw_post_f=fw_post_f,
+                       bw_f=bw_f)
+    desc = fbt.descendants.to(dtype).clone()
+    desc[exact] = 2.0
+    got = ps.turn_weights(fb2, sh, desc, cfg, B).cpu().numpy()
+    ref = ps.turn_weights_v2(fb2, sh, desc, cfg, B).cpu().numpy()
+    np.testing.assert_array_equal(got[exact], ref[exact])
+    assert (ref[2] == -2e15).all()
+    assert (ref[6] == -2e15).any() and (ref[6] == 0).any()
+    cut, slack = TURN[dtype]["cut"], TURN[dtype]["slack"]
+    keep = ref > -cut
+    assert (got[~keep] <= -cut + 1.0).all()
+    np.testing.assert_allclose(got[keep], ref[keep], rtol=TOL[dtype]["rtol"],
+                               atol=TOL[dtype]["atol"] + slack)
 
 
 def test_wrapper_counts_and_checks(card):
