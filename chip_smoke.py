@@ -63,13 +63,13 @@ KERNELS = {
 }
 # operations per unit of work, counted from each kernel's arithmetic (for
 # the bound; every kernel here is far below the card's compute balance):
-# emission per (marker, unit): 512 parent-block entries x ~20 + 512
-# outputs x 8; sweeps per (unit, shift, marker) and direction: 64 x 4
-# (clip, emit, sum, divide) + two 6-stage FWHTs (2 x 6 x 64) + 2 x 64
-# scalings; statistics per (marker, unit): ~19,800 (block math and
-# contractions); turn per (marker, unit): three 512-point WHTs (3 x 9 x
-# 512) + 4 x 512
-OPS = {"emission": 14336, "fb_sweep": 2 * 1152, "stats": 19800,
+# emission per (marker, unit): four threads' separable tables (~20 slot
+# matches x ~12 + 16 entries x 6) + 512 outputs x 3; sweeps per (unit,
+# shift, marker) and direction: 64 x 4 (clip, emit, sum, divide) + two
+# 6-stage FWHTs (2 x 6 x 64) + 2 x 64 scalings; statistics per (marker,
+# unit): ~19,800 (block math and contractions); turn per (marker, unit):
+# three 512-point WHTs (3 x 9 x 512) + 4 x 512
+OPS = {"emission": 2880, "fb_sweep": 2 * 1152, "stats": 19800,
        "turn": 15872, "fb_classic": 2 * 1152, "stats_bmns": 19800}
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12       # float32 outside the tensor cores

@@ -1,11 +1,11 @@
 // Emission-block math shared by the emission and statistics kernels.
 //
 // Device-function form of the enum-leading helpers of
-// cnf2freq_tpu/ops/stats_pallas.py (_match_raw_L, _phase_L, _gp_term_L,
-// root_block_L, parent_block_L) for the default F2 haplotyping model,
-// zp == ZP_NONE, ci == False, update == 0.  One call evaluates one
-// enumeration entry for one (marker, unit) pair; the callers loop over
-// the entries they need.
+// cnf2freq_tpu/ops/stats_pallas.py (_match_raw_L, _phase_L, root_block_L)
+// for the default F2 haplotyping model, zp == ZP_NONE, ci == False,
+// update == 0, for one (marker, unit) pair.  Both kernels build the
+// parent blocks (parent_block_L) from these as separable per-pair tables:
+// an entry is a product of one factor per path bit.
 //
 // Slot order: 0=focal, 1=parent0, 2=gp00, 3=gp01, 4=parent1, 5=gp10,
 // 6=gp11.  Parent-block entries are indexed (r0, fp, fpath, sk) with
@@ -70,16 +70,14 @@ __device__ __forceinline__ T phase(const Slot<T>& s, int f2n) {
   return collapse ? f : fabs(f - s.hw);
 }
 
-// grandparent slot term (_gp_term_L): matched value with the second
-// channel absorbed, times its phase factor; 1 + sw when vacant
+// (bv + pre) of one slot test: the matched value with the second channel
+// absorbed (a grandparent's or attop parent's factor before its phase)
 template <typename T>
-__device__ __forceinline__ T gp_term(const Slot<T>& gp, int w, T sw, int gb,
-                                     int rg) {
-  if (!gp.exists) return T(1) + sw;
+__device__ __forceinline__ T matched(int v, T sv, int mdj, T msj) {
   T bv, pre;
   int bound;
-  match_raw(w, sw, gp.md[rg], gp.ms[rg], bv, pre, bound);
-  return (bv + pre) * phase(gp, rg ^ gb);
+  match_raw(v, sv, mdj, msj, bv, pre, bound);
+  return bv + pre;
 }
 
 // focal term (root_block_L) with focal value `iv` (0 = unknown) and
@@ -111,39 +109,6 @@ __device__ __forceinline__ void root_block(const Slot<T>& f, int iv,
     out.vB[r0] = md_o;
     out.svB[r0] = ms_o != T(0) ? safe_div(ms_o, T(1) - ms_o) : T(0);
   }
-}
-
-// one parent-block entry (parent_block_L) for branch value (v, sv),
-// including the canonical-path weight
-template <typename T>
-__device__ __forceinline__ T parent_term(const Slot<T>& par,
-                                         const Slot<T>& gp0,
-                                         const Slot<T>& gp1, int v, T sv,
-                                         int fp, int fpath, int sk) {
-  const int p0 = fp & 1, gb0 = (fp >> 1) & 1, gb1 = (fp >> 2) & 1;
-  const int rp = fpath & 1, rg0 = (fpath >> 1) & 1, rg1 = (fpath >> 2) & 1;
-  const bool deep_ok = par.exists && !par.attop;
-  const bool weight = (par.exists || rp == 0) &&
-                      ((deep_ok && gp0.exists) || rg0 == 0) &&
-                      ((deep_ok && gp1.exists) || rg1 == 0);
-  if (!weight) return T(0);
-  if (!par.exists) return T(1) + sv;
-  T bv_raw, pre;
-  int bound;
-  match_raw(v, sv, par.md[rp], par.ms[rp], bv_raw, pre, bound);
-  const T ph = phase(par, rp ^ p0 ^ sk);
-  if (par.attop) return (bv_raw + pre) * ph;
-  const T ms_nab = safe_div(pre, bv_raw);
-  const int md_o = par.md[1 - rp];
-  const T ms_o = par.ms[1 - rp];
-  const T sec_f = ms_o != T(0) ? T(1) - ms_o : T(1);
-  const T secsec = ms_o != T(0) ? safe_div(ms_o, T(1) - ms_o) : T(0);
-  const T g = p0 == 0
-                  ? gp_term(gp0, bound, ms_nab, gb0, rg0) *
-                        gp_term(gp1, md_o, secsec, gb1, rg1)
-                  : gp_term(gp1, bound, ms_nab, gb1, rg1) *
-                        gp_term(gp0, md_o, secsec, gb0, rg0);
-  return bv_raw * ph * sec_f * g;
 }
 
 // slot s of unit r at marker m from the [7,2,M,R] / [7,M,R] / [7,R]

@@ -177,15 +177,6 @@ __device__ __forceinline__ void branch_value(const Scratch<T>& s, int beta,
   }
 }
 
-// (bv + pre) of one slot test
-template <typename T>
-__device__ __forceinline__ T matched(int v, T sv, int mdj, T msj) {
-  T bv, pre;
-  int bound;
-  cnf::match_raw(v, sv, mdj, msj, bv, pre, bound);
-  return bv + pre;
-}
-
 // The per-pair tables (all lanes of the warp; caller syncs after).
 // Lanes 0-23: (beta, rp) -> A and the four GF.  Lanes 24-31: GS (two rg
 // each) and the phase factors.
@@ -215,7 +206,7 @@ __device__ __forceinline__ void build_tables(Scratch<T>& s, int lane) {
 #pragma unroll
           for (int rg = 0; rg < 2; ++rg)
             gf[j][rg] = gp.exists
-                            ? matched(bound, ms_nab, gp.md[rg], gp.ms[rg])
+                            ? cnf::matched(bound, ms_nab, gp.md[rg], gp.ms[rg])
                             : T(1) + ms_nab;
         }
       }
@@ -235,9 +226,9 @@ __device__ __forceinline__ void build_tables(Scratch<T>& s, int lane) {
     const T secsec = ms_o != T(0) ? cnf::safe_div(ms_o, T(1) - ms_o) : T(0);
 #pragma unroll
     for (int rg = 0; rg < 2; ++rg)
-      s.GS[k][j][rp][rg] = gp.exists
-                               ? matched(md_o, secsec, gp.md[rg], gp.ms[rg])
-                               : T(1) + secsec;
+      s.GS[k][j][rp][rg] =
+          gp.exists ? cnf::matched(md_o, secsec, gp.md[rg], gp.ms[rg])
+                    : T(1) + secsec;
     // grandparent phase [k][j][x = rp]; parent phase [k'][x] on i < 4
     s.GPH[k][j][rp] = gp.exists ? cnf::phase(gp, rp) : T(1);
     if (i < 4) s.PH[i >> 1][i & 1] = cnf::phase(s.sl[1 + 3 * (i >> 1)], i & 1);
@@ -262,7 +253,7 @@ __device__ __forceinline__ int path_mask(const Scratch<T>& s, int k) {
 }
 
 // one parent-block entry of side k, branch beta, (fp, fpath, sk) from the
-// tables: parent_term of blocks.cuh, factor by factor
+// tables: parent_block_L of ops/stats.py, factor by factor
 template <typename T>
 __device__ __forceinline__ T entry(const Scratch<T>& s, int k, int beta,
                                    int mask, bool exists, bool attop, int fp,

@@ -40,159 +40,23 @@ import subprocess
 import sys
 import textwrap
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_util import (check_anchor_departures, check_iterations,
+                             run_pair, state)
 
-import cnf2freq_tpu.updates.capped as jax_capped
-import cnf2freq_tpu.updates.parameter_updates as jax_updates
 from cnf2freq_tpu.driver import Driver as JaxDriver
 from cnf2freq_tpu.utils import simulate_f2
 from cnf2freq_tpu_torch import Driver, copy_pedigree
-from cnf2freq_tpu_torch.driver import LOCK_TIE_RTOL, anchor_marker
-from cnf2freq_tpu_torch.pedigree import from_host
-from cnf2freq_tpu_torch.updates import capped
-from cnf2freq_tpu_torch.updates.phaseflip import make_flip_scorer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FLAT_LIMIT = 1.0 / (1e-2 * np.finfo(np.float64).eps ** 0.5)
-
-
-def _state(ped):
-    inds = ped.inds[1:]
-    return {"haploweight": np.stack([i.haploweight for i in inds]),
-            "markerdata": np.stack([i.markerdata for i in inds]),
-            "markersure": np.stack([i.markersure for i in inds]),
-            "relhaplo": np.stack([i.relhaplo for i in inds])}
-
-
-def _flips(w):
-    return None if w is None else sorted(w.flips)
-
-
-def _patch_jax_with_port_rules(mp, seen):
-    """The JAX Driver with the port's three rules, recording each choice
-    in which a rule departs from the JAX package's own."""
-    def lockhaplos(self, ind, c):
-        lo, hi = self.ped.chromosome_range(c)
-        start = max(lo, ind.lockstart[c] if ind.lockstart[c] < hi else 0)
-        seg = ind.variances[start:hi]
-        own = None if seg.size == 0 or (seg <= 0).all() \
-            else int(np.argmax(seg))
-        rule = anchor_marker(seg)
-        if own != rule:
-            seg_max = float(seg.max())
-            seen["anchors"].append((ind.n, own, rule, seg_max,
-                                    None if own is None else float(seg[own])))
-        Driver._lockhaplos(self, ind, c)
-
-    solve = JaxDriver._solve_scored
-
-    def solve_scored(self, dous, lo, hi, scored, chrom):
-        scored = tuple(np.asarray(x) for x in scored)
-        own = solve(self, dous, lo, hi, scored, chrom)
-        w = solve(self, dous, lo, hi, Driver._canonical_scores(scored),
-                  chrom)
-        seen["winners"].append(_flips(own) != _flips(w))
-        return w
-
-    cappedgd = jax_capped.cappedgd
-
-    def cappedgd_freezing_flat(gradient, orig, epsilon, scalefactor,
-                               breakathalf=False, iters=51):
-        new, hit = cappedgd(gradient, orig, epsilon, scalefactor,
-                            breakathalf, iters)
-        eps = jnp.broadcast_to(jnp.asarray(epsilon, orig.dtype), orig.shape)
-        brk = jnp.broadcast_to(jnp.asarray(breakathalf, bool), orig.shape)
-        origc, _ = jax_capped.caplogitchange(orig, orig, eps, brk)
-        g0 = 1.0 / gradient(jnp.clip(origc, eps, 1.0 - eps))
-        flat = jnp.isfinite(g0) & (jnp.abs(g0) > FLAT_LIMIT)
-        still, still_hit = jax_capped.caplogitchange(origc, orig, eps, brk)
-        return jnp.where(flat, still, new), jnp.where(flat, still_hit, hit)
-
-    real_scorer = JaxDriver._jitted_flip_scorer
-
-    def flip_scorer(self):
-        own, port = real_scorer(self), make_flip_scorer()
-
-        def score(parts, pat, allowed, hw, rh, hb, hc, desc, tsel, k,
-                  with_skew, halo=False, compress=False):
-            out = own(parts, pat, allowed, hw, rh, hb, hc, desc, tsel, k=k,
-                      with_skew=with_skew, halo=halo, compress=compress)
-            if not np.isnan(np.asarray(out[2])).any():
-                seen["scored"].append(None)
-                return out
-            tt = [torch.as_tensor(np.array(x)) for x in
-                  (pat, allowed, hw, rh, hb, hc, desc, tsel)]
-            tparts = [torch.as_tensor(np.array(p)) for p in parts]
-
-            def full(fn, wrap):
-                # every marker, in marker order: gains [B, M], S [B, M, P]
-                M = parts[0].shape[1]
-                idx, _, g, s = (np.asarray(x) for x in fn(
-                    *wrap, k=M, with_skew=with_skew, halo=halo))
-                order = np.argsort(idx)
-                return g[:, order], s[:, order]
-
-            gj, sj = full(own, (parts, pat, allowed, hw, rh, hb, hc, desc,
-                                tsel))
-            gp, sp = full(port, [tparts] + tt)
-            # the JAX scorer's NaN sits only beside anchored markers, and
-            # the port's scores are the JAX scorer's wherever it does not
-            # reach
-            ok = ~np.isnan(gj)
-            M = gj.shape[1]
-            anch = np.isin(np.asarray(hw), (0.0, 1.0))
-            beside = anch[:, :M].copy()
-            beside[:, :anch.shape[1] - 1] |= anch[:, 1:M + 1]
-            assert beside[~ok].all()
-            np.testing.assert_allclose(gp[ok], gj[ok], rtol=1e-8,
-                                       atol=1e-12)
-            np.testing.assert_allclose(sp[ok], sj[ok], rtol=1e-8,
-                                       atol=1e-12)
-            seen["scored"].append((int((~ok).sum()), ok.size,
-                                   int((~ok).any(axis=1).sum())))
-            res = port(tparts, *tt, k=k, with_skew=with_skew, halo=halo)
-            return tuple(x.numpy() for x in res)
-        return score
-
-    mp.setattr(JaxDriver, "_jitted_flip_scorer", flip_scorer)
-    mp.setattr(JaxDriver, "_lockhaplos", lockhaplos)
-    mp.setattr(JaxDriver, "_solve_scored", solve_scored)
-    mp.setattr(jax_updates, "cappedgd", cappedgd_freezing_flat)
 
 
 def _run_pair(adaptive: bool):
     """Both drivers from the same simulated cohort, each through its own
     preprocess and three iterations."""
-    base = simulate_f2(n_f2=12, n_markers=16)
-    seen = {"anchors": [], "winners": [], "flat": [], "scored": []}
-    real_flat = capped.flat_lanes
-
-    def counting_flat(g0):
-        m = real_flat(g0)
-        seen["flat"].append(int(m.sum()))
-        return m
-
-    out = {"seen": seen, "raw": _state(base)}
-    with pytest.MonkeyPatch.context() as mp:
-        _patch_jax_with_port_rules(mp, seen)
-        mp.setattr(capped, "flat_lanes", counting_flat)
-        dj = JaxDriver(copy_pedigree(base), dtype=np.float64)
-        dj.resident = False
-        dj.adaptive_relhaplo = adaptive
-        dp = Driver(from_host(base), dtype=torch.float64, device="cpu",
-                    adaptive_relhaplo=adaptive)
-        for name, d in (("jax", dj), ("torch", dp)):
-            d.preprocess()
-            pre = (_state(d.ped), np.stack([i.variances
-                                            for i in d.ped.inds[1:]]))
-            out[name] = dict(
-                pre=pre, iters=[d.iterate(early=(i == 0)) for i in range(3)],
-                post=_state(d.ped), pairs=d.pair_tables,
-                export=d.export_state())
-    return out
+    return run_pair(simulate_f2(n_f2=12, n_markers=16), adaptive)
 
 
 @pytest.fixture(scope="module")
@@ -217,34 +81,15 @@ def test_preprocess_matches(runs):
     np.testing.assert_array_equal(st["haploweight"], sj["haploweight"])
 
 
-def _check_iterations(runs, keys):
-    j, t = runs["jax"], runs["torch"]
-    np.testing.assert_array_equal(t["post"]["markerdata"],
-                                  j["post"]["markerdata"])
-    for key in keys:
-        np.testing.assert_allclose(t["post"][key], j["post"][key],
-                                   rtol=1e-8, atol=1e-12, err_msg=key)
-    for it_t, it_j in zip(t["iters"], j["iters"]):
-        assert it_t["hitnnn"] == it_j["hitnnn"]
-        assert it_t["inverted"] == it_j["inverted"]
-        assert it_t["scalefactor"] == pytest.approx(it_j["scalefactor"],
-                                                    rel=1e-12)
-    assert set(t["pairs"]) == set(j["pairs"])
-    for n in j["pairs"]:
-        np.testing.assert_allclose(t["pairs"][n], j["pairs"][n], rtol=1e-8,
-                                   atol=1e-12)
-    assert t["export"] == pytest.approx(j["export"], rel=1e-12)
-
-
 def test_iterations_match(runs):
-    _check_iterations(runs, ("haploweight", "markersure"))
+    check_iterations(runs, ("haploweight", "markersure"))
     # relhaplo stays inert
     assert (runs["torch"]["post"]["relhaplo"] == 0.5).all()
 
 
 def test_adaptive_iterations_match(runs_adaptive):
     """Adaptive relhaplo: the coherence reached relhaplo, identically."""
-    _check_iterations(runs_adaptive,
+    check_iterations(runs_adaptive,
                       ("haploweight", "markersure", "relhaplo"))
     rh = runs_adaptive["torch"]["post"]["relhaplo"]
     assert (rh != 0.5).any()
@@ -255,11 +100,7 @@ def _check_departures(runs, record_property):
     seen = runs["seen"]
     n_inds = len(runs["jax"]["pre"][1])
     subst = [x for x in seen["scored"] if x is not None]
-    for n, own, rule, seg_max, v_own in seen["anchors"]:
-        if rule is None:
-            assert seg_max <= 1e-20, (n, seg_max)
-        else:
-            assert own is not None and v_own >= seg_max * (1 - LOCK_TIE_RTOL)
+    check_anchor_departures(seen["anchors"])
     counts = dict(anchors=len(seen["anchors"]), anchored=n_inds,
                   flat_lanes=sum(seen["flat"]),
                   winners_changed=sum(seen["winners"]),
@@ -303,7 +144,7 @@ def test_chunked_scan_matches_whole():
         d.batch_size = bs
         d.preprocess()
         its = [d.iterate(early=(i == 0)) for i in range(2)]
-        out.append((its, _state(d.ped), d.pair_tables))
+        out.append((its, state(d.ped), d.pair_tables))
     (ia, sa, pa), (ib, sb, pb) = out
     assert [i["hitnnn"] for i in ia] == [i["hitnnn"] for i in ib]
     for key in sa:

@@ -1,8 +1,9 @@
 """The CUDA kernels of cnf2freq_tpu_torch/csrc against their plain PyTorch
 versions, on the card (marker ``cuda``; skipped without a CUDA device).
 
-``test_stats_edge_branches`` edits the family batch so that every branch
-of the block math that the statistics kernel's tables replace occurs;
+``test_emission_edge_branches`` and ``test_stats_edge_branches`` edit the
+family batch so that every branch of the block math that the emission
+and statistics kernels' tables replace occurs;
 ``test_fb_sweep_edges`` and ``test_turn_edges`` hold the sweep and turn
 kernels at their edges (one or two markers, an R not a multiple of 64,
 zero emission blocks; a single allowed shift, D <= 0).
@@ -105,14 +106,15 @@ def _check_classic(kernel, fbt, d, cfg, params, dtype):
     _close(pst.stats_pallas(*args), pst.stats_bmns_reference(*args), dtype)
 
 
-def _edge_batch(seed=5):
-    """The ``_inputs`` family batch edited so that every branch of
-    root_block, parent_term and gp_term occurs: unknown values in every
-    slot, collapsed slots, zero error rates, the sex pseudo-allele 9,
-    vacant parents and grandparents, attop focals and parents, and random
-    shiftignore and flag2ignore bits.  Units whose likelihood the edits
-    make zero get their marker data back."""
-    _, fb, dists, cfg, params = cohort(B=37, M=11, seed=9, with_vacant=True)
+def _edge_batch(seed=5, B=37, M=11):
+    """The ``_inputs`` family batch (or one of B units and M markers)
+    edited so that every branch of root_block, parent_term and gp_term
+    occurs: unknown values in every slot, collapsed slots, zero error
+    rates, the sex pseudo-allele 9, vacant parents and grandparents, attop
+    focals and parents, and random shiftignore and flag2ignore bits.
+    Units whose likelihood the edits make zero get their marker data
+    back."""
+    _, fb, dists, cfg, params = cohort(B=B, M=M, seed=9, with_vacant=True)
     orig = copy.deepcopy(fb)
     rng = np.random.default_rng(seed)
     md, ms = fb.md.copy(), fb.ms.copy()
@@ -153,6 +155,28 @@ def _edge_batch(seed=5):
     fb.md[dead], fb.ms[dead] = orig.md[dead], orig.ms[dead]
     assert dead.sum() < B // 4
     return fb, dists, cfg, params
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("case", ["edge", "M1", "R96", "all_attop"])
+def test_emission_edge_branches(card, case, dtype):
+    """The emission kernel's tables on the edited batch: every branch of
+    the block math, one marker, 90 units (R = 96: a ragged last block of
+    units), and a batch in which every focal is a recursion top (the
+    tops values through the store loop)."""
+    B, M = {"M1": (37, 1), "R96": (90, 5)}.get(case, (37, 11))
+    fb, _, cfg, _ = _edge_batch(B=B, M=M)
+    if case == "all_attop":
+        fb.attop = fb.attop.copy()
+        fb.attop[:, 0] = True
+    fbt = torch_batch(fb).to(card, dtype)
+    st = ps.prep_slots(fbt, dtype)
+    if case == "R96":
+        assert st.R == 96
+    ref = ps.emission_reference(st, M, cfg)
+    assert bool(torch.isfinite(ref).all())
+    _close([ps.emission(st, M, cfg)], [ref], dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -252,6 +276,12 @@ def test_wrapper_counts_and_checks(card):
     assert ps.emission.launches == before + 1
     with pytest.raises(ValueError):
         ps.emission(st._replace(ms=st.ms.transpose(2, 3)), M, cfg)
+    # the kernel takes whole 32-unit quanta only (prep_slots pads to them)
+    cut = st._replace(**{f: x[..., :40].contiguous()
+                         for f, x in st._asdict().items()})
+    with pytest.raises(RuntimeError):
+        ps.emission(cut, M, cfg)
+    assert ps.emission.launches == before + 1
     e = assemble_e_all(build_blocks(fbt, cfg), cfg)
     lam = transition_eigenvalues(cfg, interval_recomb(cfg, params, d))
     before = pfb.fb_sweeps.launches
