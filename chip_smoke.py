@@ -27,19 +27,45 @@ Phases, in order, each printing its lines (any failure exits non-zero):
   parity   a 24 x 32 cohort, float64, two iterations on cuda and on the
            CPU, with adaptive relhaplo off and on: haploweights, relhaplo
            and pair tables agree to 1e-9, markerdata exactly
-The launch counters are set to 0 just before each slice and read just
-after it.  The last three lines are a JSON summary of the kernels, the
-card's name and power limit, and {"ok": true, "device": {...}}.  Imports
-nothing of JAX and nothing of the JAX package.
+  cli      the user's entry point from files: simulate_plantimpute_files(
+           n_f2=1000, n_markers=192, spacing_cm=1.0, missing_rate=0.3,
+           error_rate=0.02, seed=11) written to a temporary directory, then
+           cnf2freq_tpu_torch.cli.main (cuda, float32) with --count 3
+           --output --dump --lineorigin --checkpoint, and a resume to
+           --count 4 from the checkpoint; prints the seconds of each stage,
+           the launches of fb_classic and stats_bmns (those of the
+           line-origin pass apart), peak device memory and the imputation
+           accuracy (argmax of the table's three classes against the
+           simulated truth) on the masked (code 9) and on the observed
+           entries; fails on a nonzero return, a kernel of the path at 0
+           launches, a missing F2 block, a table row whose sum is more
+           than 2e-5 from 1, a non-finite number, a resume that is not
+           "(3 iterations done)" running iteration 3 alone, a dump that
+           deserialize cannot read back, or masked-entry accuracy below
+           0.95
+  cli_parity
+           simulate_plantimpute_files(n_f2=24, n_markers=32, seed=11)
+           through the CLI in float64 with --device cuda and --device cpu
+           (--count 2 --output --dump --lineorigin): every printed number
+           of the genotype table, the line-origin table and the dump
+           agrees to 2e-5
+The launch counters are set to 0 just before each slice and each CLI run
+and read just after it.  The last three lines are a JSON summary of the
+kernels, the card's name and power limit, and {"ok": true, "device":
+{...}}.  Imports nothing of JAX and nothing of the JAX package.
 """
 
+import contextlib
+import io
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -86,6 +112,9 @@ TOL = {torch.float64: (1e-9, 1e-12), torch.float32: (1e-3, 1e-5)}
 TURN = {torch.float64: dict(cut=20.0, slack=1e-10),
         torch.float32: dict(cut=5.0, slack=9.1e-3)}
 RELHAPLO_CLIP = 1e-4
+# the CLI's text outputs print 5-6 decimals
+CLI_ATOL = 2e-5
+MIN_MASKED_ACCURACY = 0.95
 
 
 def fail(msg):
@@ -397,6 +426,247 @@ def run_parity(adaptive):
         fail("parity: adaptive relhaplo left relhaplo at its loaded value")
 
 
+class Tee(io.TextIOBase):
+    """Write to several streams (the CLI's stderr lines are both shown and
+    checked)."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+
+@contextlib.contextmanager
+def timed_stages(record):
+    """Time the CLI's stages: each wrapped call appends (stage, seconds,
+    positional arguments), synchronised with the card on either side."""
+    import cnf2freq_tpu_torch.io as pio
+    import cnf2freq_tpu_torch.io.outputs as pout
+    from cnf2freq_tpu_torch import Driver
+    targets = [(pio, "load_plantimpute", "load"),
+               (Driver, "preprocess", "preprocess"),
+               (Driver, "iterate", "iterate"),
+               (Driver, "line_origin_tables", "line_origin"),
+               (pout, "write_genotype_table", "write_table"),
+               (pout, "write_line_origin_table", "write_line_origin"),
+               (pout, "write_haplotype_dump", "write_dump"),
+               (pout, "deserialize", "read_checkpoint")]
+    saved = []
+    for obj, attr, stage in targets:
+        fn = getattr(obj, attr)
+        saved.append((obj, attr, fn))
+
+        def wrapped(*a, _fn=fn, _stage=stage, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            record.append((_stage, time.perf_counter() - t0, a))
+            return out
+        setattr(obj, attr, wrapped)
+    try:
+        yield
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+
+
+def numbers(path):
+    """Every number a text output prints, in order."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            for tok in line.replace(":", " ").split():
+                try:
+                    out.append(float(tok))
+                except ValueError:
+                    pass
+    return np.array(out)
+
+
+def table_blocks(path, width):
+    """{name: [rows, width]} of a genotype or line-origin table."""
+    blocks, name, rows = {}, None, []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) == 1 and parts[0].endswith(":1"):
+                if name is not None:
+                    blocks[name] = np.array(rows)
+                name, rows = parts[0][:-2], []
+            elif len(parts) == width:
+                rows.append([float(x) for x in parts])
+    if name is not None:
+        blocks[name] = np.array(rows)
+    return blocks
+
+
+def run_cli_once(argv):
+    """cli.main(argv) with its stage seconds, launches and stderr."""
+    from cnf2freq_tpu_torch import cli
+    w = wrappers()
+    for fn in w.values():
+        fn.launches = 0
+    record, err = [], io.StringIO()
+    with timed_stages(record), contextlib.redirect_stderr(Tee(sys.stderr,
+                                                              err)):
+        rc = cli.main(argv)
+    launches = {k: w[k].launches for k in ("fb_classic", "stats_bmns")}
+    return rc, record, launches, err.getvalue()
+
+
+def run_cli(tmp, card, n_f2=1000, n_markers=192):
+    """The PlantImpute workflow at 1000 x 192 through the port's CLI on
+    the card (float32, the CLI's default there)."""
+    from cnf2freq_tpu_torch import Driver
+    from cnf2freq_tpu_torch.io import deserialize, load_plantimpute
+    from cnf2freq_tpu_torch.utils.simulate import simulate_plantimpute_files
+    d = os.path.join(tmp, "cli")
+    t0 = time.perf_counter()
+    files = simulate_plantimpute_files(d, n_f2=n_f2, n_markers=n_markers,
+                                       spacing_cm=1.0, missing_rate=0.3,
+                                       error_rate=0.02, seed=11)
+    mapfile, pedfile, genfile, truths = files
+    say("cli", stage="write_files", seconds=f"{time.perf_counter() - t0:.3f}")
+    ck = os.path.join(d, "ck")
+    io_args = ["--mapfile", mapfile, "--pedfile", pedfile,
+               "--genfile", genfile, "--checkpoint", ck]
+    first = io_args + ["--count", "3", "--output", os.path.join(d, "t3"),
+                       "--dump", os.path.join(d, "d3"), "--lineorigin",
+                       os.path.join(d, "lo3")]
+    resume = io_args + ["--count", "4", "--output", os.path.join(d, "t4"),
+                        "--dump", os.path.join(d, "d4")]
+
+    lo_launches = []
+    real_lo = Driver.line_origin_tables
+
+    def counted_line_origin(self):
+        before = wrappers()["fb_classic"].launches
+        out = real_lo(self)
+        lo_launches.append(wrappers()["fb_classic"].launches - before)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    Driver.line_origin_tables = counted_line_origin
+    try:
+        runs = [run_cli_once(first), run_cli_once(resume)]
+    finally:
+        Driver.line_origin_tables = real_lo
+    peak = torch.cuda.max_memory_allocated()
+    drivers = []
+    for tag, (rc, record, launches, err) in zip(("count3", "resume4"), runs):
+        for stage, sec, a in record:
+            if stage == "preprocess":
+                drivers.append(a[0])
+            say("cli", run=tag, stage=stage, seconds=f"{sec:.3f}")
+        say("cli", run=tag, rc=rc, launches=json.dumps(launches))
+        if rc != 0:
+            fail(f"cli {tag}: returned {rc}")
+        if min(launches.values()) <= 0:
+            fail(f"cli {tag}: a kernel of the path never launched: "
+                 f"{launches}")
+    say("cli", line_origin_fb_classic_launches=lo_launches,
+        peak_memory_gb=f"{peak / 1e9:.3f}", card=card)
+    if not lo_launches or lo_launches[0] <= 0:
+        fail("cli: the line-origin pass launched no fb_classic")
+
+    err = runs[1][3]
+    iters = [ln.split(":")[0] for ln in err.splitlines()
+             if ln.startswith("iter ")]
+    if "(3 iterations done)" not in err or iters != ["iter 3"]:
+        fail(f"cli: the resume did not continue at iteration 3: {iters}")
+
+    M = n_markers
+    with open(genfile) as f:
+        codes = {p[0]: np.array([int(x) for x in p[1:M + 1]])
+                 for p in (ln.split() for ln in f)}
+    for name, width in (("t3", 4), ("lo3", 3), ("t4", 4)):
+        path = os.path.join(d, name)
+        vals = numbers(path)
+        blocks = table_blocks(path, width)
+        f2 = [b for b in blocks if b.startswith("F2_")]
+        rows = np.concatenate(list(blocks.values()))
+        dev = float(np.abs(rows.sum(axis=1) - 1).max())
+        say("cli", output=name, blocks=len(blocks), f2_blocks=len(f2),
+            rows=len(rows), finite=bool(np.isfinite(vals).all()),
+            max_row_sum_dev=f"{dev:.2e}")
+        if len(f2) != n_f2:
+            fail(f"cli {name}: {len(f2)} F2 blocks, expected {n_f2}")
+        if not np.isfinite(vals).all() or dev > CLI_ATOL:
+            fail(f"cli {name}: non-finite values or a row sum off by {dev}")
+        if width == 4:
+            hit = {True: [0, 0], False: [0, 0]}
+            for b in f2:
+                call = blocks[b][:M, :3].argmax(axis=1)
+                truth = (truths[b] == 2).sum(axis=1)
+                masked = codes[b] == 9
+                for m in (True, False):
+                    sel = masked == m
+                    hit[m][0] += int((call[sel] == truth[sel]).sum())
+                    hit[m][1] += int(sel.sum())
+            acc_m = hit[True][0] / hit[True][1]
+            acc_o = hit[False][0] / hit[False][1]
+            say("cli", output=name, masked_accuracy=f"{acc_m:.4f}",
+                masked_entries=hit[True][1], observed_accuracy=f"{acc_o:.4f}",
+                observed_entries=hit[False][1])
+            if acc_m < MIN_MASKED_ACCURACY:
+                fail(f"cli {name}: masked-entry accuracy {acc_m:.4f} below "
+                     f"{MIN_MASKED_ACCURACY}")
+    for name in ("d3", "d4", "ck"):
+        if not np.isfinite(numbers(os.path.join(d, name))).all():
+            fail(f"cli {name}: non-finite values in the dump")
+
+    # the final dump reads back into a fresh pedigree
+    fresh = load_plantimpute(mapfile, pedfile, genfile)
+    with open(os.path.join(d, "d4")) as f:
+        switches = deserialize(fresh, f)
+    final = drivers[-1].ped
+    hw_err = max(float(np.abs(a.haploweight - b.haploweight).max())
+                 for a, b in zip(fresh.inds[1:], final.inds[1:]))
+    md_same = all(np.array_equal(a.markerdata, b.markerdata)
+                  for a, b in zip(fresh.inds[1:], final.inds[1:]))
+    say("cli", deserialized=len(switches), haploweight_max_abs=f"{hw_err:.2e}",
+        markerdata_equal=md_same)
+    if len(switches) != len(final.inds) - 1 or hw_err > 1e-6 or not md_same:
+        fail("cli: the final dump does not read back into a fresh pedigree")
+
+
+def run_cli_parity(tmp):
+    """24 x 32 files through the CLI in float64 on cuda and on the CPU."""
+    from cnf2freq_tpu_torch import cli
+    from cnf2freq_tpu_torch.utils.simulate import simulate_plantimpute_files
+    d = os.path.join(tmp, "cli_parity")
+    mapfile, pedfile, genfile, _ = simulate_plantimpute_files(
+        d, n_f2=24, n_markers=32, seed=11)
+    outs = ("out", "lo", "dump")
+    for dev in ("cuda", "cpu"):
+        argv = ["--mapfile", mapfile, "--pedfile", pedfile, "--genfile",
+                genfile, "--count", "2", "--device", dev, "--x64"]
+        for ext in outs:
+            argv += ["--" + {"out": "output", "lo": "lineorigin",
+                             "dump": "dump"}[ext],
+                     os.path.join(d, f"{dev}.{ext}")]
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(argv)
+        if rc != 0:
+            fail(f"cli_parity: --device {dev} returned {rc}")
+    worst = 0.0
+    for ext in outs:
+        a, b = (numbers(os.path.join(d, f"{dev}.{ext}"))
+                for dev in ("cuda", "cpu"))
+        if a.size != b.size or a.size == 0:
+            fail(f"cli_parity: {ext} prints {a.size} and {b.size} numbers")
+        err = float(np.abs(a - b).max())
+        worst = max(worst, err)
+        say("cli_parity", output=ext, numbers=a.size, max_abs=f"{err:.2e}",
+            tol=CLI_ATOL, ok=err <= CLI_ATOL)
+    if worst > CLI_ATOL:
+        fail("cli_parity: cuda and CPU float64 CLI outputs disagree")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -433,6 +703,12 @@ def main():
     launches.update(run_slice("slice_coherence", adaptive=True))
     run_parity(adaptive=False)
     run_parity(adaptive=True)
+    tmp = tempfile.mkdtemp(prefix="cnf2freq_smoke_")
+    try:
+        run_cli(tmp, card)
+        run_cli_parity(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     f32 = checks[torch.float32]
     summary = [dict(name=k, route="cuda", source=src, replaces=rep,

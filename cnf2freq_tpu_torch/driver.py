@@ -122,6 +122,10 @@ class Driver:
         self.dtype = _torch_dtype(dtype)
         # measured adjacent-phase coherence feeding relhaplo
         self.adaptive_relhaplo = adaptive_relhaplo
+        # genetic-map re-estimation (the reference's default-off
+        # DOREMAPDISTANCES, as a direct posterior EM update of per-sex
+        # per-interval rates in ped.actrec)
+        self.remap_distances = False
         # units per scan chunk: "auto" sizes chunks to the device memory,
         # None scans the whole cohort at once, an int fixes the size
         self.batch_size = "auto"
@@ -483,6 +487,7 @@ class Driver:
             rm = self._t(rate_matrix(cfg, params, Mc - 1, ped.actrec, lo))
             bs = self._chunk_size(len(dous), Mc, need_coh)
             weight_parts = []
+            remap_acc = (np.zeros((2, Mc - 1)), np.zeros(2, dtype=np.int64))
             for b0 in range(0, len(dous), bs):
                 chunk = dous[b0:b0 + bs]
                 fb = gather_family(ped, chunk, lo, hi - 1,
@@ -502,6 +507,8 @@ class Driver:
                     coh[:, Mc - 1] = 0.5
                     scatter_coherence(fb.slot_ind, fb.descendants, lo, coh,
                                       coh_num, coh_den, lut)
+                if self.remap_distances:
+                    self._accumulate_recomb(fb, dists, res, rm, remap_acc)
                 if not early:
                     weight_parts.append(res.turn_weight)
                 del res
@@ -515,6 +522,8 @@ class Driver:
                                 ind_index)
             winners.append(winner)
             del weight_parts
+            if self.remap_distances:
+                self._apply_recomb(lo, hi, remap_acc)
 
         if need_coh:
             self._refresh_relhaplo(ids, coh_num, coh_den)
@@ -525,6 +534,39 @@ class Driver:
         self._adapt_scalefactor(any_inv, hits, len(dous))
         return dict(hitnnn=hits, inverted=any_inv,
                     scalefactor=st.scalefactor, loglik=float(loglik))
+
+    def _accumulate_recomb(self, fb, dists, res, rm, acc):
+        """Per-chunk accumulation of posterior recombination expectations:
+        acc = (sum [2, Mc-1], count [2])."""
+        from .engine import recomb_expectations
+        p = recomb_expectations(fb, dists, res, self.cfg, self.params,
+                                ratemat=rm).to("cpu", torch.float64).numpy()
+        sexes = np.asarray(self.cfg.typesexes)
+        sums, counts = acc
+        for sex in range(2):
+            sel = sexes == sex
+            sums[sex] += p[:, :, sel].sum(axis=(0, 2))
+            counts[sex] += p.shape[0] * int(sel.sum())
+
+    def _apply_recomb(self, lo, hi, acc):
+        """Once per chromosome per iteration: EM update of per-sex
+        per-interval recombination rates from the accumulated
+        expectations (replaces the reference's twicestop-probe
+        machinery, cnF2freq.cpp:5586-5664, 6196-6230).  The updated
+        ped.actrec feeds every later scan through ``rate_matrix``."""
+        ped = self.ped
+        sums, counts = acc
+        if ped.actrec is None:
+            ped.actrec = np.full((2, ped.num_markers), self.params.baserec)
+        dists = np.diff(ped.markerposes[lo:hi])
+        for sex in range(2):
+            if counts[sex] == 0:
+                continue
+            rhat = np.clip(sums[sex] / counts[sex], 1e-8, 0.49)
+            rate = np.log(1.0 - 2.0 * rhat) / np.maximum(dists, 1e-9)
+            rate = np.clip(rate, -20.0, -1e-4)
+            old = ped.actrec[sex, lo + 1:hi]
+            ped.actrec[sex, lo + 1:hi] = 0.5 * old + 0.5 * rate
 
     def _refresh_relhaplo(self, ids, coh_num, coh_den):
         """Adaptive relhaplo: the descendant-weighted mean coherence where
@@ -795,6 +837,33 @@ class Driver:
         else:
             st.oldhitnnn2 = st.oldhitnnn
             st.oldhitnnn = hitnnn
+
+    # ------------------------------------------------------------------
+    def line_origin_tables(self) -> Dict[int, np.ndarray]:
+        """{focal id: [M, 3]} posterior line-origin class tables (the
+        reference's zeropropagate gstr probe as a reporter,
+        cnF2freq.cpp:5512) for every analysis individual: a fresh
+        forward/backward per chromosome and chunk of units."""
+        from .engine import line_origin
+        ped, cfg = self.ped, self.cfg
+        dous = list(ped.dous)
+        tabs = {n: np.zeros((ped.num_markers, 3)) for n in dous}
+        for c in range(ped.num_chromosomes):
+            lo, hi = ped.chromosome_range(c)
+            Mc = hi - lo
+            dists = self._t(np.diff(ped.markerposes[lo:hi]))
+            rm = self._t(rate_matrix(cfg, self.params, Mc - 1, ped.actrec,
+                                     lo))
+            bs = self._chunk_size(len(dous), Mc, with_coherence=True)
+            for b0 in range(0, len(dous), bs):
+                chunk = dous[b0:b0 + bs]
+                fb = gather_family(ped, chunk, lo, hi - 1).to(self.device,
+                                                              self.dtype)
+                P = line_origin(fb, dists, cfg, self.params, ratemat=rm)
+                P = P.to("cpu", torch.float64).numpy()
+                for i, n in enumerate(chunk):
+                    tabs[n][lo:hi] = P[i]
+        return tabs
 
     # ------------------------------------------------------------------
     def run(self, iterations: int):

@@ -6,7 +6,10 @@ statistics and turn kernels) unless the scan carries adjacent-phase
 coherence, which runs the classic [B, M, NS, S] pipeline: emission
 blocks -> sweeps (csrc/fb_classic.cu) -> total log-likelihood ->
 statistics (the [B, M, NS, S] entry of csrc/stats.cu) -> turn weights ->
-phase coherence.
+phase coherence.  Two reporters run their own pass over a chunk: the
+line-origin classes (``line_origin``, a fresh forward/backward through
+csrc/fb_classic.cu) and the recombination expectations of the genetic-map
+re-estimation (``recomb_expectations``, from a scan's sweeps).
 """
 
 from __future__ import annotations
@@ -90,3 +93,45 @@ def scan_merged(fb: FamilyBatch, dists: torch.Tensor, lut: torch.Tensor,
     inf = merge_infprobs(res.inf_accum, fb.slot_ind, fb.descendants, lut,
                          num_individuals)
     return res, hb, hc, inf
+
+
+def line_origin(fb: FamilyBatch, dists: torch.Tensor, cfg: ModelConfig,
+                params: RuntimeParams, ratemat=None) -> torch.Tensor:
+    """Line-origin class posteriors [B, M, 3] of one chunk: the
+    zeropropagate gstr reporter (``probes.line_origin_posterior``) on a
+    fresh forward/backward (port of the standard branch of
+    ``cnf2freq_tpu/engine.py::make_jitted_line_origin``)."""
+    from .hmm.emission import assemble_e_all, build_blocks
+    from .hmm.forward_backward import combined_loglik, forward_backward
+    from .hmm.probes import line_origin_posterior, posterior_weight
+    blocks = build_blocks(fb, cfg, dtype=fb.ms.dtype)
+    e = assemble_e_all(blocks, cfg)
+    fbres = forward_backward(e, dists, cfg, params, ratemat=ratemat)
+    del e
+    total = combined_loglik(fbres, fb.shiftignore)
+    W = posterior_weight(fbres, total, fb.shiftignore)
+    return line_origin_posterior(W, blocks, fb, cfg)
+
+
+def recomb_expectations(fb: FamilyBatch, dists: torch.Tensor,
+                        res: ScanResult, cfg: ModelConfig,
+                        params: RuntimeParams, ratemat=None) -> torch.Tensor:
+    """Posterior per-interval, per-meiosis-bit recombination expectations
+    [B, M-1, typebits] from a scan's sweeps (port of
+    ``cnf2freq_tpu/engine.py::make_jitted_recomb``)."""
+    from .hmm.emission import assemble_e_all, build_blocks
+    from .hmm.forward_backward import FBResult
+    from .hmm.probes import recombination_expectations
+    from .hmm.transition import interval_recomb, transition_eigenvalues
+    dtype = res.fw_pre.dtype
+    e = assemble_e_all(build_blocks(fb, cfg, dtype=dtype), cfg)
+    lam = transition_eigenvalues(
+        cfg, interval_recomb(cfg, params, dists, ratemat=ratemat)).to(dtype)
+    pe = res.fw_pre * e
+    s = pe.sum(dim=-1, keepdim=True)
+    fw_post = torch.where(s > 0, pe / torch.where(s > 0, s, 1.0), 0.0)
+    fw_post_f = res.fw_pre_f + torch.log(torch.clamp(s[..., 0], min=1e-300))
+    fbres = FBResult(fw_pre=res.fw_pre, fw_post=fw_post, bw=res.bw,
+                     fw_pre_f=res.fw_pre_f, fw_post_f=fw_post_f,
+                     bw_f=res.bw_f)
+    return recombination_expectations(fbres, e, cfg, lam)

@@ -1,7 +1,8 @@
-"""Posterior probes: update masks, turn weights and adjacent-marker phase
-coherence.
+"""Posterior probes: update masks, turn weights, adjacent-marker phase
+coherence, the line-origin reporter and recombination expectations.
 
-Port of the parts of ``cnf2freq_tpu/hmm/probes.py`` that the scans run.
+Port of the parts of ``cnf2freq_tpu/hmm/probes.py`` that the scans, the
+line-origin reporter and the genetic-map re-estimation run.
 The update statistics themselves come from ``ops.stats``.  These are
 plain XLA in the JAX package, so they are plain PyTorch here: the
 Walsh-Hadamard products are butterflies (``transition.fwht``), and each
@@ -84,6 +85,12 @@ def posterior_weight(fbres: FBResult, total: torch.Tensor,
     logw = fbres.fw_pre_f + fbres.bw_f - total[:, None, None]
     logw = torch.where(allowed[:, None, :], logw, MINFACTOR)
     return fbres.fw_pre * fbres.bw * torch.exp(logw)[..., None]
+
+
+def _w_bits(W: torch.Tensor) -> torch.Tensor:
+    """Reshape W[b, m, 8, 64] to bit axes [b, m, s2, s1, s0, fp1, fp0]."""
+    B, M = W.shape[:2]
+    return W.reshape(B, M, 2, 2, 2, 8, 8)
 
 
 def _valid_paths(flag2ignore: torch.Tensor, k: int) -> torch.Tensor:
@@ -249,3 +256,126 @@ def phase_coherence(fbres: FBResult, blocks: EmissionBlocks,
     cols = [phase_coherence_slot(fbres, blocks, fb, cfg, lam, slot, tot=tot)
             for slot in range(cfg.numslots)]
     return torch.stack(cols, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Line-origin reporter
+# ---------------------------------------------------------------------------
+def line_origin_posterior(W: torch.Tensor, blocks: EmissionBlocks,
+                          fb: FamilyBatch, cfg: ModelConfig) -> torch.Tensor:
+    """P[b, m, c(3)]: posterior distribution of the line-origin class —
+    how many of the focal's two strands trace to a founder allele '2'.
+
+    The tensor form of the reference's zeropropagate gstr probe
+    (trackpossible<false, true> at cnF2freq.cpp:5512; the counting hook
+    at cnF2freq.cpp:1264-1266): under zero-propagation the inheritance
+    path of every (state, path, shift) probe is deterministic, so the
+    count is a pure function of the path bits and each branch's top
+    slot — parent's grandparent ``p0`` read at interpretation ``rg``,
+    the parent itself when it is a founder or its ancestor slot is
+    vacant (the recursion's ``par is None`` stop), or the focal for a
+    vacant first-branch parent."""
+    if cfg.selfing or cfg.relskewstates:
+        raise ValueError("line-origin reporter supports the standard "
+                         "state space only")
+    dtype, dev = W.dtype, W.device
+    Wr = _w_bits(W)
+    froot, pb = blocks.froot, blocks.pb
+    V = [_valid_paths(fb.flag2ignore, k).to(dtype) for k in range(2)]
+    PB = [pb[k] * V[k][:, None, None, None, :, None] for k in range(2)]
+
+    idx = torch.arange(8, device=dev)
+    p0 = idx & 1                              # gp fed by the bound allele
+    rp = idx & 1                              # parent interpretation bit
+
+    def pick_m(md2, bit):
+        """md2 [B, M, 2] indexed by a [len]-bit tensor -> [B, M, len]."""
+        return torch.where(bit[None, None, :] == 1, md2[:, :, 1:2],
+                           md2[:, :, 0:1])
+
+    sides = []
+    for k in range(2):
+        ps = cfg.parent_slot(k)
+        par_rp2 = pick_m(fb.md[:, ps] == 2, rp)        # [B, M, fpath]
+        gp2, gpex = [], []
+        for j in range(2):
+            gs = cfg.grandparent_slot(k, j)
+            rgj = (idx >> (1 + j)) & 1
+            gp2.append(pick_m(fb.md[:, gs] == 2, rgj))  # [B, M, fpath]
+            gpex.append(fb.exists[:, gs])
+        gpj2 = torch.where(p0[None, None, :, None] == 1,
+                           gp2[1][:, :, None, :], gp2[0][:, :, None, :])
+        gpjex = torch.where(p0[None, :] == 1, gpex[1][:, None],
+                            gpex[0][:, None])          # [B, fp]
+        deep = torch.where(gpjex[:, None, :, None], gpj2,
+                           par_rp2[:, :, None, :])     # [B, M, fp, fpath]
+        par_at = fb.attop[:, ps][:, None, None, None]
+        par_ex = fb.exists[:, ps][:, None, None, None, None]
+        ind_fp = torch.where(par_at, par_rp2[:, :, None, :], deep)
+        ind_fp = ind_fp[:, :, None].expand(-1, -1, 2, -1, -1)
+        if k == blocks.side:
+            # vacant first-branch parent: count at the focal, md[r0]
+            vac = (fb.md[:, 0] == 2)[:, :, :, None, None]
+            ind_k = torch.where(par_ex, ind_fp, vac)
+        else:
+            # the recursion never counts a vacant second-branch parent
+            # (subtrack returns without the gstr hook)
+            ind_k = ind_fp & par_ex
+        sides.append(ind_k.to(dtype))                  # [B, M, r, fp, fpath]
+
+    PBc = [(PB[k] * (1.0 - sides[k])[..., None], PB[k] * sides[k][..., None])
+           for k in range(2)]
+    T1c = [torch.einsum("zmrbqv,zmvutba->zmraut", PBc[1][c1], Wr)
+           for c1 in range(2)]
+    P = [[torch.einsum("zmrapu,zmraut,zmrt->zm", PBc[0][c0], T1c[c1], froot)
+          for c1 in range(2)] for c0 in range(2)]
+    out = torch.stack([P[0][0], P[0][1] + P[1][0], P[1][1]], dim=-1)
+
+    # founder focal: the walk stops at the root; class = [md[r0] == 2]
+    Wt = Wr.sum(dim=(2, 3, 5, 6))                      # [B, M, t]
+    focal2 = (fb.md[:, 0] == 2).to(dtype)              # [B, M, r]
+    pf1 = torch.einsum("zmrt,zmr,zmt->zm", blocks.top, focal2, Wt)
+    pf0 = torch.einsum("zmrt,zmr,zmt->zm", blocks.top, 1.0 - focal2, Wt)
+    pf = torch.stack([pf0, pf1, torch.zeros_like(pf0)], dim=-1)
+    out = torch.where(blocks.focal_attop[:, None, None], pf, out)
+
+    tot = out.sum(dim=-1, keepdim=True)
+    return torch.where(tot > 0, out / torch.where(tot > 0, tot, 1.0), 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Recombination expectations (genetic-map re-estimation)
+# ---------------------------------------------------------------------------
+def recombination_expectations(fbres: FBResult, e_all: torch.Tensor,
+                               cfg: ModelConfig,
+                               lam: torch.Tensor) -> torch.Tensor:
+    """P[b, m, t]: posterior probability that meiosis bit t recombined in
+    interval (m, m+1).
+
+    The reference estimates this with per-(state, state) double-locked
+    probes (twicestop + calcdistancecolrowsums, cnF2freq.cpp:3618-3638,
+    5586-5664; default-off).  The direct form is the pairwise state joint
+    fw_post[m] * R * (E[m+1] . bw[m+1]), whose xor marginal comes out of
+    one Walsh-Hadamard correlation per interval."""
+    S = fbres.fw_post.shape[-1]
+    dtype, dev = fbres.fw_post.dtype, fbres.fw_post.device
+    x_ = fbres.fw_post[:, :-1]                          # [B, M-1, NS, S]
+    y_ = e_all[:, 1:] * fbres.bw[:, 1:]
+    # xor-correlation Z[x] = sum_g X[g] Y[g ^ x] = H(H(X) * H(Y)) / S
+    z = fwht(fwht(x_, -1) * fwht(y_, -1), -1) / S
+    # weight each shift mode by its posterior factor share
+    logw = fbres.fw_post_f[:, :-1] + fbres.bw_f[:, 1:]
+    logw = logw - logw.max(dim=-1, keepdim=True).values
+    z = (z * torch.exp(logw)[..., None]).sum(dim=2)     # [B, M-1, S]
+    p = torch.clamp(z, min=0.0) * lam_to_kernel(lam)     # [B, M-1, S]
+    tot = p.sum(dim=-1, keepdim=True)
+    p = torch.where(tot > 0, p / torch.where(tot > 0, tot, 1.0), 0.0)
+    x = torch.arange(S, device=dev)
+    bits = ((x[:, None] >> torch.arange(cfg.typebits, device=dev)[None, :])
+            & 1).to(dtype)
+    return torch.einsum("bmx,xt->bmt", p, bits)
+
+
+def lam_to_kernel(lam: torch.Tensor) -> torch.Tensor:
+    """Invert the WHT: kernel R[interval, xor] from eigenvalues."""
+    return fwht(lam, -1) / lam.shape[-1]

@@ -28,8 +28,10 @@ import boundary.
   marker and all others agree at rtol 1e-8; the NaN entries are counted
   and bounded;
 * a subprocess with ``jax`` and ``cnf2freq_tpu`` blocked imports the
-  port and runs adaptive-relhaplo iterations on the CPU — the card's
-  machine has no JAX, and the port imports nothing of the JAX package;
+  port, runs adaptive-relhaplo iterations on the CPU and runs
+  ``python -m cnf2freq_tpu_torch --device cpu --count 1`` on a tiny
+  written file set — the card's machine has no JAX, and the port imports
+  nothing of the JAX package;
   no module of the port (nor chip_smoke.py) imports either, by its AST;
 * Driver(ped) runs on the card by default and raises on a machine
   without one instead of running on the CPU.
@@ -201,12 +203,31 @@ def test_port_runs_without_jax():
         rh = np.stack([i.relhaplo for i in ped.inds[1:]])
         assert (rh != 0.5).any()
         print("OK", out["hitnnn"])
+
+        # python -m cnf2freq_tpu_torch on a tiny written file set
+        import os, runpy, tempfile
+        from cnf2freq_tpu_torch.utils.simulate import \
+            simulate_plantimpute_files
+        d = tempfile.mkdtemp()
+        m, p, g, _ = simulate_plantimpute_files(d, n_f2=3, n_markers=5)
+        out = os.path.join(d, "table.txt")
+        sys.argv = ["cnf2freq_tpu_torch", "--mapfile", m, "--pedfile", p,
+                    "--genfile", g, "--device", "cpu", "--count", "1",
+                    "--output", out, "--dump", os.path.join(d, "dump.txt")]
+        try:
+            runpy.run_module("cnf2freq_tpu_torch", run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert open(out).read().startswith("F2_0:1")
+        print("CLI OK")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=REPO, env=env, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("OK")
+    assert "CLI OK" in r.stdout
 
 
 def test_cuda_driver_raises_without_card():
