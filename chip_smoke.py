@@ -15,19 +15,37 @@ Phases, in order, each printing its lines (any failure exits non-zero):
            version in 2 rounds of 3
   slice    simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20,
            seed=7) on cuda in float32 with adaptive_relhaplo=False (the
-           v2 pipeline): preprocess(), iterate(early=True), iterate() x 2,
-           with every launch counter of the path > 0 and finite outputs
+           v2 pipeline) on the host-gathered iteration (resident=False):
+           preprocess(), iterate(early=True), iterate() x 2, with every
+           launch counter of the path > 0 and finite outputs
   slice_coherence
            the same cohort with adaptive relhaplo (the default; the
-           classic pipeline with coherence): preprocess(),
-           iterate(early=True), iterate() x 2; fails on a launch counter
-           of the path at 0, a non-finite output, a haploweight outside
-           [0, 1], a relhaplo outside [1e-4, 1 - 1e-4], or no relhaplo
-           moved from its loaded value
-  parity   a 24 x 32 cohort, float64, two iterations on cuda and on the
-           CPU, with adaptive relhaplo off and on: haploweights, relhaplo
-           and pair tables agree to 1e-9, markerdata exactly
-  cli      the user's entry point from files: simulate_plantimpute_files(
+           classic pipeline with coherence), resident=False:
+           preprocess(), iterate(early=True), iterate() x 2; fails on a
+           launch counter of the path at 0, a non-finite output, a
+           haploweight outside [0, 1], a relhaplo outside
+           [1e-4, 1 - 1e-4], or no relhaplo moved from its loaded value
+  slice_resident
+           the same cohort through the default Driver (the
+           device-resident iteration, adaptive relhaplo): the same
+           stages and checks, and the peak device memory; fails unless
+           its full iterations make fewer synchronising calls than
+           slice_coherence's
+  slice_negshift
+           the same cohort with flip_mode="negshift" and
+           parent_swap=True (the host-gathered iteration, the default
+           for negshift): the same stages and checks.  Each slice also
+           counts the calls that synchronise the host with the card in
+           each iteration (torch.cuda.set_sync_debug_mode "warn") and
+           prints the sites that made the most
+  parity   a 24 x 32 cohort, float64, on cuda and on the CPU, two
+           iterations on the host-gathered iteration (resident=False)
+           and on the resident one, each with adaptive relhaplo off and
+           on, then three with flip_mode="negshift" and
+           parent_swap=True: haploweights, relhaplo and pair tables
+           agree to 1e-9, markerdata exactly
+  cli      the user's entry point from files, on the Driver's default
+           (device-resident) iteration: simulate_plantimpute_files(
            n_f2=1000, n_markers=192, spacing_cm=1.0, missing_rate=0.3,
            error_rate=0.02, seed=11) written to a temporary directory, then
            cnf2freq_tpu_torch.cli.main (cuda, float32) with --count 3
@@ -55,6 +73,7 @@ kernels, the card's name and power limit, and {"ok": true, "device":
 {...}}.  Imports nothing of JAX and nothing of the JAX package.
 """
 
+import collections
 import contextlib
 import io
 import json
@@ -67,25 +86,26 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
 
 KERNELS = {
-    # name: (source, replaced TPU kernel, path it lies on)
+    # name: (source, replaced TPU kernel, pipeline it lies on: v2 without
+    # adaptive relhaplo, classic with it)
     "emission": ("cnf2freq_tpu_torch/csrc/emission.cu",
-                 "cnf2freq_tpu/ops/scan_v2.py:154", "slice"),
+                 "cnf2freq_tpu/ops/scan_v2.py:154", "v2"),
     "fb_sweep": ("cnf2freq_tpu_torch/csrc/fb_sweep.cu",
-                 "cnf2freq_tpu/ops/scan_v2.py:631", "slice"),
+                 "cnf2freq_tpu/ops/scan_v2.py:631", "v2"),
     "stats": ("cnf2freq_tpu_torch/csrc/stats.cu",
-              "cnf2freq_tpu/ops/stats_pallas.py:509", "slice"),
+              "cnf2freq_tpu/ops/stats_pallas.py:509", "v2"),
     "turn": ("cnf2freq_tpu_torch/csrc/turn.cu",
-             "cnf2freq_tpu/ops/scan_v2.py:808", "slice"),
+             "cnf2freq_tpu/ops/scan_v2.py:808", "v2"),
     "fb_classic": ("cnf2freq_tpu_torch/csrc/fb_classic.cu",
-                   "cnf2freq_tpu/ops/fb_pallas.py:55", "slice_coherence"),
+                   "cnf2freq_tpu/ops/fb_pallas.py:55", "classic"),
     "stats_bmns": ("cnf2freq_tpu_torch/csrc/stats.cu",
-                   "cnf2freq_tpu/ops/stats_pallas.py:612",
-                   "slice_coherence"),
+                   "cnf2freq_tpu/ops/stats_pallas.py:612", "classic"),
 }
 # operations per unit of work, counted from each kernel's arithmetic (for
 # the bound; every kernel here is far below the card's compute balance):
@@ -334,36 +354,68 @@ def check_kernels(dtype):
     return out
 
 
-def run_slice(phase, adaptive):
+@contextlib.contextmanager
+def sync_counter(sites):
+    """Count, into the Counter ``sites`` by file:line, the calls that
+    synchronise the host with the card while active (PyTorch's sync debug
+    mode reports each as a warning)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield sites
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            sites[f"{os.path.basename(w.filename)}:{w.lineno}"] += 1
+
+
+def run_slice(phase, adaptive, **driver_attrs):
     """The slice at 1000 x 192 in float32 through Driver.preprocess() and
-    Driver.iterate(); returns the launch counts of the kernels of its
-    path, read just after the run."""
+    Driver.iterate(), with ``driver_attrs`` set on the Driver; returns the
+    launch counts of the kernels of its pipeline, read just after the
+    run, and the synchronising calls of its full iterations."""
     from cnf2freq_tpu_torch import Driver
     from cnf2freq_tpu_torch.utils.simulate import simulate_f2
     ped = simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20, seed=7)
     rh0 = np.stack([ind.relhaplo for ind in ped.inds[1:]]).copy()
     drv = Driver(ped, dtype=torch.float32, device="cuda",
                  adaptive_relhaplo=adaptive)
-    wr = {k: fn for k, fn in wrappers().items() if KERNELS[k][2] == phase}
+    for k, v in driver_attrs.items():
+        setattr(drv, k, v)
+    pipeline = "classic" if adaptive else "v2"
+    wr = {k: fn for k, fn in wrappers().items()
+          if KERNELS[k][2] == pipeline}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for fn in wrappers().values():
         fn.launches = 0
     stages = [("preprocess", drv.preprocess),
               ("iterate_early", lambda: drv.iterate(early=True)),
               ("iterate_1", drv.iterate), ("iterate_2", drv.iterate)]
+    full_syncs, sites = 0, collections.Counter()
     for name, fn in stages:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fn()
+        here = collections.Counter()
+        with sync_counter(here):
+            out = fn()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
+        syncs = sum(here.values())
+        if name.startswith("iterate_") and name != "iterate_early":
+            full_syncs += syncs
+            sites.update(here)
         extra = {} if out is None else dict(
             loglik=f"{out['loglik']:.6f}", hitnnn=out["hitnnn"],
             scalefactor=f"{out['scalefactor']:.6g}",
             inverted=out["inverted"])
-        say(phase, stage=name, seconds=f"{sec:.3f}", **extra)
+        say(phase, stage=name, seconds=f"{sec:.3f}", syncs=syncs, **extra)
         if out is not None and not math.isfinite(out["loglik"]):
             fail(f"{phase}: non-finite log-likelihood after {name}")
     launches = {k: fn.launches for k, fn in wr.items()}
+    peak = torch.cuda.max_memory_allocated()
     hw = np.stack([ind.haploweight for ind in ped.inds[1:]])
     rh = np.stack([ind.relhaplo for ind in ped.inds[1:]])
     tabs = np.stack(list(drv.pair_tables.values()))
@@ -371,10 +423,15 @@ def run_slice(phase, adaptive):
                   and np.isfinite(rh).all())
     hw_ok = bool((hw >= 0).all() and (hw <= 1).all())
     moved = int((rh != rh0).sum())
-    say(phase, launches=json.dumps(launches), finite=finite,
-        haploweights_in_range=hw_ok, pair_tables=len(drv.pair_tables),
-        relhaplo_moved=moved, relhaplo_min=f"{rh.min():.6g}",
-        relhaplo_max=f"{rh.max():.6g}")
+    say(phase, resident=drv._use_resident(), flip_mode=drv.flip_mode,
+        parent_swap=drv.parent_swap, launches=json.dumps(launches),
+        finite=finite, haploweights_in_range=hw_ok,
+        pair_tables=len(drv.pair_tables), relhaplo_moved=moved,
+        relhaplo_min=f"{rh.min():.6g}", relhaplo_max=f"{rh.max():.6g}",
+        peak_memory_gb=f"{peak / 1e9:.3f}")
+    say(phase, full_iteration_syncs=full_syncs,
+        per_full_iteration=f"{full_syncs / 2:.1f}",
+        top_sites=json.dumps(sites.most_common(8)))
     if not (finite and hw_ok):
         fail(f"{phase}: non-finite or out-of-range outputs")
     if min(launches.values()) <= 0:
@@ -386,11 +443,12 @@ def run_slice(phase, adaptive):
             fail(f"{phase}: relhaplo outside [1e-4, 1 - 1e-4]")
     elif moved:
         fail(f"{phase}: relhaplo moved with adaptive relhaplo off")
-    return launches
+    return launches, full_syncs
 
 
-def run_parity(adaptive):
-    """24 x 32 cohort, float64, two iterations on cuda and on the CPU."""
+def run_parity(adaptive, iters=2, **driver_attrs):
+    """24 x 32 cohort, float64, ``iters`` iterations on cuda and on the
+    CPU, with ``driver_attrs`` set on both Drivers."""
     from cnf2freq_tpu_torch import Driver, copy_pedigree
     from cnf2freq_tpu_torch.utils.simulate import simulate_f2
     base = simulate_f2(n_f2=24, n_markers=32, n_founder_pairs=2, seed=11)
@@ -398,10 +456,12 @@ def run_parity(adaptive):
     drivers = {dev: Driver(p, dtype=torch.float64, device=dev,
                            adaptive_relhaplo=adaptive)
                for dev, p in peds.items()}
-    for d in drivers.values():
+    infos = {}
+    for dev, d in drivers.items():
+        for k, v in driver_attrs.items():
+            setattr(d, k, v)
         d.preprocess()
-        d.iterate(early=True)
-        d.iterate()
+        infos[dev] = [d.iterate(early=(i == 0)) for i in range(iters)]
 
     def stack(field):
         return {dev: np.stack([getattr(i, field) for i in p.inds[1:]])
@@ -414,14 +474,23 @@ def run_parity(adaptive):
     pair_err = max(float(np.abs(tabs["cuda"][n] - tabs["cpu"][n]).max())
                    for n in tabs["cpu"])
     md_same = bool(np.array_equal(md["cuda"], md["cpu"]))
+    same_steps = [(i["hitnnn"], i["inverted"]) for i in infos["cuda"]] == \
+        [(i["hitnnn"], i["inverted"]) for i in infos["cpu"]]
     moved = int((rh["cpu"] != 0.5).sum())
-    ok = hw_err <= 1e-9 and rh_err <= 1e-9 and pair_err <= 1e-9 and md_same
+    ok = hw_err <= 1e-9 and rh_err <= 1e-9 and pair_err <= 1e-9 and \
+        md_same and same_steps
     say("parity", adaptive_relhaplo=adaptive,
+        resident=drivers["cuda"]._use_resident(),
+        flip_mode=drivers["cuda"].flip_mode,
+        parent_swap=drivers["cuda"].parent_swap, iterations=iters,
+        inverted=[i["inverted"] for i in infos["cpu"]],
         haploweight_max_abs=f"{hw_err:.3e}", relhaplo_max_abs=f"{rh_err:.3e}",
         relhaplo_moved=moved, pair_max_abs=f"{pair_err:.3e}",
-        markerdata_equal=md_same, tol=1e-9, ok=ok)
+        markerdata_equal=md_same, same_hitnnn_inverted=same_steps, tol=1e-9,
+        ok=ok)
     if not ok:
-        fail(f"cuda and CPU float64 runs disagree (adaptive={adaptive})")
+        fail(f"cuda and CPU float64 runs disagree (adaptive={adaptive}, "
+             f"{driver_attrs})")
     if adaptive and not moved:
         fail("parity: adaptive relhaplo left relhaplo at its loaded value")
 
@@ -699,10 +768,24 @@ def main():
            for k, v in c.items() if not v["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
-    launches = run_slice("slice", adaptive=False)
-    launches.update(run_slice("slice_coherence", adaptive=True))
-    run_parity(adaptive=False)
-    run_parity(adaptive=True)
+    launches, _ = run_slice("slice", adaptive=False, resident=False)
+    _, host_syncs = run_slice("slice_coherence", adaptive=True,
+                              resident=False)
+    classic, resident_syncs = run_slice("slice_resident", adaptive=True)
+    # the kernels' launches on the main path: the default Driver
+    launches.update(classic)
+    say("slice_resident", full_iteration_syncs=resident_syncs,
+        slice_coherence_full_iteration_syncs=host_syncs,
+        fewer=resident_syncs < host_syncs)
+    if not resident_syncs < host_syncs:
+        fail("the resident iteration synchronises no less often than the "
+             "host-gathered one")
+    run_slice("slice_negshift", adaptive=True, flip_mode="negshift",
+              parent_swap=True)
+    for resident in (False, True):
+        for adaptive in (False, True):
+            run_parity(adaptive, resident=resident)
+    run_parity(True, iters=3, flip_mode="negshift", parent_swap=True)
     tmp = tempfile.mkdtemp(prefix="cnf2freq_smoke_")
     try:
         run_cli(tmp, card)

@@ -5,8 +5,8 @@ boost::program_options surface, cnF2freq.cpp:7946-7988), with the same
 flag names, defaults and semantics, plus ``--device``: the port runs on
 the card unless it is asked for the CPU, and never falls back from one to
 the other.  Flags of the JAX CLI that the port does not carry yet (the
-other readers, ``--model``, ``--flipmode``, ``--parentswap``,
-``--markerblock``, ``--trace``) are not defined, so argparse refuses them.
+other readers, ``--model``, ``--markerblock``, ``--trace``) are not
+defined, so argparse refuses them.
 """
 
 from __future__ import annotations
@@ -54,6 +54,13 @@ def build_parser() -> argparse.ArgumentParser:
                    "is written here (atomic rename) after every "
                    "iteration, and restored from it at startup when the "
                    "file exists — kill/resume-safe long runs")
+    p.add_argument("--flipmode", choices=("native", "negshift"),
+                   default="native",
+                   help="phase-flip optimizer: joint per-marker solver "
+                   "(default) or the legacy single-member negshift path")
+    p.add_argument("--parentswap", action="store_true",
+                   help="with --flipmode negshift: also apply parent-"
+                   "pair swap moves (parentswapnegshifts)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the model runs (default: the CUDA card; "
                    "without one the run fails rather than use the CPU)")
@@ -80,7 +87,12 @@ def _write_checkpoint(path, driver, ped, iterations_done):
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.parentswap and args.flipmode != "negshift":
+        # swap moves only exist on the legacy path; silently ignoring
+        # the flag would surprise the user
+        parser.error("--parentswap requires --flipmode negshift")
     if args.x64 is None:
         # default dtype by device: f32 on the card, f64 on the CPU, where
         # it matches the reference's precision
@@ -125,6 +137,8 @@ def main(argv=None) -> int:
     # raises without a card when the card is asked for
     driver = Driver(ped, dtype=torch.float64 if args.x64 else torch.float32,
                     device=args.device)
+    driver.flip_mode = args.flipmode
+    driver.parent_swap = args.parentswap
     driver.preprocess()
 
     if args.deserialize:

@@ -1,12 +1,23 @@
 """Iteration driver: preprocessing and the outer EM-like loop.
 
-Port of ``cnf2freq_tpu/driver.py`` on its non-resident, unmeshed,
-unblocked, non-parity, native-flip branch: per chromosome and chunk of
-analysis units, the scan and the segment-sum merges run on the device and
-fold into per-individual accumulators that stay device tensors; the flip
-scorer runs on the device, the component solve on the host (C++ core);
-the capped-gradient updates run on the device and write the new
-parameters back into the shared ``Pedigree``.
+Port of ``cnf2freq_tpu/driver.py`` on its unmeshed, unblocked,
+non-parity branches: per chromosome and chunk of analysis units, the scan
+and the segment-sum merges run on the device and fold into per-individual
+accumulators that stay device tensors; phase flips come from the native
+solver (device scoring, component solve on the host in C++) or the legacy
+negshift pass (``flip_mode``, with optional parent-pair swaps); the
+capped-gradient updates run on the device and write the new parameters
+back into the shared ``Pedigree``.
+
+Two forms of the iteration, chosen as the JAX package chooses them
+(``_use_resident``): the device-resident one (``resident.py``, the
+default for the native flip mode) keeps the per-individual state on the
+device as mirrors of the ``Pedigree``, gathers family batches there, and
+runs the parameter updates and the relhaplo refresh as one whole-cohort
+update with one batched readback; the other gathers each chunk on the
+host and runs the update stages from host stacks (``resident=False``,
+and the default for negshift).  Both give the same numbers in float64
+(in float32 a flipped haploweight may differ by an ulp).
 
 Adaptive relhaplo is on by default, as in the JAX package: the scan then
 carries the adjacent-phase coherence of every slot (the classic
@@ -36,13 +47,17 @@ from .hmm.family import gather_family
 from .hmm.transition import rate_matrix
 from .ops.scan import R_QUANTUM
 from .pedigree import Pedigree
+from .resident import (RELHAPLO_CLIP, ResidentAccum, ScanCohort,
+                       gather_cohort_static, gather_dev, resident_updates)
+from .updates.negshift import (apply_parent_swaps, negshift_flips,
+                               parent_swap_candidates)
 from .updates.parameter_updates import update_haploweights, update_infprobs
 from .updates.phaseflip import (FlipCandidate, _components, apply_flips,
                                 extract_candidates, family_variables,
                                 make_flip_scorer, select_winner,
                                 solve_component)
 from .updates.relskew import relskew_ratio
-from .updates.scatter import scatter_coherence
+from .utils.transfer import constant, fetch, upload
 
 
 def copy_pedigree(ped: Pedigree) -> Pedigree:
@@ -68,8 +83,6 @@ MAX_FLIP_MARKERS = 16
 # coherence (e, three sweep stores, the turn transforms, one slot's
 # coherence temporaries)
 UNIT_TENSORS = {False: 8, True: 16}
-# relhaplo stays inside (RELHAPLO_CLIP, 1 - RELHAPLO_CLIP)
-RELHAPLO_CLIP = 1e-4
 # phase-anchor choice: relative width of a variance tie, and the variance
 # below which a marker counts as uninformative (the rounding residue of
 # an exact zero is ~1e-28)
@@ -82,6 +95,7 @@ FLIP_SCORE_QUANTUM = 2.0 ** -14
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.float64): torch.float64}
+_NP_DTYPES = {v: k for k, v in _DTYPES.items()}
 
 
 def anchor_marker(variances: np.ndarray) -> Optional[int]:
@@ -129,6 +143,15 @@ class Driver:
         # units per scan chunk: "auto" sizes chunks to the device memory,
         # None scans the whole cohort at once, an int fixes the size
         self.batch_size = "auto"
+        # the device-resident iteration: None = auto (on for the native
+        # flip mode, as in the JAX package), True / False force it
+        self.resident = None
+        # "native" = the joint per-marker flip solver; "negshift" = the
+        # legacy single-member inversion pass (updates/negshift.py)
+        self.flip_mode = "native"
+        # parent-pair swap moves after the negshift pass (negshift only;
+        # the CLI refuses them without it)
+        self.parent_swap = False
         self._pair_tables: Dict[int, np.ndarray] = {}
         self._pair_pending: list = []
         self._cache: dict = {}
@@ -449,9 +472,18 @@ class Driver:
     # ------------------------------------------------------------------
     # One iteration (doit)
     # ------------------------------------------------------------------
+    def _use_resident(self) -> bool:
+        """The JAX package's rule (its marker blocking and parity mode are
+        not carried, so only the flip mode decides)."""
+        if self.resident is not None:
+            return bool(self.resident)
+        return self.flip_mode == "native"
+
     def iterate(self, early: bool = False):
         ped, cfg, params = self.ped, self.cfg, self.params
         dev, dt = self.device, self.dtype
+        if self.flip_mode not in ("native", "negshift"):
+            raise ValueError(f"unknown flip_mode {self.flip_mode!r}")
         st = self.state
         st.iter += 1
         dous = list(ped.dous)
@@ -461,52 +493,50 @@ class Driver:
         ind_index = {n: i for i, n in enumerate(ids)}
         M = ped.num_markers
         NI = len(ids)
-        haplobase = torch.zeros((NI, M), dtype=dt, device=dev)
-        haplocount = torch.zeros((NI, M), dtype=dt, device=dev)
-        infacc = torch.zeros((NI, M, 2, 2), dtype=dt, device=dev)
-        winners: List[Optional[FlipCandidate]] = []
-        loglik = torch.zeros((), dtype=torch.float64, device=dev)
+        resident = self._use_resident()
         need_coh = self.adaptive_relhaplo and bool(cfg.relskews)
-        if need_coh:
-            coh_num = torch.zeros((NI, M), dtype=dt, device=dev)
-            coh_den = torch.zeros((NI, M), dtype=dt, device=dev)
+        accum = ResidentAccum(NI, M, dt, dev, with_coh=need_coh)
+        winners: List[Optional[FlipCandidate]] = []
+        swap_cands: list = []     # parent-pair swap hypotheses, all chroms
+        loglik = torch.zeros((), dtype=torch.float64, device=dev)
         self._pair_pending.clear()
 
         # vacant slots map to the sentinel row NI (dropped by the merges)
-        lut = np.full(max(ids) + 1, NI, dtype=np.int64)
+        lut_h = np.full(max(ids) + 1, NI, dtype=np.int64)
         for n, i in ind_index.items():
-            lut[n] = i
-        lut = torch.as_tensor(lut, device=dev)
+            lut_h[n] = i
+        lut = constant(lut_h, dev)
 
         for c in range(ped.num_chromosomes):
             lo, hi = ped.chromosome_range(c)
             for n in dous:
                 ped.by_id(n).lastinved[c] = -1
             Mc = hi - lo
-            dists = self._t(np.diff(ped.markerposes[lo:hi]))
-            rm = self._t(rate_matrix(cfg, params, Mc - 1, ped.actrec, lo))
+            dists = np.diff(ped.markerposes[lo:hi])
+            rm = rate_matrix(cfg, params, Mc - 1, ped.actrec, lo)
+            if resident:
+                dists, rm = upload(dists, dev, dt), upload(rm, dev, dt)
+            else:
+                dists, rm = self._t(dists), self._t(rm)
             bs = self._chunk_size(len(dous), Mc, need_coh)
             weight_parts = []
             remap_acc = (np.zeros((2, Mc - 1)), np.zeros(2, dtype=np.int64))
             for b0 in range(0, len(dous), bs):
                 chunk = dous[b0:b0 + bs]
-                fb = gather_family(ped, chunk, lo, hi - 1,
-                                   n_variants=1).to(dev, dt)
+                if resident:
+                    fb = self._fill_family_dev(chunk, c, b0, ids, lut_h)
+                else:
+                    fb = gather_family(ped, chunk, lo, hi - 1,
+                                       n_variants=1).to(dev, dt)
                 res, hb_p, hc_p, inf_p = scan_merged(
                     fb, dists, lut, rm, cfg, params, NI,
                     with_coherence=need_coh)
                 self._pair_pending.append((list(chunk), lo, res.pair))
                 loglik += res.total.sum()
-                haplobase[:, lo:hi] += hb_p
-                haplocount[:, lo:hi] += hc_p
-                infacc[:, lo:hi] += inf_p
+                accum.add(lo, hb_p, hc_p, inf_p)
                 if need_coh:
-                    # the last marker has no right neighbour: its interval
-                    # coherence stays neutral
-                    coh = res.coherence.clone()
-                    coh[:, Mc - 1] = 0.5
-                    scatter_coherence(fb.slot_ind, fb.descendants, lo, coh,
-                                      coh_num, coh_den, lut)
+                    accum.add_coh(lo, res.coherence, fb.slot_ind,
+                                  fb.descendants, lut)
                 if self.remap_distances:
                     self._accumulate_recomb(fb, dists, res, rm, remap_acc)
                 if not early:
@@ -514,26 +544,216 @@ class Driver:
                 del res
             winner = None
             if not early:
-                winner = self._optimise_flips(dous, lo, hi, weight_parts,
-                                              haplobase, haplocount,
-                                              ind_index, c)
-                if winner is not None:
-                    apply_flips(ped, winner, c, haplobase, haplocount,
+                winner = self._flips(dous, lo, hi, weight_parts, accum,
+                                     ind_index, c, resident, swap_cands)
+                if winner is not None and resident:
+                    apply_flips(ped, winner, c)
+                    rows = [(ind_index[n], m) for n, m in winner.flips]
+                    accum.flip_rows(rows, hi)
+                    self._flip_param(rows, hi)
+                elif winner is not None:
+                    apply_flips(ped, winner, c, accum.hb, accum.hc,
                                 ind_index)
             winners.append(winner)
             del weight_parts
             if self.remap_distances:
                 self._apply_recomb(lo, hi, remap_acc)
 
-        if need_coh:
-            self._refresh_relhaplo(ids, coh_num, coh_den)
         any_inv = any(w is not None for w in winners)
         sf = 0.0 if any_inv else st.scalefactor
-        hits = self._process_infprobs(ids, infacc, sf)
-        hits += self._update_haploweights(ids, haplobase, haplocount, sf)
+        if resident:
+            hits, loglik = self._updates_resident(ids, accum, sf, loglik)
+        else:
+            if need_coh:
+                self._refresh_relhaplo(ids, accum.cnum, accum.cden)
+            hits = self._process_infprobs(ids, accum.inf, sf)
+            hits += self._update_haploweights(ids, accum.hb, accum.hc, sf)
+        if swap_cands:
+            # one genome-wide dominance pass after the updates (the
+            # reference's parentswapnegshifts placement); the swaps change
+            # the host haploweights only, so the next resident iteration
+            # finds its mirror stale and uploads again
+            apply_parent_swaps(ped, swap_cands)
         self._adapt_scalefactor(any_inv, hits, len(dous))
         return dict(hitnnn=hits, inverted=any_inv,
                     scalefactor=st.scalefactor, loglik=float(loglik))
+
+    def _flips(self, dous, lo, hi, weight_parts, accum, ind_index, chrom,
+               resident, swap_cands) -> Optional[FlipCandidate]:
+        """One chromosome's phase-flip winner.  negshift: the turn weights
+        on the host with the descendant factor divided out, the legacy
+        single-member pass, and the parent-swap hypotheses (scored now,
+        applied genome-wide after the updates)."""
+        if self.flip_mode == "native":
+            return self._optimise_flips(dous, lo, hi, weight_parts, accum,
+                                        ind_index, chrom, resident)
+        ped = self.ped
+        (weights,) = fetch([torch.cat(weight_parts).double()])
+        desc = np.array([max(ped.by_id(n).descendants, 1) for n in dous],
+                        dtype=float)
+        unscaled = weights / desc[:, None, None]
+        winner = negshift_flips(ped, dous, lo, hi, unscaled, self.cfg)
+        if self.parent_swap:
+            swap_cands += parent_swap_candidates(ped, dous, lo, hi, unscaled,
+                                                 self.cfg)
+        return winner
+
+    # -- the device-resident iteration ----------------------------------
+    def _upload_mirror(self, x: np.ndarray) -> torch.Tensor:
+        """A host stack of per-individual state to the device, floats in
+        the Driver's dtype (the resident mirrors' only upload)."""
+        return upload(x, self.device, self.dtype if x.dtype.kind == "f"
+                      else None)
+
+    def _mirror(self, name: str, host: Dict[str, np.ndarray]):
+        """This iteration's device copies of per-individual host stacks
+        ({field: [NI, ...]}): the mirror ``name``'s device tensors while
+        its host copies equal ``host`` exactly, so that last iteration's
+        update outputs are reused and a deserialize, a masking or any
+        other write to the Pedigree is uploaded afresh."""
+        cur = self._cache.get(name)
+        if cur is not None and cur[0] == self.state.iter:
+            return cur[1]
+        mirror = self._cache.get(name + "_mirror")
+        if mirror is None or not all(np.array_equal(mirror["host"][k], v)
+                                     for k, v in host.items()):
+            mirror = dict(host=host, dev={k: self._upload_mirror(v)
+                                          for k, v in host.items()})
+            self._cache[name + "_mirror"] = mirror
+        self._cache[name] = (self.state.iter, mirror["dev"])
+        return mirror["dev"]
+
+    def _md_ms_dev(self, ids):
+        """Device markerdata and markersure (the host copy of markersure
+        in the device dtype, as the update returns it)."""
+        ped = self.ped
+        return self._mirror("md_ms", dict(
+            md=np.stack([ped.by_id(n).markerdata for n in ids]).astype(
+                np.int32),
+            ms=np.stack([ped.by_id(n).markersure for n in ids]).astype(
+                _NP_DTYPES[self.dtype])))
+
+    def _param_dev(self, ids):
+        """Device haploweight and relhaplo, with float64 host copies; the
+        phase flips of an iteration reach both through _flip_param."""
+        ped = self.ped
+        return self._mirror("param", dict(
+            hw=np.stack([ped.by_id(n).haploweight for n in ids]),
+            rh=np.stack([ped.by_id(n).relhaplo if ped.by_id(n).relhaplo
+                         is not None else np.full(ped.num_markers, 0.5)
+                         for n in ids])))
+
+    def _flip_param(self, flips, hi):
+        """apply_flips' haploweight inversion on the device mirror and on
+        its host copy (the same arithmetic as on the Pedigree, so the
+        copy keeps equal to it).  In float32 the device mirror is flipped
+        in float32 and may differ from the float64 host value by an
+        ulp."""
+        mirror = self._cache["param_mirror"]
+        ResidentAccum.flip_hw(mirror["dev"]["hw"], flips, hi)
+        hw = mirror["host"]["hw"]
+        for r, m in flips:
+            hw[r, m + 1:hi] = 1.0 - hw[r, m + 1:hi]
+
+    def _scan_cohort(self, ids) -> ScanCohort:
+        """The iteration's device cohort for the family gathers, built at
+        the first chunk from the mirrors."""
+        cur = self._cache.get("cohort")
+        if cur is not None and cur[0] == self.state.iter:
+            return cur[1]
+        mdms = self._md_ms_dev(ids)
+        cohort = ScanCohort(mdms["md"], mdms["ms"], self._param_dev(ids)["hw"])
+        self._cache["cohort"] = (self.state.iter, cohort)
+        return cohort
+
+    def _fill_family_dev(self, chunk, c, b0, ids, lut_h):
+        """A chunk's family batch: the skeleton (slot indices, flags,
+        masks, descendants) is pedigree structure, gathered on the host
+        and uploaded once per (chromosome, chunk); md/ms/hw are gathered
+        on the device from the iteration's cohort."""
+        lo, hi = self.ped.chromosome_range(c)
+        key = ("fb_light", c, b0)
+        cached = self._cache.get(key)
+        if cached is None or cached[0] != chunk:
+            skel = gather_family(self.ped, chunk, lo, hi - 1, n_variants=1,
+                                 light=True)
+            rows = lut_h[skel.slot_ind]       # vacant slots: id 0 -> row NI
+            cached = (list(chunk), skel.to(self.device, self.dtype),
+                      upload(rows, self.device))
+            self._cache[key] = cached
+        _, skel, rows = cached
+        md, ms, hw = gather_dev(self._scan_cohort(ids), rows, lo, hi)
+        return dataclasses.replace(skel, md=md, ms=ms, hw=hw)
+
+    def _cohort_static(self, ids):
+        key = ("cohort_static", len(ids))
+        if key not in self._cache:
+            self._cache[key] = gather_cohort_static(self.ped, ids,
+                                                    self.dtype, self.device)
+        return self._cache[key]
+
+    def _updates_resident(self, ids, accum, scalefactor, loglik):
+        """processinfprobs, updatehaploweights and the relhaplo refresh as
+        one device update (resident.resident_updates) from the
+        accumulators and the mirrors, read back in one batched copy with
+        the iteration's log-likelihood.  Returns (hits, loglik)."""
+        ped, cfg = self.ped, self.cfg
+        C = ped.num_chromosomes
+        static = self._cohort_static(ids)
+        lastinv_c = np.array([[ped.by_id(n).lastinved[c] != -1
+                               for c in range(C)] for n in ids])
+        mdms, param = self._md_ms_dev(ids), self._param_dev(ids)
+        out = resident_updates(
+            cfg, self.params,
+            [ped.chromosome_range(c) for c in range(C)], accum, mdms["md"],
+            mdms["ms"], static, param["hw"], param["rh"],
+            upload(lastinv_c, self.device), scalefactor)
+        pulls = dict(md_e=out.markerdata_e, ms_e=out.markersure_e,
+                     take_e=out.take_e, hw=out.haploweight, active=out.active,
+                     hits=out.hits, loglik=loglik)
+        if accum.cnum is not None:
+            pulls.update(rh=out.relhaplo, got=out.got)
+        host = dict(zip(pulls, fetch(list(pulls.values()))))
+        self._writeback_resident(ids, static, out, host)
+        return int(host["hits"]), float(host["loglik"])
+
+    def _writeback_resident(self, ids, static, out, host):
+        """Masked writeback of the update's readback into the Pedigree,
+        so lanes that did not move keep their float64 host values; then
+        the mirrors hold the new state for the next iteration."""
+        ped = self.ped
+        ms_e = host["ms_e"].astype(np.float64)
+        for i, r in enumerate(static.elig_rows):
+            ind = ped.by_id(ids[r])
+            t = host["take_e"][i]
+            if t.any():
+                ind.markerdata[t] = host["md_e"][i][t]
+                ind.markersure[t] = ms_e[i][t]
+        hw, act = host["hw"].astype(np.float64), host["active"]
+        for i, n in enumerate(ids):
+            ped.by_id(n).haploweight[act[i]] = hw[i][act[i]]
+        # the host copies of the mirrors, as the Pedigree now holds them
+        self._cache["md_ms_mirror"] = dict(
+            host=dict(md=np.stack([ped.by_id(n).markerdata
+                                   for n in ids]).astype(np.int32),
+                      ms=np.stack([ped.by_id(n).markersure
+                                   for n in ids]).astype(
+                                       _NP_DTYPES[self.dtype])),
+            dev=dict(md=out.markerdata, ms=out.markersure))
+        mirror = self._cache["param_mirror"]
+        mirror["host"]["hw"][act] = hw[act]
+        mirror["dev"]["hw"] = out.haploweight
+        if "rh" in host:
+            # the clip again on the float64 host values (a float32 bound
+            # lies just outside the float64 one)
+            rh = np.clip(host["rh"].astype(np.float64), RELHAPLO_CLIP,
+                         1 - RELHAPLO_CLIP)
+            for i, n in enumerate(ids):
+                ind, g = ped.by_id(n), host["got"][i]
+                if ind.relhaplo is not None and g.any():
+                    ind.relhaplo[g] = rh[i][g]
+                    mirror["host"]["rh"][i][g] = rh[i][g]
+            mirror["dev"]["rh"] = out.relhaplo
 
     def _accumulate_recomb(self, fb, dists, res, rm, acc):
         """Per-chunk accumulation of posterior recombination expectations:
@@ -621,35 +841,40 @@ class Driver:
         self._cache[key] = out
         return out
 
-    def _optimise_flips(self, dous, lo, hi, weight_parts, haplobase,
-                        haplocount, ind_index, chrom
-                        ) -> Optional[FlipCandidate]:
+    def _optimise_flips(self, dous, lo, hi, weight_parts, accum, ind_index,
+                        chrom, resident=False) -> Optional[FlipCandidate]:
         """Native phase-flip optimisation: device scoring of the hot
         markers, then a full solve of every component with a gainful
         family at each of them."""
-        scored = self._score_turns(dous, lo, hi, weight_parts, haplobase,
-                                   haplocount, ind_index, chrom)
+        scored = self._score_turns(dous, lo, hi, weight_parts, accum,
+                                   ind_index, chrom, resident)
         return self._solve_scored(dous, lo, hi, scored, chrom)
 
-    def _score_turns(self, dous, lo, hi, weight_parts, haplobase,
-                     haplocount, ind_index, chrom):
+    def _score_turns(self, dous, lo, hi, weight_parts, accum, ind_index,
+                     chrom, resident=False):
         """Device scoring of one chromosome: host (idx, mg, gains [B, k],
-        S_top [B, k, P])."""
-        ped, cfg = self.ped, self.cfg
+        S_top [B, k, P]), read back in one copy.  The relskew inputs are
+        hb/hc from the accumulators and hw/rh from the Pedigree, or, on
+        the resident iteration, from the device mirrors (before this
+        chromosome's flips, as the Pedigree is)."""
+        ped, cfg, dev = self.ped, self.cfg, self.device
         B = len(dous)
         M = hi - lo
         dt = weight_parts[0].dtype
         with_skew = bool(cfg.relskews)
         if with_skew:
-            hw = np.stack([ped.by_id(n).haploweight[lo:hi] for n in dous])
-            rh = np.stack([ped.by_id(n).relhaplo[lo:hi] for n in dous])
-            rows = torch.as_tensor([ind_index[n] for n in dous],
-                                   device=self.device)
-            hb = haplobase[rows][:, lo:hi]
-            hc = haplocount[rows][:, lo:hi]
+            rows = constant([ind_index[n] for n in dous], dev)
+            hb, hc = accum.rows_slice(rows, lo, M)
+            if resident:
+                param = self._cache["param"][1]
+                hw, rh = param["hw"][rows, lo:hi], param["rh"][rows, lo:hi]
+            else:
+                hw = self._t(np.stack([ped.by_id(n).haploweight[lo:hi]
+                                       for n in dous]), dt)
+                rh = self._t(np.stack([ped.by_id(n).relhaplo[lo:hi]
+                                       for n in dous]), dt)
         else:
-            hw = rh = np.zeros((B, M))
-            hb = hc = self._t(hw, dt)
+            hw = rh = hb = hc = torch.zeros((B, M), dtype=dt, device=dev)
         varlists, pat, allowed, comp_struct, comp_of_fam = \
             self._flip_static(dous, chrom)
         desc = np.array([ped.by_id(n).descendants for n in dous],
@@ -660,16 +885,12 @@ class Driver:
         if "flip_scorer" not in self._cache:
             self._cache["flip_scorer"] = make_flip_scorer()
         idx, mg, gains, S_top = self._cache["flip_scorer"](
-            weight_parts, self._t(pat, torch.int64),
-            self._t(allowed, torch.bool), self._t(hw, dt), self._t(rh, dt),
-            hb, hc, self._t(desc, dt), self._t(tsel, torch.bool),
-            k=k, with_skew=with_skew)
-
-        def host(x):
-            return x.to("cpu", torch.float64 if x.is_floating_point()
-                        else x.dtype).numpy()
-
-        return host(idx), host(mg), host(gains), host(S_top)
+            weight_parts, constant(pat, dev, torch.int64),
+            constant(allowed, dev), hw, rh, hb, hc, constant(desc, dev, dt),
+            constant(tsel, dev), k=k, with_skew=with_skew)
+        idx, mg, gains, S_top = fetch([idx, mg, gains, S_top])
+        return (idx, mg.astype(np.float64), gains.astype(np.float64),
+                S_top.astype(np.float64))
 
     @staticmethod
     def _canonical_scores(scored):

@@ -68,19 +68,25 @@ class FamilyBatch:
 
 def gather_family(ped: Pedigree, focal_ids: Sequence[int],
                   startmark: int, endmark: int,
-                  dtype=np.float64, n_variants: int = None) -> FamilyBatch:
+                  dtype=np.float64, n_variants: int = None,
+                  light: bool = False) -> FamilyBatch:
     """Build the batch for markers [startmark, endmark] inclusive.  The
     canonical-path mask pins only vacant slots' path bits (the JAX
     package's "missing" mode).  n_variants: the probe-dedup variant count
-    of the dup_flip axis."""
+    of the dup_flip axis.  light: the skeleton only (slot indices, flags,
+    masks, descendants) with md/ms/hw None, for a caller that gathers
+    those on the device (``resident.gather_dev``)."""
     cfg: ModelConfig = ped.config
     B = len(focal_ids)
     S = cfg.numslots
     M = endmark - startmark + 1
 
-    md = np.zeros((B, S, M, 2), dtype=np.int32)
-    ms = np.zeros((B, S, M, 2), dtype=dtype)
-    hw = np.full((B, S, M), 0.5, dtype=dtype)
+    if light:
+        md = ms = hw = None
+    else:
+        md = np.zeros((B, S, M, 2), dtype=np.int32)
+        ms = np.zeros((B, S, M, 2), dtype=dtype)
+        hw = np.full((B, S, M), 0.5, dtype=dtype)
     exists = np.zeros((B, S), dtype=bool)
     attop = np.zeros((B, S), dtype=bool)
     f2ig = np.zeros(B, dtype=np.int32)
@@ -103,9 +109,10 @@ def gather_family(ped: Pedigree, focal_ids: Sequence[int],
             exists[b, s] = True
             slot_ind[b, s] = sid
             emptyslot[b, s] = ind.empty
-            md[b, s] = ind.markerdata[sl]
-            ms[b, s] = ind.markersure[sl]
-            hw[b, s] = ind.haploweight[sl]
+            if not light:
+                md[b, s] = ind.markerdata[sl]
+                ms[b, s] = ind.markersure[sl]
+                hw[b, s] = ind.haploweight[sl]
             # grandparent slots are tops by depth; others by founder flag
             is_gp = s not in (0, cfg.parent_slot(0), cfg.parent_slot(1))
             attop[b, s] = ind.founder \

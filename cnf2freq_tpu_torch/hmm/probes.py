@@ -22,6 +22,7 @@ import torch
 
 from ..config import MINFACTOR, ModelConfig
 from ..ops.scan import turn_offsets
+from ..utils.transfer import constant
 from .emission import EmissionBlocks
 from .family import FamilyBatch
 from .forward_backward import FBResult
@@ -127,8 +128,7 @@ def turn_weights_fast(fbres: FBResult, fb: FamilyBatch,
     bwp = (fbres.bw * bexp[..., None]).reshape(B, M, X)
     D = fwht(fwht(fwp, -1) * fwht(bwp, -1), -1) / X       # [B, M, X]
 
-    idx = torch.as_tensor(turn_offsets(cfg), dtype=torch.long,
-                          device=D.device)
+    idx = constant(turn_offsets(cfg), D.device, torch.long)
     vals = D[..., idx]                                     # [B, M, T]
     tiny = torch.finfo(dtype).tiny
     logv = torch.log(torch.clamp(vals, min=tiny))
@@ -175,17 +175,16 @@ def _phase_parity_emission(blocks: EmissionBlocks, fb: FamilyBatch,
     dev = blocks.froot.device
     froot = blocks.froot
     if slot == 0:
-        parf = torch.as_tensor(_IND_FOCAL[..., 0].astype(np.int8)
-                               - _IND_FOCAL[..., 1].astype(np.int8),
-                               dtype=dtype, device=dev)       # [r, t]
+        parf = constant(_IND_FOCAL[..., 0].astype(np.int8)
+                        - _IND_FOCAL[..., 1].astype(np.int8), dev,
+                        dtype)                                # [r, t]
         return _branch_emission(froot * parf, _path_summed(blocks, fb, 0),
                                 _path_summed(blocks, fb, 1))
     k = 0 if slot < cfg.parent_slot(1) else 1
     local = slot - cfg.parent_slot(k)
     ind = _IND_PARENT if local == 0 else _IND_GP[local - 1]
-    par = torch.as_tensor(ind[..., 0].astype(np.int8)
-                          - ind[..., 1].astype(np.int8), dtype=dtype,
-                          device=dev)                         # [f, p, s]
+    par = constant(ind[..., 0].astype(np.int8) - ind[..., 1].astype(np.int8),
+                   dev, dtype)                                # [f, p, s]
     V = _valid_paths(fb.flag2ignore, k).to(dtype)
     vpar = V[:, None, None, None, :, None] * par              # [B,1,1,f,p,s]
     ph = (blocks.pb[k] * vpar).sum(dim=-2)                    # [B,M,r,f,s]

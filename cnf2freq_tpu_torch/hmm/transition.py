@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig, RuntimeParams
+from ..utils.transfer import constant
 
 
 @lru_cache(maxsize=8)
@@ -58,8 +59,8 @@ def interval_recomb(cfg: ModelConfig, params: RuntimeParams,
     if ratemat is not None:
         rate = ratemat * dists[:, None]
     else:
-        genrec = torch.tensor([params.genrec[g] for g in cfg.typegens],
-                              dtype=dists.dtype, device=dists.device)
+        genrec = constant([params.genrec[g] for g in cfg.typegens],
+                          dists.device, dists.dtype)
         rate = genrec[None, :] * dists[:, None]
     return 0.5 * (1.0 - torch.exp(rate))
 

@@ -33,6 +33,7 @@ from ..config import MINFACTOR, ModelConfig, RuntimeParams
 from .. import _build
 from ..hmm.family import FamilyBatch
 from ..hmm.transition import fwht, interval_recomb, transition_eigenvalues
+from ..utils.transfer import constant
 from . import stats as stats_mod
 
 R_QUANTUM = 32   # batch padding: one warp of consecutive units
@@ -290,8 +291,7 @@ def turn_weights_v2(fb2: FBv2, sh: torch.Tensor, descendants: torch.Tensor,
         return fwht(fwht(x, 1), 2)
 
     D = (wht_x(wht_x(fwp) * wht_x(bwp)) / X).reshape(M, X, R)
-    idx = torch.as_tensor(turn_offsets(cfg), dtype=torch.long,
-                          device=D.device)
+    idx = constant(turn_offsets(cfg), D.device, torch.long)
     vals = D[:, idx]                                         # [M, T, R]
     tiny = torch.finfo(dtype).tiny
     logv = torch.log(torch.clamp(vals, min=tiny))
@@ -317,7 +317,7 @@ def turn_weights(fb2: FBv2, sh: torch.Tensor, descendants: torch.Tensor,
     _build.check(descendants, dt, (B,), "descendants")
     if not 0 < B <= R:
         raise ValueError(f"B={B} outside (0, R={R}]")
-    idx = torch.as_tensor(turn_offsets(cfg), device=sh.device)
+    idx = constant(turn_offsets(cfg), sh.device)
     out = torch.empty((B, M, cfg.numturns), dtype=dt, device=sh.device)
     _build.launch("turn", dt, fb2.fw_post, fb2.bw, fb2.fw_post_f, fb2.bw_f,
                   sh, descendants, idx, out, M, R, B)

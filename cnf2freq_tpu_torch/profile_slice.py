@@ -1,16 +1,20 @@
 """Stage breakdown of the port's main path on one GPU.
 
     python3 -m cnf2freq_tpu_torch.profile_slice [--out FILE.json]
-        [--adaptive-relhaplo {on,off}]
+        [--adaptive-relhaplo {on,off}] [--resident {auto,off}]
+        [--flipmode {native,negshift}]
 
 Runs a slice of ``chip_smoke.py``, simulate_f2(n_f2=1000, n_markers=192,
 n_founder_pairs=20, seed=7) in float32 on cuda, with adaptive relhaplo on
-(the default: the classic pipeline with coherence, ``slice_coherence``) or
-off (the v2 pipeline, ``slice``): preprocess(), the early iteration, then
-two full iterations.  For each it prints the wall seconds of the whole
-call and of each driver stage (on the classic pipeline also the scan's
-own stages, ``scan.*``), timed on the host around calls bracketed by
-``torch.cuda.synchronize()``, and the
+(the default: the classic pipeline with coherence) or off (the v2
+pipeline), on the Driver's default iteration (``--resident auto``: the
+device-resident one for the native flip mode, ``slice_resident``) or the
+host-gathered one (``off``, ``slice_coherence`` and ``slice``), with the
+native flip solver or the negshift pass: preprocess(), the early
+iteration, then two full iterations.  For each it prints the wall seconds
+of the whole call and of each driver stage (on the classic pipeline also
+the scan's own stages, ``scan.*``), timed on the host around calls
+bracketed by ``torch.cuda.synchronize()``, and the
 iteration's ``inverted`` flag: an inverted iteration applied a phase
 flip, which freezes the capped-gradient updates (scalefactor 0), so its
 two update stages are overhead only and run no bisection.  One more full
@@ -30,13 +34,26 @@ import collections
 import contextlib
 import json
 import os
+import subprocess
 import time
 
 import torch
 
 STAGES = ("_feasibility", "_compute_variances", "_score_turns",
           "_solve_scored", "_refresh_relhaplo", "_process_infprobs",
-          "_update_haploweights")
+          "_update_haploweights",
+          # the resident iteration: the device family gather (with the
+          # skeleton's first gather and upload), the mirrors' checks and
+          # uploads, the whole-cohort update with its readback, and the
+          # writeback into the Pedigree
+          "_fill_family_dev", "_md_ms_dev", "_param_dev", "_updates_resident",
+          "_writeback_resident")
+# driver-module functions timed under their own names: the host gather
+# and the scan of the other iteration, the update arithmetic of the
+# resident one, the negshift pass
+FUNCTIONS = ("gather_family", "scan_merged", "resident_updates",
+             "negshift_flips", "parent_swap_candidates",
+             "apply_parent_swaps")
 # stages inside the classic scan (engine.chromosome_scan imports them at
 # each call): (module, function)
 SCAN_STAGES = (("hmm.emission", "build_blocks"),
@@ -64,10 +81,9 @@ def stage_timers():
             return out
         return run
 
-    saved = {"gather_family": dm.gather_family,
-             "scan_merged": dm.scan_merged,
-             "scatter_coherence": dm.scatter_coherence}
+    saved = {f: getattr(dm, f) for f in FUNCTIONS}
     saved_methods = {m: getattr(dm.Driver, m) for m in STAGES}
+    add_coh = dm.ResidentAccum.add_coh
     scan = [(importlib.import_module(f"{__package__}.{mod}"), name)
             for mod, name in SCAN_STAGES]
     saved_scan = [(mod, name, getattr(mod, name)) for mod, name in scan]
@@ -78,6 +94,7 @@ def stage_timers():
             setattr(dm.Driver, name, timed(name, fn))
         for mod, name, fn in saved_scan:
             setattr(mod, name, timed("scan." + name, fn))
+        dm.ResidentAccum.add_coh = timed("scatter_coherence", add_coh)
         yield acc
     finally:
         for name, fn in saved.items():
@@ -86,6 +103,7 @@ def stage_timers():
             setattr(dm.Driver, name, fn)
         for mod, name, fn in saved_scan:
             setattr(mod, name, fn)
+        dm.ResidentAccum.add_coh = add_coh
 
 
 def main(argv=None):
@@ -93,6 +111,9 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help="also write JSON here")
     ap.add_argument("--adaptive-relhaplo", choices=("on", "off"),
                     default="on")
+    ap.add_argument("--resident", choices=("auto", "off"), default="auto")
+    ap.add_argument("--flipmode", choices=("native", "negshift"),
+                    default="native")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
@@ -105,11 +126,20 @@ def main(argv=None):
     adaptive = args.adaptive_relhaplo == "on"
     drv = Driver(ped, dtype=torch.float32, device="cuda",
                  adaptive_relhaplo=adaptive)
+    drv.flip_mode = args.flipmode
+    if args.resident == "off":
+        drv.resident = False
     calls = [("preprocess", drv.preprocess),
              ("iterate_early", lambda: drv.iterate(early=True))]
     calls += [(f"iterate_{i + 1}", drv.iterate) for i in range(2)]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
     report = {"device": torch.cuda.get_device_name(0),
-              "adaptive_relhaplo": adaptive, "stages": {}}
+              "card": smi.stdout.strip().splitlines()[0]
+              if smi.returncode == 0 else "not read",
+              "adaptive_relhaplo": adaptive, "flip_mode": drv.flip_mode,
+              "resident": drv._use_resident(), "stages": {}}
     with stage_timers() as acc:
         for name, fn in calls:
             acc.clear()
@@ -122,6 +152,7 @@ def main(argv=None):
                 rec["inverted"] = out["inverted"]
             report["stages"][name] = rec
             print(name, json.dumps(rec), flush=True)
+    print("card", report["card"])
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:

@@ -62,10 +62,15 @@ def cappedgd(gradient: Callable[[torch.Tensor], torch.Tensor],
     """Vectorized cappedgd over [N] lanes.  gradient maps values [N] to
     gradients [N].  Returns (new_value, hit)."""
     dtype, dev = orig.dtype, orig.device
-    epsilon = torch.as_tensor(epsilon, dtype=dtype,
-                              device=dev).expand(orig.shape)
-    breakathalf = torch.as_tensor(breakathalf, dtype=torch.bool,
-                                  device=dev).expand(orig.shape)
+
+    def lanes(x, dt):
+        # a Python scalar is filled in on the device (no host copy)
+        if torch.is_tensor(x):
+            return x.to(device=dev, dtype=dt).expand(orig.shape)
+        return torch.full(orig.shape, x, dtype=dt, device=dev)
+
+    epsilon = lanes(epsilon, dtype)
+    breakathalf = lanes(breakathalf, torch.bool)
     sf = float(scalefactor)
 
     def clip(x):

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import RuntimeParams
+from ..utils.transfer import constant
 
 from .capped import cappedgd
 
@@ -109,7 +110,7 @@ def update_infprobs(accum, markerdata, markersure, priordata, priorsure,
     side, candidate allele in {1,2}) move the current probability of that
     allele along the capped gradient.  Zero accum entries are skipped."""
     dtype = accum.dtype
-    mv = torch.tensor([1, 2], device=accum.device)[None, None, None, :]
+    mv = constant([1, 2], accum.device)[None, None, None, :]
     cur = markerdata[..., None]                          # [N, M, 2, 1]
     sure = markersure[..., None]
     curprob = torch.where(cur == 0, 0.5,

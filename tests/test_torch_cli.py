@@ -33,37 +33,14 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
-from torch_port_util import (cohort, jax_batch, patch_jax_with_port_rules,
-                             t, torch_batch)
+from torch_port_util import (OUTPUTS, assert_same_numbers, cohort,
+                             jax_batch, run_jax_cli, t, torch_batch)
 
 from cnf2freq_tpu_torch import Driver
 from cnf2freq_tpu_torch.cli import main as port_main
 from cnf2freq_tpu_torch.io import load_plantimpute
 from cnf2freq_tpu_torch.pedigree import from_host
 from cnf2freq_tpu_torch.utils.simulate import simulate_plantimpute_files
-
-ATOL = 2e-5
-OUTPUTS = ("out", "lo", "dump")
-
-
-def numbers(path):
-    """Every number a file prints, in order."""
-    out = []
-    with open(path) as f:
-        for line in f:
-            for tok in line.replace(":", " ").split():
-                try:
-                    out.append(float(tok))
-                except ValueError:
-                    pass
-    return np.array(out)
-
-
-def assert_same_numbers(a, b):
-    x, y = numbers(a), numbers(b)
-    assert x.size == y.size and x.size > 0, (a, b)
-    np.testing.assert_allclose(x, y, rtol=0, atol=ATOL, err_msg=a)
-
 
 def header(path):
     with open(path) as f:
@@ -80,14 +57,6 @@ def _args(files, tag, d, count, ckpt):
             "--dump", os.path.join(d, f"{tag}.dump"),
             "--lineorigin", os.path.join(d, f"{tag}.lo"),
             "--checkpoint", ckpt]
-
-
-def run_jax_cli(argv):
-    from cnf2freq_tpu.cli import main as jax_main
-    seen = {"anchors": [], "winners": [], "flat": [], "scored": []}
-    with pytest.MonkeyPatch.context() as mp:
-        patch_jax_with_port_rules(mp, seen)
-        return jax_main(argv)
 
 
 @pytest.fixture(scope="module")
@@ -157,8 +126,14 @@ def test_cuda_cli_fails_without_card(files, tmp_path):
     assert not [p for p in os.listdir(tmp_path) if not p.startswith(".")]
 
 
+# the port carries the flip modes native and negshift, and --parentswap
+# with negshift only (the JAX CLI's rule); argparse refuses the others
+ERRORS = {"--flipmode": "invalid choice: 'toulbar'",
+          "--parentswap": "--parentswap requires --flipmode negshift"}
+
+
 @pytest.mark.parametrize("flag", [
-    ["--model", "f2"], ["--flipmode", "native"], ["--parentswap"],
+    ["--model", "f2"], ["--flipmode", "toulbar"], ["--parentswap"],
     ["--markerblock", "8"], ["--trace", "t.jsonl"], ["--samplefile", "s"],
     ["--bimfile", "b"], ["--hapfiles", "h"], ["--famfile", "f"],
     ["--bedfile", "b"], ["--createhapfile", "h"], ["--merlinmap", "m"],
@@ -167,10 +142,13 @@ def test_cuda_cli_fails_without_card(files, tmp_path):
     ["--templatevcffile", "v"], ["--outputvcffile", "v"]],
     ids=lambda f: f[0].lstrip("-"))
 def test_cli_refuses_flags_it_does_not_carry(flag, capsys):
+    """Flags the port does not carry, a flip mode it does not carry, and
+    --parentswap without the negshift flip mode (the JAX CLI's rule)."""
     with pytest.raises(SystemExit) as ex:
         port_main(["--device", "cpu"] + flag)
     assert ex.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+    assert ERRORS.get(flag[0], "unrecognized arguments") in \
+        capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------

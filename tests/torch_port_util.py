@@ -4,7 +4,7 @@
 Cohorts come from ``simulate_f2`` with a numpy seed; both packages get the
 same numpy arrays.  The driver harness (``run_pair`` and its checks) runs
 the port's Driver and the JAX package's Driver from one cohort, with the
-port's three rules patched into the latter (test-side only).  JAX is
+port's rules patched into the latter (test-side only).  JAX is
 imported inside the functions that need it: the card's tests import this
 module on a machine without JAX.
 """
@@ -22,6 +22,7 @@ from cnf2freq_tpu_torch.driver import LOCK_TIE_RTOL, anchor_marker
 from cnf2freq_tpu_torch.hmm.family import FamilyBatch, gather_family
 from cnf2freq_tpu_torch.pedigree import from_host
 from cnf2freq_tpu_torch.updates import capped
+from cnf2freq_tpu_torch.updates import negshift as port_negshift
 from cnf2freq_tpu_torch.updates.phaseflip import make_flip_scorer
 
 FLAT_LIMIT = 1.0 / (1e-2 * np.finfo(np.float64).eps ** 0.5)
@@ -79,11 +80,12 @@ def _flips(w):
     return None if w is None else sorted(w.flips)
 
 def patch_jax_with_port_rules(mp, seen):
-    """The JAX Driver with the port's three rules, recording each choice
+    """The JAX Driver with the port's four rules, recording each choice
     in which a rule departs from the JAX package's own."""
     import jax.numpy as jnp
 
     import cnf2freq_tpu.updates.capped as jax_capped
+    import cnf2freq_tpu.updates.negshift as jax_negshift
     import cnf2freq_tpu.updates.parameter_updates as jax_updates
     from cnf2freq_tpu.driver import Driver as JaxDriver
 
@@ -170,17 +172,32 @@ def patch_jax_with_port_rules(mp, seen):
             return tuple(x.numpy() for x in res)
         return score
 
+    select = jax_negshift.select_candidates
+
+    def select_candidates(ped, lo, hi, threshold=-1e-10):
+        # the port's rule runs on the JAX Pedigree (the same fields)
+        own = select(ped, lo, hi, threshold)
+        rule = port_negshift.select_candidates(ped, lo, hi, threshold)
+        if own != rule:
+            seen["negshift_ties"].append((lo, hi, own, rule))
+        return rule
+
+    mp.setattr(jax_negshift, "select_candidates", select_candidates)
     mp.setattr(JaxDriver, "_jitted_flip_scorer", flip_scorer)
     mp.setattr(JaxDriver, "_lockhaplos", lockhaplos)
     mp.setattr(JaxDriver, "_solve_scored", solve_scored)
     mp.setattr(jax_updates, "cappedgd", cappedgd_freezing_flat)
 
-def run_pair(base, adaptive: bool):
+def run_pair(base, adaptive: bool, jax_resident: bool = False,
+             **driver_attrs):
     """Both drivers from the cohort ``base``, each through its own
-    preprocess and three iterations."""
+    preprocess and three iterations: the port's Driver on its default
+    iteration, the JAX Driver with ``resident=jax_resident``, and
+    ``driver_attrs`` (flip_mode, parent_swap) set on both."""
     from cnf2freq_tpu.driver import Driver as JaxDriver
 
-    seen = {"anchors": [], "winners": [], "flat": [], "scored": []}
+    seen = {"anchors": [], "winners": [], "flat": [], "scored": [],
+            "negshift_ties": []}
     real_flat = capped.flat_lanes
 
     def counting_flat(g0):
@@ -193,10 +210,13 @@ def run_pair(base, adaptive: bool):
         patch_jax_with_port_rules(mp, seen)
         mp.setattr(capped, "flat_lanes", counting_flat)
         dj = JaxDriver(copy_pedigree(base), dtype=np.float64)
-        dj.resident = False
+        dj.resident = jax_resident
         dj.adaptive_relhaplo = adaptive
         dp = Driver(from_host(base), dtype=torch.float64, device="cpu",
                     adaptive_relhaplo=adaptive)
+        for d in (dj, dp):
+            for k, v in driver_attrs.items():
+                setattr(d, k, v)
         for name, d in (("jax", dj), ("torch", dp)):
             d.preprocess()
             pre = (state(d.ped), np.stack([i.variances
@@ -237,3 +257,59 @@ def check_anchor_departures(anchors):
             assert seg_max <= 1e-20, (n, seg_max)
         else:
             assert own is not None and v_own >= seg_max * (1 - LOCK_TIE_RTOL)
+
+
+def check_negshift_run(parent_swap, record_property):
+    """The port's negshift Driver against the JAX Driver on its resident
+    iteration at 12 x 16 (tests/test_torch_negshift.py)."""
+    runs = run_pair(simulate_f2(n_f2=12, n_markers=16), adaptive=True,
+                    jax_resident=True, flip_mode="negshift",
+                    parent_swap=parent_swap)
+    check_iterations(runs, ("haploweight", "markersure", "relhaplo"))
+    # both full iterations applied negshift flips
+    assert [i["inverted"] for i in runs["torch"]["iters"]] == \
+        [False, True, True]
+    ties = runs["seen"]["negshift_ties"]
+    for lo, hi, own, rule in ties:
+        # the same individuals; a moved position ties the minimum
+        assert [c[0] for c in own] == [c[0] for c in rule]
+        for (_, v_own, _), (_, v_rule, _) in zip(own, rule):
+            assert abs(v_rule - v_own) <= \
+                max(abs(v_own), 1.0) * port_negshift.NEGSHIFT_TIE_RTOL
+    record_property("negshift_tie_departures", len(ties))
+    assert len(ties) <= 1
+    return runs
+
+
+# -- the command lines ---------------------------------------------------
+# the CLIs' text outputs print 5-6 decimals
+CLI_ATOL = 2e-5
+OUTPUTS = ("out", "lo", "dump")
+
+
+def numbers(path):
+    """Every number a file prints, in order."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            for tok in line.replace(":", " ").split():
+                try:
+                    out.append(float(tok))
+                except ValueError:
+                    pass
+    return np.array(out)
+
+
+def assert_same_numbers(a, b):
+    x, y = numbers(a), numbers(b)
+    assert x.size == y.size and x.size > 0, (a, b)
+    np.testing.assert_allclose(x, y, rtol=0, atol=CLI_ATOL, err_msg=a)
+
+
+def run_jax_cli(argv):
+    from cnf2freq_tpu.cli import main as jax_main
+    seen = {"anchors": [], "winners": [], "flat": [], "scored": [],
+            "negshift_ties": []}
+    with pytest.MonkeyPatch.context() as mp:
+        patch_jax_with_port_rules(mp, seen)
+        return jax_main(argv)
