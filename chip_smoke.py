@@ -12,7 +12,12 @@ Phases, in order, each printing its lines (any failure exits non-zero):
            abs/rel error against the stated tolerance, and CUDA-event
            times taken in turns plain, kernel, kernel, plain: the kernel
            in 6 rounds of 20 launches (median, min and max), the plain
-           version in 2 rounds of 3
+           version in 2 rounds of 3; the sweep kernel's two entries of the
+           marker-blocked scan at its block's shape (K=256 markers, 1000
+           units, 0.05 cM apart): with seeded boundary carries
+           (fb_sweep_init) and carry-only, forward and backward (fb_carry,
+           timed per launch); in float32 there the kernel is held to its
+           plain twin's accuracy against float64 (ACCURACY_SLACK)
   slice    simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20,
            seed=7) on cuda in float32 with adaptive_relhaplo=False (the
            v2 pipeline) on the host-gathered iteration (resident=False):
@@ -38,12 +43,32 @@ Phases, in order, each printing its lines (any failure exits non-zero):
            counts the calls that synchronise the host with the card in
            each iteration (torch.cuda.set_sync_debug_mode "warn") and
            prints the sites that made the most
+  slice_blocked
+           simulate_f2(n_f2=1000, n_markers=2048, marker_spacing_cm=0.05,
+           n_founder_pairs=20, seed=7) (one chromosome of ~100 cM) in
+           float32 through the default Driver with marker_block=256 (8
+           blocks): preprocess(), iterate(early=True), iterate(); prints
+           the seconds of passes A, B, C, the per-block follow-ups and
+           the rest, the launches of emission, fb_sweep (pass C, with
+           boundary carries), fb_carry (passes A and B), stats and turn,
+           and the peak device memory of preprocess and of the
+           iterations; fails on a launch count at 0, on more than one
+           batch chunk, on a peak of 20 GB or more (either), on a
+           non-finite output or if no relhaplo moved
   parity   a 24 x 32 cohort, float64, on cuda and on the CPU, two
            iterations on the host-gathered iteration (resident=False)
            and on the resident one, each with adaptive relhaplo off and
            on, then three with flip_mode="negshift" and
-           parent_swap=True: haploweights, relhaplo and pair tables
-           agree to 1e-9, markerdata exactly
+           parent_swap=True, then two marker-blocked (marker_block=8):
+           haploweights, relhaplo and pair tables agree to 1e-9,
+           markerdata exactly
+  blocked_parity
+           simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20,
+           seed=7) on cuda in float64, adaptive relhaplo off,
+           resident=False, preprocess() and one full iteration, with
+           marker_block=32 against the unblocked Driver: haploweights and
+           pair tables at rtol 1e-8 / atol 1e-11, markerdata equal except
+           at near-ties (markersure above 0.4)
   cli      the user's entry point from files, on the Driver's default
            (device-resident) iteration: simulate_plantimpute_files(
            n_f2=1000, n_markers=192, spacing_cm=1.0, missing_rate=0.3,
@@ -68,7 +93,9 @@ Phases, in order, each printing its lines (any failure exits non-zero):
            of the genotype table, the line-origin table and the dump
            agrees to 2e-5
 The launch counters are set to 0 just before each slice and each CLI run
-and read just after it.  The last three lines are a JSON summary of the
+and read just after it; the kernels line takes the launches of the v2
+kernels from slice, of the classic ones from slice_resident and of the
+sweep kernel's two blocked entries from slice_blocked.  The last three lines are a JSON summary of the
 kernels, the card's name and power limit, and {"ok": true, "device":
 {...}}.  Imports nothing of JAX and nothing of the JAX package.
 """
@@ -106,6 +133,14 @@ KERNELS = {
                    "cnf2freq_tpu/ops/fb_pallas.py:55", "classic"),
     "stats_bmns": ("cnf2freq_tpu_torch/csrc/stats.cu",
                    "cnf2freq_tpu/ops/stats_pallas.py:612", "classic"),
+    # the sweep kernel's entries of the marker-blocked scan: both sweeps
+    # from boundary carries (pass C), and one carry-only direction
+    # (passes A and B; the JAX package runs these as lax.scan loops,
+    # scan_v2.py:285-323, beside the Pallas kernel)
+    "fb_sweep_init": ("cnf2freq_tpu_torch/csrc/fb_sweep.cu",
+                      "cnf2freq_tpu/ops/scan_v2.py:631", "blocked"),
+    "fb_carry": ("cnf2freq_tpu_torch/csrc/fb_sweep.cu",
+                 "cnf2freq_tpu/ops/scan_v2.py:285", "blocked"),
 }
 # operations per unit of work, counted from each kernel's arithmetic (for
 # the bound; every kernel here is far below the card's compute balance):
@@ -116,7 +151,8 @@ KERNELS = {
 # unit): ~19,800 (block math and contractions); turn per (marker, unit):
 # three 512-point WHTs (3 x 9 x 512) + 4 x 512
 OPS = {"emission": 2880, "fb_sweep": 2 * 1152, "stats": 19800,
-       "turn": 15872, "fb_classic": 2 * 1152, "stats_bmns": 19800}
+       "turn": 15872, "fb_classic": 2 * 1152, "stats_bmns": 19800,
+       "fb_sweep_init": 2 * 1152, "fb_carry": 1152}
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12       # float32 outside the tensor cores
 # (rtol, atol) per dtype; f32 sweeps compound rounding over 192 markers
@@ -131,10 +167,23 @@ TOL = {torch.float64: (1e-9, 1e-12), torch.float32: (1e-3, 1e-5)}
 # kernel).
 TURN = {torch.float64: dict(cut=20.0, slack=1e-10),
         torch.float32: dict(cut=5.0, slack=9.1e-3)}
+# float32 at the blocked slice's 0.05 cM spacing: transitions this close
+# to the identity leave float32 itself ~1e-3 (relative) from float64 after
+# a few dozen markers, the plain version as much as the kernel (my chip
+# run, PR 9: max abs 1.36e-3 plain, 1.59e-3 kernel, against float64 on
+# the same inputs).  There the float32 kernel is held to its plain twin's
+# accuracy: its worst error against the float64 plain version, in units
+# of TOL, within ACCURACY_SLACK times the float32 plain version's (or of
+# TOL itself, where that is within TOL).
+ACCURACY_SLACK = 2.0
 RELHAPLO_CLIP = 1e-4
 # the CLI's text outputs print 5-6 decimals
 CLI_ATOL = 2e-5
 MIN_MASKED_ACCURACY = 0.95
+# the marker-blocked slice: its block, and the most device memory its
+# iterations may hold (the unblocked working set at this size is ~67 GB)
+BLOCK = 256
+BLOCKED_PEAK_LIMIT = 20e9
 
 
 def fail(msg):
@@ -153,7 +202,8 @@ def wrappers():
     from cnf2freq_tpu_torch.ops import stats as pst
     return {"emission": ps.emission, "fb_sweep": ps.fb_sweeps,
             "stats": pst.stats, "turn": ps.turn_weights,
-            "fb_classic": pfb.fb_sweeps, "stats_bmns": pst.stats_pallas}
+            "fb_classic": pfb.fb_sweeps, "stats_bmns": pst.stats_pallas,
+            "fb_sweep_init": ps.fb_sweeps, "fb_carry": ps.fb_carry}
 
 
 def cuda_rounds(fn, rounds, reps):
@@ -239,13 +289,40 @@ def compare_turn(got, ref, dtype):
             ok)
 
 
-def kernel_inputs(dtype):
+def as_accurate(ref64):
+    """A compare() for float32 against float64 plain results ``ref64`` of
+    the same (promoted) inputs: the max abs / rel errors are the kernel's
+    against its float32 plain twin, ``ok`` is the ACCURACY_SLACK rule."""
+    def cmp(got, ref, dtype):
+        a, r, ok = compare_all(got, ref, dtype)
+        if dtype == torch.float64:
+            return a, r, ok
+        rtol, atol = TOL[dtype]
+
+        def worst(xs):
+            return max(float(((x.double() - y).abs() /
+                              (atol + rtol * y.abs())).max())
+                       for x, y in zip(xs, ref64))
+        wk, wp = worst(got), worst(ref)
+        ok = all(torch.isfinite(g).all() for g in got) and \
+            wk <= ACCURACY_SLACK * max(wp, 1.0)
+        say("kernels", dtype="float32", accuracy_vs_float64_plain=True,
+            kernel_worst_in_tol_units=f"{wk:.3f}",
+            plain_worst_in_tol_units=f"{wp:.3f}", slack=ACCURACY_SLACK,
+            ok=ok)
+        return a, r, ok
+    return cmp
+
+
+def kernel_inputs(dtype, n_markers=192, spacing_cm=1.0):
     """The slice's cohort on the card as a family batch, with randomised
     haploweights and error rates so every block branch is exercised."""
     from cnf2freq_tpu_torch.config import ModelConfig, RuntimeParams
     from cnf2freq_tpu_torch.hmm.family import gather_family
     from cnf2freq_tpu_torch.utils.simulate import simulate_f2
-    ped = simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20, seed=7)
+    ped = simulate_f2(n_f2=1000, n_markers=n_markers,
+                      marker_spacing_cm=spacing_cm, n_founder_pairs=20,
+                      seed=7)
     for ind in ped.inds[1:]:
         ped.fixtrees(ind.n)
     ped.count_descendants()
@@ -276,9 +353,11 @@ def check_kernels(dtype):
     out = {}
 
     def record(name, got, ref, kernel, plain, moved, work, cmp=compare,
-               **tol):
+               launches_per_call=1, **tol):
         a, r, ok = cmp(got, ref, dtype)
         rounds, p_ms = in_turns(plain, kernel)
+        rounds = [x / launches_per_call for x in rounds]
+        p_ms /= launches_per_call
         k_ms = statistics.median(rounds)
         b_ms, b_by = bound(name, moved, work)
         out[name] = dict(max_abs_err=a, max_rel_err=r, ok=ok, ms=k_ms,
@@ -350,6 +429,54 @@ def check_kernels(dtype):
                   fbt.flag2ignore, fbt.shiftignore, args[1:6], got),
            M * B, cmp=compare_all)
     del e, fbc, fbres, got, args
+    torch.cuda.empty_cache()
+
+    # -- the marker-blocked scan's sweeps: one block of the blocked slice
+    fbt, dists, cfg, params = kernel_inputs(dtype, BLOCK, 0.05)
+    st = ps.prep_slots(fbt, dtype)
+    K, R = BLOCK, st.R
+    e = ps.emission(st, K, cfg)
+    lam_pad = ps.sweep_eigenvalues(dists, cfg, params, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def carry():
+        return (torch.rand((512, R), generator=gen, device="cuda",
+                           dtype=dtype),
+                torch.randn((8, R), generator=gen, device="cuda",
+                            dtype=dtype) * 3)
+    init_fwd, init_bwd, below = carry(), carry(), lam_pad[K // 2]
+    kw = dict(lam_pad=lam_pad, init_fwd=init_fwd, init_bwd=init_bwd)
+    got = ps.fb_sweeps(e, None, cfg, None, **kw)
+    ref = ps.fb_scan_v2_block(e, lam_pad, *init_fwd, *init_bwd, cfg)
+    e64, lam64, below64 = e.double(), lam_pad.double(), below.double()
+    fwd64, bwd64 = (tuple(x.double() for x in c) for c in (init_fwd,
+                                                         init_bwd))
+    ref64 = ps.fb_scan_v2_block(e64, lam64, *fwd64, *bwd64, cfg)
+    torch.cuda.synchronize()
+    record("fb_sweep_init", got, ref,
+           lambda: ps.fb_sweeps(e, None, cfg, None, **kw),
+           lambda: ps.fb_scan_v2_block(e, lam_pad, *init_fwd, *init_bwd,
+                                       cfg),
+           nbytes(e, lam_pad, init_fwd, init_bwd, tuple(got)), R * 8 * K,
+           cmp=as_accurate(ref64))
+    del got, ref, ref64
+
+    def carries():
+        return (ps.fb_carry(e, lam_pad, cfg, init=init_fwd) +
+                ps.fb_carry(e, lam_pad, cfg, init=init_bwd, backward=True,
+                            lam_below=below))
+
+    def plain_carries():
+        return (ps.fb_carry_fwd(e, lam_pad, *init_fwd, cfg) +
+                ps.fb_carry_bwd(e, lam_pad, below, *init_bwd, cfg))
+    got = carries()
+    ref64 = (ps.fb_carry_fwd(e64, lam64, *fwd64, cfg) +
+             ps.fb_carry_bwd(e64, lam64, below64, *bwd64, cfg))
+    # one launch moves e, the eigenvalue rows and one carry in and out
+    record("fb_carry", got, plain_carries(), carries, plain_carries,
+           nbytes(e, lam_pad, init_fwd, got[:2]), R * 8 * K,
+           cmp=as_accurate(ref64), launches_per_call=2)
+    del e, got, ref64, e64
     torch.cuda.empty_cache()
     return out
 
@@ -446,6 +573,121 @@ def run_slice(phase, adaptive, **driver_attrs):
     return launches, full_syncs
 
 
+def run_slice_blocked():
+    """The marker-blocked slice: 1000 x 2048 markers in float32 through
+    the default Driver with marker_block=BLOCK; returns the launches of
+    the blocked path's kernels."""
+    from cnf2freq_tpu_torch import Driver
+    from cnf2freq_tpu_torch.profile_slice import stage_timers
+    from cnf2freq_tpu_torch.utils.simulate import simulate_f2
+    M = 2048
+    ped = simulate_f2(n_f2=1000, n_markers=M, marker_spacing_cm=0.05,
+                      n_founder_pairs=20, seed=7)
+    rh0 = np.stack([ind.relhaplo for ind in ped.inds[1:]]).copy()
+    drv = Driver(ped, dtype=torch.float32, device="cuda")
+    drv.marker_block = BLOCK
+    nblk = -(-M // BLOCK)
+    w = wrappers()
+    names = ("emission", "fb_sweep_init", "fb_carry", "stats", "turn")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in w.values():
+        fn.launches = 0
+    peaks = {}
+    with stage_timers() as acc:
+        for name, fn in (("preprocess", drv.preprocess),
+                         ("iterate_early", lambda: drv.iterate(early=True)),
+                         ("iterate_1", drv.iterate)):
+            acc.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            passes = {k.split(".")[1]: v for k, v in acc.items()
+                      if k.startswith("blocked.")}
+            rest = sec - sum(passes.values())
+            extra = {} if out is None else dict(
+                loglik=f"{out['loglik']:.6f}", hitnnn=out["hitnnn"],
+                inverted=out["inverted"])
+            say("slice_blocked", stage=name, seconds=f"{sec:.3f}",
+                **{f"{k}_s": f"{v:.3f}" for k, v in sorted(passes.items())},
+                rest_s=f"{rest:.3f}", **extra)
+            if out is not None and not math.isfinite(out["loglik"]):
+                fail(f"slice_blocked: non-finite log-likelihood after {name}")
+            if name == "preprocess":
+                peaks["preprocess"] = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+    peaks["iterations"] = torch.cuda.max_memory_allocated()
+    launches = {k: w[k].launches for k in names}
+    hw = np.stack([ind.haploweight for ind in ped.inds[1:]])
+    rh = np.stack([ind.relhaplo for ind in ped.inds[1:]])
+    tabs = np.stack(list(drv.pair_tables.values()))
+    finite = bool(np.isfinite(hw).all() and np.isfinite(tabs).all()
+                  and np.isfinite(rh).all())
+    moved = int((rh != rh0).sum())
+    # one batch chunk: pass C launches the sweep once per block and
+    # iteration, passes A and B the carry once per block each
+    chunks = launches["fb_sweep_init"] / (2 * nblk)
+    say("slice_blocked", markers=M, block=BLOCK, blocks=nblk,
+        resident=drv._use_resident(), launches=json.dumps(launches),
+        batch_chunks=chunks, finite=finite, relhaplo_moved=moved,
+        peak_memory_gb_preprocess=f"{peaks['preprocess'] / 1e9:.3f}",
+        peak_memory_gb_iterations=f"{peaks['iterations'] / 1e9:.3f}",
+        limit_gb=f"{BLOCKED_PEAK_LIMIT / 1e9:.0f}")
+    if min(launches.values()) <= 0:
+        fail(f"slice_blocked: a kernel of the path never launched: "
+             f"{launches}")
+    if chunks != 1 or launches["fb_carry"] != 2 * launches["fb_sweep_init"]:
+        fail(f"slice_blocked: the cohort did not run as one batch chunk: "
+             f"{launches}")
+    if max(peaks.values()) >= BLOCKED_PEAK_LIMIT:
+        fail(f"slice_blocked: peak memory {max(peaks.values()) / 1e9:.3f} "
+             f"GB")
+    if not finite or moved == 0:
+        fail("slice_blocked: non-finite outputs or no relhaplo moved")
+    return launches
+
+
+def run_blocked_parity():
+    """1000 x 192 on the card in float64: marker_block=32 against the
+    unblocked Driver, one full iteration, at the CPU tests' tolerances."""
+    from cnf2freq_tpu_torch import Driver, copy_pedigree
+    from cnf2freq_tpu_torch.utils.simulate import simulate_f2
+    base = simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20, seed=7)
+    peds = [copy_pedigree(base) for _ in range(2)]
+    drvs = [Driver(p, dtype=torch.float64, device="cuda",
+                   adaptive_relhaplo=False) for p in peds]
+    drvs[0].marker_block = 32
+    t0 = time.perf_counter()
+    for d in drvs:
+        d.resident = False
+        d.preprocess()
+        d.iterate(early=False)
+    hw_ok, calls_ok, hw_err = True, True, 0.0
+    for a, b in zip(peds[0].inds[1:], peds[1].inds[1:]):
+        hw_ok &= bool(np.allclose(a.haploweight, b.haploweight, rtol=1e-8,
+                                  atol=1e-11))
+        hw_err = max(hw_err, float(np.abs(a.haploweight -
+                                          b.haploweight).max()))
+        mism = a.markerdata != b.markerdata
+        if mism.any():
+            calls_ok &= bool((np.minimum(a.markersure[mism],
+                                         b.markersure[mism]) > 0.4).all())
+    tabs = [d.pair_tables for d in drvs]
+    pair_ok = all(np.allclose(tabs[0][n], tabs[1][n], rtol=1e-8, atol=1e-11)
+                  for n in tabs[1])
+    pair_err = max(float(np.abs(tabs[0][n] - tabs[1][n]).max())
+                   for n in tabs[1])
+    ok = hw_ok and calls_ok and pair_ok
+    say("blocked_parity", marker_block=32, seconds=
+        f"{time.perf_counter() - t0:.3f}", haploweight_max_abs=f"{hw_err:.3e}",
+        pair_max_abs=f"{pair_err:.3e}", rtol=1e-8, atol=1e-11,
+        calls_equal_but_near_ties=calls_ok, ok=ok)
+    if not ok:
+        fail("blocked and unblocked float64 runs disagree on the card")
+
+
 def run_parity(adaptive, iters=2, **driver_attrs):
     """24 x 32 cohort, float64, ``iters`` iterations on cuda and on the
     CPU, with ``driver_attrs`` set on both Drivers."""
@@ -481,6 +723,7 @@ def run_parity(adaptive, iters=2, **driver_attrs):
         md_same and same_steps
     say("parity", adaptive_relhaplo=adaptive,
         resident=drivers["cuda"]._use_resident(),
+        marker_block=drivers["cuda"].marker_block,
         flip_mode=drivers["cuda"].flip_mode,
         parent_swap=drivers["cuda"].parent_swap, iterations=iters,
         inverted=[i["inverted"] for i in infos["cpu"]],
@@ -786,6 +1029,10 @@ def main():
         for adaptive in (False, True):
             run_parity(adaptive, resident=resident)
     run_parity(True, iters=3, flip_mode="negshift", parent_swap=True)
+    blocked = run_slice_blocked()
+    launches.update({k: blocked[k] for k in ("fb_sweep_init", "fb_carry")})
+    run_parity(True, marker_block=8)
+    run_blocked_parity()
     tmp = tempfile.mkdtemp(prefix="cnf2freq_smoke_")
     try:
         run_cli(tmp, card)

@@ -143,8 +143,9 @@ def check(t: torch.Tensor, dtype, shape, name: str) -> None:
 
 def launch(kernel: str, dtype, *args) -> None:
     """Call ``cnf_<kernel>_<f32|f64>`` with tensors as device pointers,
-    Python ints as C ints and Python floats in the kernel's float type,
-    on the current stream; raise on a non-zero cudaError_t."""
+    ``None`` as a null pointer, Python ints as C ints and Python floats in
+    the kernel's float type, on the current stream; raise on a non-zero
+    cudaError_t."""
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{kernel}: float32 or float64 only, got {dtype}")
     lib = load_kernels()
@@ -153,8 +154,8 @@ def launch(kernel: str, dtype, *args) -> None:
     cfloat = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
     cargs, types = [], []
     for a in args:
-        if torch.is_tensor(a):
-            cargs.append(ctypes.c_void_p(a.data_ptr()))
+        if torch.is_tensor(a) or a is None:
+            cargs.append(ctypes.c_void_p(None if a is None else a.data_ptr()))
             types.append(ctypes.c_void_p)
         elif isinstance(a, int):
             cargs.append(ctypes.c_int(a))

@@ -5,8 +5,8 @@ boost::program_options surface, cnF2freq.cpp:7946-7988), with the same
 flag names, defaults and semantics, plus ``--device``: the port runs on
 the card unless it is asked for the CPU, and never falls back from one to
 the other.  Flags of the JAX CLI that the port does not carry yet (the
-other readers, ``--model``, ``--markerblock``, ``--trace``) are not
-defined, so argparse refuses them.
+other readers, ``--model``, ``--trace``) are not defined, so argparse
+refuses them.
 """
 
 from __future__ import annotations
@@ -54,6 +54,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "is written here (atomic rename) after every "
                    "iteration, and restored from it at startup when the "
                    "file exists — kill/resume-safe long runs")
+    p.add_argument("--markerblock", type=int, default=None,
+                   help="marker-blocked (checkpointed) scan for "
+                   "chromosomes longer than this many markers: device "
+                   "memory stays O(block) at any chromosome length")
     p.add_argument("--flipmode", choices=("native", "negshift"),
                    default="native",
                    help="phase-flip optimizer: joint per-marker solver "
@@ -139,6 +143,8 @@ def main(argv=None) -> int:
                     device=args.device)
     driver.flip_mode = args.flipmode
     driver.parent_swap = args.parentswap
+    if args.markerblock:
+        driver.marker_block = args.markerblock
     driver.preprocess()
 
     if args.deserialize:

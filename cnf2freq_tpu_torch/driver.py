@@ -1,7 +1,7 @@
 """Iteration driver: preprocessing and the outer EM-like loop.
 
-Port of ``cnf2freq_tpu/driver.py`` on its unmeshed, unblocked,
-non-parity branches: per chromosome and chunk of analysis units, the scan
+Port of ``cnf2freq_tpu/driver.py`` on its unmeshed, non-parity
+branches: per chromosome and chunk of analysis units, the scan
 and the segment-sum merges run on the device and fold into per-individual
 accumulators that stay device tensors; phase flips come from the native
 solver (device scoring, component solve on the host in C++) or the legacy
@@ -27,6 +27,13 @@ scattered onto per-individual sums, and relhaplo is refreshed from them
 before the parameter updates.  ``adaptive_relhaplo=False`` runs the v2
 pipeline with relhaplo inert, the reference binary's own behaviour.
 
+Chromosomes longer than ``marker_block`` markers run marker-blocked
+(``_chromosome_blocked``, the JAX Driver's): three passes over the
+chromosome's blocks (``ops.scan.blocked_carries``, then
+``blocked_block_pass`` per block), so that the sweep tensors held on the
+device are those of one block at any chromosome length.  Such a run takes
+the host-gathered iteration.
+
 The Driver runs on the card unless it is given ``device="cpu"``.
 """
 
@@ -41,11 +48,16 @@ import torch
 
 from .config import (SEXMARKER, UNKNOWN, ZP_NO_EQUIVALENCE, ModelConfig,
                      RuntimeParams)
-from .engine import scan_merged
+from .engine import recomb_expectations, scan_merged
 from .hmm.emission import build_blocks
 from .hmm.family import gather_family
-from .hmm.transition import rate_matrix
+from .hmm.forward_backward import FBResult
+from .hmm.probes import phase_coherence
+from .hmm.transition import (interval_recomb, rate_matrix,
+                             transition_eigenvalues)
+from .ops import scan as v2
 from .ops.scan import R_QUANTUM
+from .parallel.mesh import pad_markers
 from .pedigree import Pedigree
 from .resident import (RELHAPLO_CLIP, ResidentAccum, ScanCohort,
                        gather_cohort_static, gather_dev, resident_updates)
@@ -83,6 +95,9 @@ MAX_FLIP_MARKERS = 16
 # coherence (e, three sweep stores, the turn transforms, one slot's
 # coherence temporaries)
 UNIT_TENSORS = {False: 8, True: 16}
+# values per (marker, unit) of a chunk's slot tensors (md, ms: 7 x 2; hw:
+# 7), which the marker-blocked scan keeps for the whole chromosome
+SLOT_VALUES = 35
 # phase-anchor choice: relative width of a variance tie, and the variance
 # below which a marker counts as uninformative (the rounding residue of
 # an exact zero is ~1e-28)
@@ -152,6 +167,13 @@ class Driver:
         # parent-pair swap moves after the negshift pass (negshift only;
         # the CLI refuses them without it)
         self.parent_swap = False
+        # marker-blocked scan: chromosomes longer than this many markers
+        # run in O(marker_block) sweep memory through boundary carries
+        # (ops.scan.blocked_scan_chunk); None disables
+        self.marker_block = None
+        # the JAX package's reference-exact parity mode is not ported:
+        # iterate() refuses to run with it set
+        self.parity = False
         self._pair_tables: Dict[int, np.ndarray] = {}
         self._pair_pending: list = []
         self._cache: dict = {}
@@ -473,17 +495,26 @@ class Driver:
     # One iteration (doit)
     # ------------------------------------------------------------------
     def _use_resident(self) -> bool:
-        """The JAX package's rule (its marker blocking and parity mode are
-        not carried, so only the flip mode decides)."""
+        """The JAX package's rule: the resident iteration for the native
+        flip mode when no chromosome runs marker-blocked; a forced
+        resident iteration cannot block."""
         if self.resident is not None:
+            if self.resident and self.marker_block is not None:
+                raise ValueError(
+                    "resident=True cannot run marker-blocked chromosomes: "
+                    "leave resident at None (auto) or set it False with "
+                    "marker_block")
             return bool(self.resident)
-        return self.flip_mode == "native"
+        return self.marker_block is None and self.flip_mode == "native"
 
     def iterate(self, early: bool = False):
         ped, cfg, params = self.ped, self.cfg, self.params
         dev, dt = self.device, self.dtype
         if self.flip_mode not in ("native", "negshift"):
             raise ValueError(f"unknown flip_mode {self.flip_mode!r}")
+        if self.parity:
+            raise NotImplementedError(
+                "parity mode (the reference-exact trajectory) is not ported")
         st = self.state
         st.iter += 1
         dous = list(ped.dous)
@@ -512,6 +543,15 @@ class Driver:
             for n in dous:
                 ped.by_id(n).lastinved[c] = -1
             Mc = hi - lo
+            if self.marker_block is not None and Mc > self.marker_block:
+                winner = self._chromosome_blocked(c, lo, hi, dous, accum,
+                                                  ind_index, lut, early,
+                                                  loglik, swap_cands)
+                if winner is not None:
+                    apply_flips(ped, winner, c, accum.hb, accum.hc,
+                                ind_index)
+                winners.append(winner)
+                continue
             dists = np.diff(ped.markerposes[lo:hi])
             rm = rate_matrix(cfg, params, Mc - 1, ped.actrec, lo)
             if resident:
@@ -539,6 +579,7 @@ class Driver:
                                   fb.descendants, lut)
                 if self.remap_distances:
                     self._accumulate_recomb(fb, dists, res, rm, remap_acc)
+                    self._count_recomb(remap_acc, len(chunk))
                 if not early:
                     weight_parts.append(res.turn_weight)
                 del res
@@ -587,8 +628,14 @@ class Driver:
         if self.flip_mode == "native":
             return self._optimise_flips(dous, lo, hi, weight_parts, accum,
                                         ind_index, chrom, resident)
-        ped = self.ped
         (weights,) = fetch([torch.cat(weight_parts).double()])
+        return self._negshift(dous, lo, hi, weights, swap_cands)
+
+    def _negshift(self, dous, lo, hi, weights, swap_cands
+                  ) -> Optional[FlipCandidate]:
+        """The negshift pass over a chromosome's host turn weights
+        [B, Mc, T], with the descendant factor divided out."""
+        ped = self.ped
         desc = np.array([max(ped.by_id(n).descendants, 1) for n in dous],
                         dtype=float)
         unscaled = weights / desc[:, None, None]
@@ -755,18 +802,26 @@ class Driver:
                     mirror["host"]["rh"][i][g] = rh[i][g]
             mirror["dev"]["rh"] = out.relhaplo
 
-    def _accumulate_recomb(self, fb, dists, res, rm, acc):
-        """Per-chunk accumulation of posterior recombination expectations:
-        acc = (sum [2, Mc-1], count [2])."""
-        from .engine import recomb_expectations
+    def _accumulate_recomb(self, fb, dists, res, rm, acc, lo=0,
+                           n_real=None):
+        """Accumulation of posterior recombination expectations into
+        acc = (sum [2, Mc-1], count [2]): the intervals of ``fb`` from
+        column ``lo`` (the first ``n_real`` of them, default all); the
+        units join the divisor through ``_count_recomb``, once a chunk."""
         p = recomb_expectations(fb, dists, res, self.cfg, self.params,
                                 ratemat=rm).to("cpu", torch.float64).numpy()
+        p = p[:, :n_real]
         sexes = np.asarray(self.cfg.typesexes)
-        sums, counts = acc
         for sex in range(2):
-            sel = sexes == sex
-            sums[sex] += p[:, :, sel].sum(axis=(0, 2))
-            counts[sex] += p.shape[0] * int(sel.sum())
+            acc[0][sex][lo:lo + p.shape[1]] += \
+                p[:, :, sexes == sex].sum(axis=(0, 2))
+
+    def _count_recomb(self, acc, n_units: int):
+        """The divisor of the rate update: each unit once per sex-matched
+        meiosis bit."""
+        sexes = np.asarray(self.cfg.typesexes)
+        for sex in range(2):
+            acc[1][sex] += n_units * int((sexes == sex).sum())
 
     def _apply_recomb(self, lo, hi, acc):
         """Once per chromosome per iteration: EM update of per-sex
@@ -851,30 +906,40 @@ class Driver:
         return self._solve_scored(dous, lo, hi, scored, chrom)
 
     def _score_turns(self, dous, lo, hi, weight_parts, accum, ind_index,
-                     chrom, resident=False):
-        """Device scoring of one chromosome: host (idx, mg, gains [B, k],
+                     chrom, resident=False, marker_offset=0, m_span=None,
+                     skew_rows=None, halo=False):
+        """Device scoring of one marker span: host (idx, mg, gains [B, k],
         S_top [B, k, P]), read back in one copy.  The relskew inputs are
         hb/hc from the accumulators and hw/rh from the Pedigree, or, on
         the resident iteration, from the device mirrors (before this
-        chromosome's flips, as the Pedigree is)."""
+        chromosome's flips, as the Pedigree is).  Marker-blocked scoring
+        passes the span (``marker_offset``, ``m_span``; idx comes back
+        chromosome-local), the in-progress accumulator rows as
+        ``skew_rows`` (hb, hc) and ``halo``: the skew inputs then reach
+        one marker past the span, for the relskew term across the block's
+        right boundary."""
         ped, cfg, dev = self.ped, self.cfg, self.device
         B = len(dous)
-        M = hi - lo
+        M = m_span if m_span is not None else hi - lo
+        s0 = lo + marker_offset
+        Mh = M + (1 if halo else 0)
         dt = weight_parts[0].dtype
         with_skew = bool(cfg.relskews)
         if with_skew:
             rows = constant([ind_index[n] for n in dous], dev)
-            hb, hc = accum.rows_slice(rows, lo, M)
+            hb, hc = skew_rows if skew_rows is not None else \
+                accum.rows_slice(rows, s0, M)
             if resident:
                 param = self._cache["param"][1]
-                hw, rh = param["hw"][rows, lo:hi], param["rh"][rows, lo:hi]
+                hw = param["hw"][rows, s0:s0 + Mh]
+                rh = param["rh"][rows, s0:s0 + Mh]
             else:
-                hw = self._t(np.stack([ped.by_id(n).haploweight[lo:hi]
+                hw = self._t(np.stack([ped.by_id(n).haploweight[s0:s0 + Mh]
                                        for n in dous]), dt)
-                rh = self._t(np.stack([ped.by_id(n).relhaplo[lo:hi]
+                rh = self._t(np.stack([ped.by_id(n).relhaplo[s0:s0 + Mh]
                                        for n in dous]), dt)
         else:
-            hw = rh = hb = hc = torch.zeros((B, M), dtype=dt, device=dev)
+            hw = rh = hb = hc = torch.zeros((B, Mh), dtype=dt, device=dev)
         varlists, pat, allowed, comp_struct, comp_of_fam = \
             self._flip_static(dous, chrom)
         desc = np.array([ped.by_id(n).descendants for n in dous],
@@ -887,10 +952,190 @@ class Driver:
         idx, mg, gains, S_top = self._cache["flip_scorer"](
             weight_parts, constant(pat, dev, torch.int64),
             constant(allowed, dev), hw, rh, hb, hc, constant(desc, dev, dt),
-            constant(tsel, dev), k=k, with_skew=with_skew)
+            constant(tsel, dev), k=k, with_skew=with_skew, halo=halo)
         idx, mg, gains, S_top = fetch([idx, mg, gains, S_top])
-        return (idx, mg.astype(np.float64), gains.astype(np.float64),
-                S_top.astype(np.float64))
+        return (idx + marker_offset, mg.astype(np.float64),
+                gains.astype(np.float64), S_top.astype(np.float64))
+
+    # -- the marker-blocked chromosome ----------------------------------
+    def _chromosome_blocked(self, c, lo, hi, dous, accum, ind_index, lut,
+                            early, loglik, swap_cands
+                            ) -> Optional[FlipCandidate]:
+        """One chromosome in marker-blocked mode: O(marker_block) sweep
+        memory at any chromosome length, plus the boundary carries of
+        every batch chunk (ops.scan.blocked_carries /
+        blocked_block_pass).
+
+        Blocks outer, batch chunks inner, so that the deferred relskew-halo
+        scoring of a block sees every chunk's accumulator contributions,
+        as the unblocked path does; adjacent-phase coherence and map
+        re-estimation run per block, with the cross-boundary interval
+        stitched from the previous block's last forward column.  The
+        chromosome's log-likelihood is added into ``loglik``."""
+        ped, cfg, dev = self.ped, self.cfg, self.device
+        if self.parent_swap and not early:
+            raise NotImplementedError(
+                "parent-pair swap moves are unblocked-only")
+        # negshift consumes the whole chromosome's turn weights at once, so
+        # the blocks' weights are staged in host memory and concatenated
+        negshift = self.flip_mode == "negshift" and not early
+        block = self.marker_block
+        Mc = hi - lo
+        Mp = -(-Mc // block) * block
+        nblk = Mp // block
+        dists = self._t(np.pad(np.diff(ped.markerposes[lo:hi]),
+                               (0, Mp - Mc)))
+        rm = self._t(np.pad(rate_matrix(cfg, self.params, Mc - 1, ped.actrec,
+                                        lo), ((0, Mp - Mc), (0, 0))))
+        NI = accum.hb.shape[0]
+        with_coh = accum.cnum is not None
+
+        # batch chunks: a block's tensors plus each unit's boundary carries
+        # and whole-chromosome slot tensors, in [M, 512] tensor units
+        X, NS = cfg.numtypes * cfg.numshifts, cfg.numshifts
+        per_marker = UNIT_TENSORS[with_coh] * 512
+        m_eff = block + -(-(2 * (X + NS) * nblk + SLOT_VALUES * Mp) //
+                          per_marker) + 1
+        bs = self._chunk_size(len(dous), m_eff, with_coh)
+        states = []
+        for b0 in range(0, len(dous), bs):
+            chunk = dous[b0:b0 + bs]
+            fb = pad_markers(gather_family(ped, chunk, lo, hi - 1,
+                                           n_variants=1), Mp).to(dev,
+                                                                 self.dtype)
+            bc = v2.blocked_carries(fb, dists, rm, cfg, self.params, block)
+            loglik += bc.total_r[:len(chunk)].sum()
+            states.append(dict(chunk=chunk, fb=fb, bc=bc, prev=None))
+
+        rows = constant([ind_index[n] for n in dous], dev)
+        remap_acc = (np.zeros((2, Mc - 1)), np.zeros(2, dtype=np.int64)) \
+            if self.remap_distances else None
+        coh_cols = [torch.full((len(st["chunk"]), Mc, cfg.numslots), 0.5,
+                               dtype=self.dtype, device=dev)
+                    for st in states] if with_coh else None
+        neg_parts = [[] for _ in range(nblk)]
+        scored = []
+        # a block is scored one block late, so that the next block's merged
+        # accumulators (all chunks) supply the right-halo column of the
+        # relskew term across their boundary
+        pending = None
+
+        def score_block(off, wparts):
+            span = min(block, Mc - off)
+            halo = off + span < Mc
+            scored.append(self._score_turns(
+                dous, lo, hi, [w[:, :span] for w in wparts], accum,
+                ind_index, c, marker_offset=off, m_span=span, halo=halo,
+                skew_rows=accum.rows_slice(rows, lo + off,
+                                           span + (1 if halo else 0))))
+
+        for i in range(nblk):
+            off = i * block
+            span = min(block, Mc - off)
+            wparts = []
+            for ci, st in enumerate(states):
+                chunk = st["chunk"]
+                B = len(chunk)
+                fb_blk, _, fb2, pair_i, hb_i, hc_i, inf_i, w = \
+                    v2.blocked_block_pass(st["fb"], st["bc"], i, block, lut,
+                                          cfg, NI, with_turn=not early)
+                self._pair_pending.append((list(chunk), lo + off,
+                                           pair_i[:, :span]))
+                accum.add(lo + off, hb_i[:, :span], hc_i[:, :span],
+                          inf_i[:, :span])
+                if negshift:
+                    neg_parts[i] += fetch([w[:, :span].double()])
+                elif not early:
+                    wparts.append(w)
+                if with_coh or self.remap_distances:
+                    fbres = FBResult(
+                        fw_pre=v2.to_std(fb2.fw_pre, B, cfg), fw_post=None,
+                        bw=v2.to_std(fb2.bw, B, cfg),
+                        fw_pre_f=v2.to_std_f(fb2.fw_pre_f, B),
+                        fw_post_f=None, bw_f=v2.to_std_f(fb2.bw_f, B))
+                    self._blocked_followups(
+                        st, fb_blk, fbres, i, off, span, block, dists, rm,
+                        coh_cols[ci] if with_coh else None, remap_acc)
+                    # this block's last forward column, for the next
+                    # block's boundary stitch
+                    st["prev"] = (fbres.fw_pre[:, -1].clone(),
+                                  fbres.fw_pre_f[:, -1].clone())
+                del fb2
+            if wparts:
+                if pending is not None:
+                    score_block(*pending)
+                pending = (off, wparts)
+        if pending is not None:
+            score_block(*pending)
+
+        if with_coh:
+            for st, coh in zip(states, coh_cols):
+                accum.add_coh(lo, coh, st["fb"].slot_ind,
+                              st["fb"].descendants, lut)
+        if self.remap_distances:
+            self._apply_recomb(lo, hi, remap_acc)
+        if negshift:
+            weights = np.concatenate([np.concatenate(p) for p in neg_parts],
+                                     axis=1)
+            return self._negshift(dous, lo, hi, weights, swap_cands)
+        if early or not scored:
+            return None
+        # the blocks' hot markers on the score grid, the global top kept
+        idx, mg, gains, S_top = self._canonical_scores(tuple(
+            np.concatenate([s[j] for s in scored], axis=0 if j < 2 else 1)
+            for j in range(4)))
+        k = MAX_FLIP_MARKERS
+        return self._solve_scored(dous, lo, hi, (idx[:k], mg[:k],
+                                                 gains[:, :k],
+                                                 S_top[:, :k]), c)
+
+    def _blocked_followups(self, st, fb_blk, fbres, i, off, span, block,
+                           dists, rm, coh, remap_acc):
+        """Per-(chunk, block) adjacent-phase coherence (into ``coh``
+        [B, Mc, 7]) and recombination expectations: the block's own
+        intervals from its sweep tensors, the interval (off-1, off) across
+        the boundary stitched from the previous block's last forward
+        column against this block's first backward column."""
+        cfg = self.cfg
+        n_real = span - 1
+        d_blk, rm_blk = dists[off:off + block - 1], rm[off:off + block - 1]
+        if n_real > 0:
+            if coh is not None:
+                coh[:, off:off + n_real] = self._coherence(
+                    fb_blk, d_blk, fbres, rm_blk)[:, :n_real]
+            if remap_acc is not None:
+                self._accumulate_recomb(fb_blk, d_blk, fbres, rm_blk,
+                                        remap_acc, lo=off, n_real=n_real)
+        if i == 0 and remap_acc is not None:
+            # every unit counts once per chunk, not once per block
+            self._count_recomb(remap_acc, fbres.fw_pre.shape[0])
+        if i == 0 or st["prev"] is None:
+            return
+        pfp, pff = st["prev"]
+        zero, zero_f = torch.zeros_like(pfp), torch.zeros_like(pff)
+        two = FBResult(
+            fw_pre=torch.stack([pfp, zero], dim=1), fw_post=None,
+            bw=torch.stack([torch.ones_like(pfp), fbres.bw[:, 0]], dim=1),
+            fw_pre_f=torch.stack([pff, zero_f], dim=1), fw_post_f=None,
+            bw_f=torch.stack([zero_f, fbres.bw_f[:, 0]], dim=1))
+        cols = v2.marker_slice(st["fb"], slice(off - 1, off + 1))
+        d2, rm2 = dists[off - 1:off], rm[off - 1:off]
+        if coh is not None:
+            coh[:, off - 1] = self._coherence(cols, d2, two, rm2)[:, 0]
+        if remap_acc is not None:
+            self._accumulate_recomb(cols, d2, two, rm2, remap_acc,
+                                    lo=off - 1)
+
+    def _coherence(self, fb, dists, fbres, rm):
+        """All-slot adjacent-phase coherence [B, K, 7] of a marker span
+        from its sweep tensors (the last column is 0.5 padding)."""
+        cfg, dt = self.cfg, self.dtype
+        lam = transition_eigenvalues(cfg, interval_recomb(
+            cfg, self.params, dists, ratemat=rm)).to(dt)
+        fbres = fbres._replace(fw_post=fbres.fw_pre,
+                               fw_post_f=fbres.fw_pre_f)
+        return phase_coherence(fbres, build_blocks(fb, cfg, dtype=dt), fb,
+                               cfg, lam)
 
     @staticmethod
     def _canonical_scores(scored):

@@ -15,15 +15,25 @@ Port of ``cnf2freq_tpu/ops/scan_v2.py``:
     b12 / infprob accum / pair / turn weights
 
 Each stage with a TPU kernel has a plain PyTorch version here
-(``emission_reference``, ``fb_scan_v2``, ``turn_weights_v2``;
+(``emission_reference``, ``fb_scan_v2`` / ``fb_scan_v2_block``,
+``fb_carry_fwd`` / ``fb_carry_bwd``, ``turn_weights_v2``;
 ``ops.stats.stats_reference``) and a wrapper (``emission``,
-``fb_sweeps``, ``turn_weights``, ``ops.stats.stats``) that runs the plain
-version for a CPU tensor and launches the CUDA kernel for a CUDA tensor.
+``fb_sweeps``, ``fb_carry``, ``turn_weights``, ``ops.stats.stats``) that
+runs the plain version for a CPU tensor and launches the CUDA kernel for a
+CUDA tensor.
+
+The marker-blocked scan (``blocked_carries``, ``blocked_block_pass``,
+``blocked_scan_chunk``) holds one block of [K, X, R] tensors at a time:
+pass A runs the forward sweep carry-only over each block and keeps the
+carries at the block boundaries, pass B does the same backward, and pass C
+recomputes each block's sweeps from its two boundary carries, then its
+statistics and turn weights.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -191,17 +201,55 @@ def _transition_v2(p, lam_row, NS, S):
     return (fwht(ph, 1) / S).reshape(p.shape)
 
 
-def fb_scan_v2(e: torch.Tensor, dists: torch.Tensor, cfg: ModelConfig,
-               params: RuntimeParams, ratemat=None) -> FBv2:
-    """Plain sweeps over e [M, X, R] (a loop over markers)."""
-    lam_pad = sweep_eigenvalues(dists, cfg, params, e.dtype, ratemat)
-    M, X, R = e.shape
+def sweep_seeds(X: int, R: int, cfg: ModelConfig, dtype, device,
+                backward: bool = False):
+    """The whole-chromosome carry seeds (p [X, R], f [NS, R]): evengen
+    forward, ones backward, zero log-factors."""
+    kw = dict(dtype=dtype, device=device)
+    p = torch.full((X, R), 1.0 if backward else cfg.evengen, **kw)
+    return p, torch.zeros((cfg.numshifts, R), **kw)
+
+
+def fb_carry_fwd(e: torch.Tensor, lam_pad: torch.Tensor, p0, f0,
+                 cfg: ModelConfig):
+    """Plain carry-only forward sweep over one block: e [K, X, R],
+    lam_pad [K, S] (row j = the interval leaving marker j; the last row
+    crosses the block boundary).  Returns the pre-emission carry (p, f)
+    entering the next block."""
     S, NS = cfg.numtypes, cfg.numshifts
-    kw = dict(dtype=e.dtype, device=e.device)
-    p = torch.full((X, R), cfg.evengen, **kw)
-    f = torch.zeros((NS, R), **kw)
+    p, f = p0, f0
+    for m in range(e.shape[0]):
+        p, f = _emit_norm_v2(p, e[m], f, NS, S)
+        p = _transition_v2(p, lam_pad[m], NS, S)
+    return p, f
+
+
+def fb_carry_bwd(e: torch.Tensor, lam_pad: torch.Tensor, lam_below, bT, bfT,
+                 cfg: ModelConfig):
+    """Plain carry-only backward sweep over one block: from the carry at
+    the block's last marker (bT = bw[last], bfT) consume markers K-1..0;
+    the step at marker 0 crosses the boundary below through lam_below
+    [S].  Returns bw at the previous block's last marker."""
+    S, NS = cfg.numtypes, cfg.numshifts
+    p, f = bT, bfT
+    for m in range(e.shape[0] - 1, -1, -1):
+        p, f = _emit_norm_v2(p, e[m], f, NS, S)
+        p = _transition_v2(p, lam_pad[m - 1] if m > 0 else lam_below, NS, S)
+    return p, f
+
+
+def fb_scan_v2_block(e: torch.Tensor, lam_pad: torch.Tensor, p0, f0, bT,
+                     bfT, cfg: ModelConfig) -> FBv2:
+    """Plain sweeps over e [K, X, R] from boundary carries: the forward
+    from (p0, f0), the backward from (bT, bfT) at the last marker.  With
+    the seeds of ``sweep_seeds`` and the whole chromosome's lam_pad this
+    is the whole sweep; with a block's carries it is exactly that sweep's
+    slice of the block."""
+    K = e.shape[0]
+    S, NS = cfg.numtypes, cfg.numshifts
+    p, f = p0, f0
     fw_pre, fw_pre_f, fw_post, fw_post_f = [], [], [], []
-    for m in range(M):
+    for m in range(K):
         fw_pre.append(p)
         fw_pre_f.append(f)
         p, f = _emit_norm_v2(p, e[m], f, NS, S)
@@ -209,10 +257,9 @@ def fb_scan_v2(e: torch.Tensor, dists: torch.Tensor, cfg: ModelConfig,
         fw_post_f.append(f)
         p = _transition_v2(p, lam_pad[m], NS, S)
 
-    p = torch.ones((X, R), **kw)
-    f = torch.zeros((NS, R), **kw)
-    bw, bw_f = [None] * M, [None] * M
-    for m in range(M - 1, -1, -1):
+    p, f = bT, bfT
+    bw, bw_f = [None] * K, [None] * K
+    for m in range(K - 1, -1, -1):
         bw[m], bw_f[m] = p, f
         if m > 0:
             p, f = _emit_norm_v2(p, e[m], f, NS, S)
@@ -223,29 +270,97 @@ def fb_scan_v2(e: torch.Tensor, dists: torch.Tensor, cfg: ModelConfig,
                 bw_f=st(bw_f))
 
 
-def fb_sweeps(e: torch.Tensor, dists: torch.Tensor, cfg: ModelConfig,
-              params: RuntimeParams, ratemat=None) -> FBv2:
-    """Both sweeps: ``fb_scan_v2`` on the CPU, csrc/fb_sweep.cu on the
-    card (replaces scan_v2._fbv2_fwd_kernel / _fbv2_bwd_kernel)."""
-    if e.device.type == "cpu":
-        return fb_scan_v2(e, dists, cfg, params, ratemat=ratemat)
-    _build.check_config(cfg)
+def fb_scan_v2(e: torch.Tensor, dists: torch.Tensor, cfg: ModelConfig,
+               params: RuntimeParams, ratemat=None) -> FBv2:
+    """Plain sweeps over a whole chromosome's e [M, X, R] (a loop over
+    markers)."""
+    M, X, R = e.shape
+    lam_pad = sweep_eigenvalues(dists, cfg, params, e.dtype, ratemat)
+    return fb_scan_v2_block(
+        e, lam_pad, *sweep_seeds(X, R, cfg, e.dtype, e.device),
+        *sweep_seeds(X, R, cfg, e.dtype, e.device, backward=True), cfg)
+
+
+def _check_carry(carry, X: int, R: int, dt, name: str):
+    _build.check(carry[0], dt, (X, R), name + "[0]")
+    _build.check(carry[1], dt, (8, R), name + "[1]")
+
+
+def fb_sweeps(e: torch.Tensor, dists: Optional[torch.Tensor],
+              cfg: ModelConfig, params: Optional[RuntimeParams],
+              ratemat=None, lam_pad=None, init_fwd=None,
+              init_bwd=None) -> FBv2:
+    """Both sweeps: plain on the CPU, csrc/fb_sweep.cu on the card
+    (replaces scan_v2._fbv2_fwd_kernel / _fbv2_bwd_kernel).  As
+    ``fb_sweeps_v2_pallas``: ``lam_pad`` [M, S] supplies the eigenvalue
+    rows (else they come from ``dists``), ``init_fwd`` = (p0 [X, R],
+    f0 [NS, R]) seeds the forward carry and ``init_bwd`` = (bT, bfT) the
+    backward carry at the last marker; the defaults give the
+    whole-chromosome sweep."""
     M, X, R = e.shape
     dt = e.dtype
-    lam_pad = sweep_eigenvalues(dists, cfg, params, dt, ratemat).contiguous()
+    if lam_pad is None:
+        lam_pad = sweep_eigenvalues(dists, cfg, params, dt, ratemat)
+    if e.device.type == "cpu":
+        fwd = init_fwd or sweep_seeds(X, R, cfg, dt, e.device)
+        bwd = init_bwd or sweep_seeds(X, R, cfg, dt, e.device, backward=True)
+        return fb_scan_v2_block(e, lam_pad.to(dt), *fwd, *bwd, cfg)
+    _build.check_config(cfg)
     _build.check(e, dt, (M, 512, R), "e")
     _build.check(lam_pad, dt, (M, 64), "lam_pad")
+    for carry, name in ((init_fwd, "init_fwd"), (init_bwd, "init_bwd")):
+        if carry is not None:
+            _check_carry(carry, X, R, dt, name)
+    p0, f0 = init_fwd or (None, None)
+    bT, bfT = init_bwd or (None, None)
     kw = dict(dtype=dt, device=e.device)
     out = FBv2(*(torch.empty((M, n, R), **kw)
                  for n in (512, 512, 512, 8, 8, 8)))
-    _build.launch("fb_sweep", dt, e, lam_pad, float(cfg.evengen),
-                  out.fw_pre, out.fw_post, out.bw, out.fw_pre_f,
+    _build.launch("fb_sweep", dt, e, lam_pad, float(cfg.evengen), p0, f0, bT,
+                  bfT, out.fw_pre, out.fw_post, out.bw, out.fw_pre_f,
                   out.fw_post_f, out.bw_f, M, R)
     fb_sweeps.launches += 1
     return out
 
 
 fb_sweeps.launches = 0
+
+
+def fb_carry(e: torch.Tensor, lam_pad: torch.Tensor, cfg: ModelConfig,
+             init=None, backward: bool = False, lam_below=None):
+    """Carry-only sweep over one block (passes A and B of the blocked
+    scan): ``fb_carry_fwd`` / ``fb_carry_bwd`` on the CPU, the carry-only
+    entry of csrc/fb_sweep.cu on the card, which stores no [K, X, R]
+    tensor.  ``init`` = (p, f) entering the block (None: the
+    whole-chromosome seed); ``lam_below`` [S] is the backward step's
+    interval below the block (None: identity).  Returns the outgoing
+    (p [X, R], f [NS, R])."""
+    K, X, R = e.shape
+    dt = e.dtype
+    if lam_below is None and backward:
+        lam_below = torch.ones(cfg.numtypes, dtype=dt, device=e.device)
+    if e.device.type == "cpu":
+        p, f = init or sweep_seeds(X, R, cfg, dt, e.device, backward)
+        if backward:
+            return fb_carry_bwd(e, lam_pad, lam_below, p, f, cfg)
+        return fb_carry_fwd(e, lam_pad, p, f, cfg)
+    _build.check_config(cfg)
+    _build.check(e, dt, (K, 512, R), "e")
+    _build.check(lam_pad, dt, (K, 64), "lam_pad")
+    if backward:
+        _build.check(lam_below, dt, (64,), "lam_below")
+    if init is not None:
+        _check_carry(init, X, R, dt, "init")
+    p_in, f_in = init or (None, None)
+    p = torch.empty((512, R), dtype=dt, device=e.device)
+    f = torch.empty((8, R), dtype=dt, device=e.device)
+    _build.launch("fb_carry", dt, e, lam_pad, lam_below, float(cfg.evengen),
+                  p_in, f_in, p, f, int(backward), K, R)
+    fb_carry.launches += 1
+    return p, f
+
+
+fb_carry.launches = 0
 
 
 def loglik_from_factors(f: torch.Tensor, sh: torch.Tensor) -> torch.Tensor:
@@ -349,7 +464,6 @@ def chromosome_scan_v2(fb: FamilyBatch, dists: torch.Tensor,
 
     dtype = fb.ms.dtype
     B, _, M, _ = fb.md.shape
-    S, NS = cfg.numtypes, cfg.numshifts
     st = prep_slots(fb, dtype)
     e = emission(st, M, cfg)
     fb2 = fb_sweeps(e, dists, cfg, params, ratemat=ratemat)
@@ -358,17 +472,172 @@ def chromosome_scan_v2(fb: FamilyBatch, dists: torch.Tensor,
     b12, accum, pair = stats_from_v2(st, fb2, total_r, B, cfg)
     turn_w = turn_weights(fb2, st.sh, fb.descendants.to(dtype), cfg, B)
     hmask = haplo_update_mask(fb, cfg)
-
-    def to_std(x):      # [M, X, R] -> [B, M, NS, S] view
-        return x[:, :, :B].unflatten(1, (NS, S)).permute(3, 0, 1, 2)
-
-    def to_std_f(x):    # [M, NS, R] -> [B, M, NS] view
-        return x[:, :, :B].permute(2, 0, 1)
-
     coh = torch.full((B, M, cfg.numslots), 0.5, dtype=dtype,
                      device=total_r.device)
     return ScanResult(total=total_r[:B], haplo_b12=b12, haplo_mask=hmask,
                       inf_accum=accum, pair=pair, turn_weight=turn_w,
-                      coherence=coh, fw_pre=to_std(fb2.fw_pre),
-                      bw=to_std(fb2.bw), fw_pre_f=to_std_f(fb2.fw_pre_f),
-                      bw_f=to_std_f(fb2.bw_f))
+                      coherence=coh, fw_pre=to_std(fb2.fw_pre, B, cfg),
+                      bw=to_std(fb2.bw, B, cfg),
+                      fw_pre_f=to_std_f(fb2.fw_pre_f, B),
+                      bw_f=to_std_f(fb2.bw_f, B))
+
+
+def to_std(x: torch.Tensor, B: int, cfg: ModelConfig) -> torch.Tensor:
+    """[M, X, R] sweep tensor -> its [B, M, NS, S] view."""
+    return x[:, :, :B].unflatten(1, (cfg.numshifts, cfg.numtypes)).permute(
+        3, 0, 1, 2)
+
+
+def to_std_f(x: torch.Tensor, B: int) -> torch.Tensor:
+    """[M, NS, R] factors -> their [B, M, NS] view."""
+    return x[:, :, :B].permute(2, 0, 1)
+
+
+# ---------------------------------------------------------------------------
+# The marker-blocked scan
+# ---------------------------------------------------------------------------
+Carry = Tuple[torch.Tensor, torch.Tensor]   # (p [X, R], f [NS, R])
+
+
+class BlockedCarries(NamedTuple):
+    """Passes A and B of one batch chunk: the chunk's slot tensors, the
+    eigenvalue rows, the totals and the carries at every block boundary
+    (``fbound[i]`` enters block i forward, ``bbound[i]`` is bw at block
+    i's last marker)."""
+    st: SlotTensors
+    lam_pad: torch.Tensor        # [M, S]
+    total_r: torch.Tensor        # [R] whole-chromosome log-likelihoods
+    fbound: List[Carry]
+    bbound: List[Carry]
+
+
+def marker_slice(fb: FamilyBatch, sl: slice) -> FamilyBatch:
+    """The family batch restricted to the markers ``sl``."""
+    return dataclasses.replace(fb, md=fb.md[:, :, sl], ms=fb.ms[:, :, sl],
+                               hw=fb.hw[:, :, sl])
+
+
+def blocked_slice(fb: FamilyBatch, i: int, block: int) -> FamilyBatch:
+    """The family batch restricted to block i's markers."""
+    return marker_slice(fb, slice(i * block, (i + 1) * block))
+
+
+def _blk_inputs(st: SlotTensors, i: int, block: int, cfg: ModelConfig):
+    """Block i's slot tensors (cut from the chunk's) and its emission
+    e [K, X, R]."""
+    sl = slice(i * block, (i + 1) * block)
+    st_i = st._replace(md=st.md[:, :, sl].contiguous(),
+                       ms=st.ms[:, :, sl].contiguous(),
+                       hw=st.hw[:, sl].contiguous())
+    return st_i, emission(st_i, block, cfg)
+
+
+def blocked_pass_a(st: SlotTensors, lam_pad: torch.Tensor, cfg: ModelConfig,
+                   block: int):
+    """Pass A: the forward sweep carry-only, block by block.  Returns the
+    carry entering each block and the one after the last."""
+    X = cfg.numtypes * cfg.numshifts
+    carry = sweep_seeds(X, st.R, cfg, lam_pad.dtype, lam_pad.device)
+    fbound = []
+    for i in range(lam_pad.shape[0] // block):
+        fbound.append(carry)
+        _, e = _blk_inputs(st, i, block, cfg)
+        carry = fb_carry(e, lam_pad[i * block:(i + 1) * block], cfg,
+                         init=carry)
+    return fbound, carry
+
+
+def blocked_pass_b(st: SlotTensors, lam_pad: torch.Tensor, cfg: ModelConfig,
+                   block: int) -> List[Carry]:
+    """Pass B: the backward sweep carry-only, last block first.  Returns
+    bw at each block's last marker."""
+    X = cfg.numtypes * cfg.numshifts
+    nblk = lam_pad.shape[0] // block
+    carry = sweep_seeds(X, st.R, cfg, lam_pad.dtype, lam_pad.device,
+                        backward=True)
+    bbound = [None] * nblk
+    for i in range(nblk - 1, -1, -1):
+        bbound[i] = carry
+        below = lam_pad[i * block - 1] if i > 0 else None
+        _, e = _blk_inputs(st, i, block, cfg)
+        carry = fb_carry(e, lam_pad[i * block:(i + 1) * block], cfg,
+                         init=carry, backward=True, lam_below=below)
+    return bbound
+
+
+def blocked_carries(fb: FamilyBatch, dists: torch.Tensor, ratemat,
+                    cfg: ModelConfig, params: RuntimeParams,
+                    block: int) -> BlockedCarries:
+    """Passes A and B of the marker-blocked scan for one batch chunk:
+    carry-only forward and backward sweeps that keep only the carries at
+    block boundaries (M / block of them).  The marker axis of ``fb`` is a
+    multiple of ``block``."""
+    M = fb.md.shape[2]
+    if M % block:
+        raise ValueError(f"{M} markers is not a multiple of block {block}")
+    dt = fb.ms.dtype
+    lam_pad = sweep_eigenvalues(dists, cfg, params, dt, ratemat)
+    st = prep_slots(fb, dt)
+    fbound, (_, f) = blocked_pass_a(st, lam_pad, cfg, block)
+    bbound = blocked_pass_b(st, lam_pad, cfg, block)
+    return BlockedCarries(st, lam_pad, loglik_from_factors(f, st.sh),
+                          fbound, bbound)
+
+
+def blocked_block_pass(fb: FamilyBatch, bc: BlockedCarries, i: int,
+                       block: int, lut: torch.Tensor, cfg: ModelConfig,
+                       num_individuals: int, with_turn: bool = True):
+    """Pass C for one (batch chunk, block): the block's sweeps recomputed
+    from its boundary carries, the statistics against the whole
+    chromosome's totals, the merges and (``with_turn``) the turn weights.
+    Returns (fb_blk, st_blk, fb2, pair, hb, hc, inf, w or None) for the
+    block's markers."""
+    from ..hmm.probes import haplo_update_mask
+    from ..parallel.collective import merge_haplos, merge_infprobs
+    B = fb.md.shape[0]
+    fb_blk = blocked_slice(fb, i, block)
+    st_i, e = _blk_inputs(bc.st, i, block, cfg)
+    fb2 = fb_sweeps(e, None, cfg, None,
+                    lam_pad=bc.lam_pad[i * block:(i + 1) * block],
+                    init_fwd=bc.fbound[i], init_bwd=bc.bbound[i])
+    del e
+    b12, accum, pair = stats_from_v2(st_i, fb2, bc.total_r, B, cfg)
+    hmask = haplo_update_mask(fb_blk, cfg)
+    hb, hc = merge_haplos(b12, hmask, fb_blk.hw, fb_blk.slot_ind,
+                          fb_blk.descendants, lut, num_individuals)
+    inf = merge_infprobs(accum, fb_blk.slot_ind, fb_blk.descendants, lut,
+                         num_individuals)
+    w = None
+    if with_turn:
+        w = turn_weights(fb2, st_i.sh, fb_blk.descendants.to(fb2.bw.dtype),
+                         cfg, B)
+    return fb_blk, st_i, fb2, pair, hb, hc, inf, w
+
+
+def blocked_scan_chunk(fb: FamilyBatch, dists: torch.Tensor, ratemat,
+                       lut: torch.Tensor, cfg: ModelConfig,
+                       params: RuntimeParams, block: int,
+                       num_individuals: int, turn_consumer=None):
+    """The scan and merges of one batch chunk in O(block) sweep memory:
+    ``blocked_carries``, then ``blocked_block_pass`` per block.
+    ``turn_consumer(offset, w)`` takes each block's turn weights, so that
+    they never accumulate across blocks.  Returns (total [B],
+    pair [B, M, 2, 2], hb, hc [NI, M], inf [NI, M, 2, 2]) on the chunk's
+    device."""
+    B, _, M, _ = fb.md.shape
+    bc = blocked_carries(fb, dists, ratemat, cfg, params, block)
+    kw = dict(dtype=fb.ms.dtype, device=fb.ms.device)
+    NI = num_individuals
+    pair = torch.zeros((B, M, 2, 2), **kw)
+    hb, hc = torch.zeros((NI, M), **kw), torch.zeros((NI, M), **kw)
+    inf = torch.zeros((NI, M, 2, 2), **kw)
+    for i in range(M // block):
+        _, _, _, pair_i, hb_i, hc_i, inf_i, w = blocked_block_pass(
+            fb, bc, i, block, lut, cfg, NI,
+            with_turn=turn_consumer is not None)
+        sl = slice(i * block, (i + 1) * block)
+        pair[:, sl], hb[:, sl], hc[:, sl], inf[:, sl] = \
+            pair_i, hb_i, hc_i, inf_i
+        if turn_consumer is not None:
+            turn_consumer(i * block, w)
+    return bc.total_r[:B], pair, hb, hc, inf

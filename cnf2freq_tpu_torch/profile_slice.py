@@ -2,7 +2,8 @@
 
     python3 -m cnf2freq_tpu_torch.profile_slice [--out FILE.json]
         [--adaptive-relhaplo {on,off}] [--resident {auto,off}]
-        [--flipmode {native,negshift}]
+        [--flipmode {native,negshift}] [--markers M] [--spacing-cm CM]
+        [--markerblock N]
 
 Runs a slice of ``chip_smoke.py``, simulate_f2(n_f2=1000, n_markers=192,
 n_founder_pairs=20, seed=7) in float32 on cuda, with adaptive relhaplo on
@@ -10,7 +11,13 @@ n_founder_pairs=20, seed=7) in float32 on cuda, with adaptive relhaplo on
 pipeline), on the Driver's default iteration (``--resident auto``: the
 device-resident one for the native flip mode, ``slice_resident``) or the
 host-gathered one (``off``, ``slice_coherence`` and ``slice``), with the
-native flip solver or the negshift pass: preprocess(), the early
+native flip solver or the negshift pass, and with ``--markerblock N`` the
+marker-blocked scan (``chip_smoke.py``'s ``slice_blocked`` is
+``--markers 2048 --spacing-cm 0.05 --markerblock 256``), whose passes
+are timed as ``blocked.pass_a``, ``blocked.pass_b`` (the carry-only
+sweeps), ``blocked.pass_c`` (each block's sweeps, statistics, merges and
+turn weights) and ``blocked.followups`` (coherence and map
+re-estimation per block): preprocess(), the early
 iteration, then two full iterations.  For each it prints the wall seconds
 of the whole call and of each driver stage (on the classic pipeline also
 the scan's own stages, ``scan.*``), timed on the host around calls
@@ -61,6 +68,12 @@ SCAN_STAGES = (("hmm.emission", "build_blocks"),
                ("hmm.forward_backward", "forward_backward"),
                ("hmm.probes", "turn_weights_fast"),
                ("hmm.probes", "phase_coherence"))
+# the passes of the marker-blocked scan: (module, function, stage)
+BLOCKED_STAGES = (("ops.scan", "blocked_pass_a", "blocked.pass_a"),
+                  ("ops.scan", "blocked_pass_b", "blocked.pass_b"),
+                  ("ops.scan", "blocked_block_pass", "blocked.pass_c"),
+                  ("driver", "Driver._blocked_followups",
+                   "blocked.followups"))
 
 
 @contextlib.contextmanager
@@ -84,16 +97,23 @@ def stage_timers():
     saved = {f: getattr(dm, f) for f in FUNCTIONS}
     saved_methods = {m: getattr(dm.Driver, m) for m in STAGES}
     add_coh = dm.ResidentAccum.add_coh
-    scan = [(importlib.import_module(f"{__package__}.{mod}"), name)
-            for mod, name in SCAN_STAGES]
-    saved_scan = [(mod, name, getattr(mod, name)) for mod, name in scan]
+    saved_scan = [(importlib.import_module(f"{__package__}.{mod}"), name,
+                   "scan." + name) for mod, name in SCAN_STAGES]
+    for mod, name, stage in BLOCKED_STAGES:
+        obj = importlib.import_module(f"{__package__}.{mod}")
+        if "." in name:
+            cls, name = name.split(".")
+            obj = getattr(obj, cls)
+        saved_scan.append((obj, name, stage))
+    saved_scan = [(obj, name, stage, getattr(obj, name))
+                  for obj, name, stage in saved_scan]
     try:
         for name, fn in saved.items():
             setattr(dm, name, timed(name, fn))
         for name, fn in saved_methods.items():
             setattr(dm.Driver, name, timed(name, fn))
-        for mod, name, fn in saved_scan:
-            setattr(mod, name, timed("scan." + name, fn))
+        for obj, name, stage, fn in saved_scan:
+            setattr(obj, name, timed(stage, fn))
         dm.ResidentAccum.add_coh = timed("scatter_coherence", add_coh)
         yield acc
     finally:
@@ -101,8 +121,8 @@ def stage_timers():
             setattr(dm, name, fn)
         for name, fn in saved_methods.items():
             setattr(dm.Driver, name, fn)
-        for mod, name, fn in saved_scan:
-            setattr(mod, name, fn)
+        for obj, name, _, fn in saved_scan:
+            setattr(obj, name, fn)
         dm.ResidentAccum.add_coh = add_coh
 
 
@@ -114,6 +134,10 @@ def main(argv=None):
     ap.add_argument("--resident", choices=("auto", "off"), default="auto")
     ap.add_argument("--flipmode", choices=("native", "negshift"),
                     default="native")
+    ap.add_argument("--markers", type=int, default=192)
+    ap.add_argument("--spacing-cm", type=float, default=1.0)
+    ap.add_argument("--markerblock", type=int, default=None,
+                    help="run chromosomes longer than this marker-blocked")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
@@ -122,11 +146,14 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
     from .driver import Driver
-    ped = simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20, seed=7)
+    ped = simulate_f2(n_f2=1000, n_markers=args.markers,
+                      marker_spacing_cm=args.spacing_cm, n_founder_pairs=20,
+                      seed=7)
     adaptive = args.adaptive_relhaplo == "on"
     drv = Driver(ped, dtype=torch.float32, device="cuda",
                  adaptive_relhaplo=adaptive)
     drv.flip_mode = args.flipmode
+    drv.marker_block = args.markerblock
     if args.resident == "off":
         drv.resident = False
     calls = [("preprocess", drv.preprocess),
@@ -139,7 +166,8 @@ def main(argv=None):
               "card": smi.stdout.strip().splitlines()[0]
               if smi.returncode == 0 else "not read",
               "adaptive_relhaplo": adaptive, "flip_mode": drv.flip_mode,
-              "resident": drv._use_resident(), "stages": {}}
+              "resident": drv._use_resident(), "markers": args.markers,
+              "marker_block": args.markerblock, "stages": {}}
     with stage_timers() as acc:
         for name, fn in calls:
             acc.clear()

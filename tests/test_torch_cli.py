@@ -126,15 +126,17 @@ def test_cuda_cli_fails_without_card(files, tmp_path):
     assert not [p for p in os.listdir(tmp_path) if not p.startswith(".")]
 
 
-# the port carries the flip modes native and negshift, and --parentswap
-# with negshift only (the JAX CLI's rule); argparse refuses the others
+# the port carries the flip modes native and negshift, --parentswap with
+# negshift only (the JAX CLI's rule) and a numeric --markerblock; argparse
+# refuses the others
 ERRORS = {"--flipmode": "invalid choice: 'toulbar'",
-          "--parentswap": "--parentswap requires --flipmode negshift"}
+          "--parentswap": "--parentswap requires --flipmode negshift",
+          "--markerblock": "invalid int value: 'x'"}
 
 
 @pytest.mark.parametrize("flag", [
     ["--model", "f2"], ["--flipmode", "toulbar"], ["--parentswap"],
-    ["--markerblock", "8"], ["--trace", "t.jsonl"], ["--samplefile", "s"],
+    ["--markerblock", "x"], ["--trace", "t.jsonl"], ["--samplefile", "s"],
     ["--bimfile", "b"], ["--hapfiles", "h"], ["--famfile", "f"],
     ["--bedfile", "b"], ["--createhapfile", "h"], ["--merlinmap", "m"],
     ["--merlinped", "m"], ["--gigimapfile", "g"], ["--gigipedfile", "g"],
@@ -142,8 +144,9 @@ ERRORS = {"--flipmode": "invalid choice: 'toulbar'",
     ["--templatevcffile", "v"], ["--outputvcffile", "v"]],
     ids=lambda f: f[0].lstrip("-"))
 def test_cli_refuses_flags_it_does_not_carry(flag, capsys):
-    """Flags the port does not carry, a flip mode it does not carry, and
-    --parentswap without the negshift flip mode (the JAX CLI's rule)."""
+    """Flags the port does not carry, a flip mode it does not carry, a
+    marker block that is not a number, and --parentswap without the
+    negshift flip mode (the JAX CLI's rule)."""
     with pytest.raises(SystemExit) as ex:
         port_main(["--device", "cpu"] + flag)
     assert ex.value.code == 2

@@ -7,6 +7,10 @@ and statistics kernels' tables replace occurs;
 ``test_fb_sweep_edges`` and ``test_turn_edges`` hold the sweep and turn
 kernels at their edges (one or two markers, an R not a multiple of 64,
 zero emission blocks; a single allowed shift, D <= 0).
+``test_fb_sweep_blocked`` holds the sweep kernel's entries of the
+marker-blocked scan (seeded boundary carries; carry-only, both
+directions) against their plain twins, and the blocked chunk scan on the
+card against the same scan on the CPU.
 
 Run on a machine with the card (tests/conftest.py imports JAX):
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
@@ -289,3 +293,75 @@ def test_wrapper_counts_and_checks(card):
     assert pfb.fb_sweeps.launches == before + 1
     with pytest.raises(ValueError):
         pfb.fb_sweeps(e.transpose(0, 1), lam)
+
+
+def _seeded_carry(gen, R, dtype, card):
+    return (torch.rand((512, R), generator=gen, dtype=dtype, device=card),
+            torch.randn((8, R), generator=gen, dtype=dtype, device=card) * 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mode", ["init", "carry_fwd", "carry_bwd",
+                                  "carry_default", "chunk"])
+def test_fb_sweep_blocked(card, mode, dtype):
+    """Kernel #2 with seeded boundary carries, and in carry-only mode
+    forward, backward (through a lam_below row) and from the default
+    seeds, against the plain twins; the whole blocked chunk scan (block 3
+    of 11 markers, padded to 12) on the card against the CPU."""
+    fbt, st, d, cfg, params, B, M = _inputs(card, dtype)
+    e = ps.emission(st, M, cfg)
+    lam = ps.sweep_eigenvalues(d, cfg, params, dtype)
+    gen = torch.Generator(device=card).manual_seed(3)
+    fwd, bwd = (_seeded_carry(gen, st.R, dtype, card) for _ in range(2))
+    if mode == "init":
+        before = ps.fb_sweeps.launches
+        got = ps.fb_sweeps(e, None, cfg, None, lam_pad=lam, init_fwd=fwd,
+                           init_bwd=bwd)
+        assert ps.fb_sweeps.launches == before + 1
+        _close(got, ps.fb_scan_v2_block(e, lam, *fwd, *bwd, cfg), dtype)
+    elif mode == "carry_fwd":
+        before = ps.fb_carry.launches
+        got = ps.fb_carry(e, lam, cfg, init=fwd)
+        assert ps.fb_carry.launches == before + 1
+        _close(got, ps.fb_carry_fwd(e, lam, *fwd, cfg), dtype)
+    elif mode == "carry_bwd":
+        got = ps.fb_carry(e, lam, cfg, init=bwd, backward=True,
+                          lam_below=lam[3])
+        _close(got, ps.fb_carry_bwd(e, lam, lam[3], *bwd, cfg), dtype)
+    elif mode == "carry_default":
+        R = st.R
+        for backward in (False, True):
+            seed = ps.sweep_seeds(512, R, cfg, dtype, card, backward)
+            got = ps.fb_carry(e, lam, cfg, backward=backward)
+            ref = ps.fb_carry(e.cpu(), lam.cpu(), cfg,
+                              init=tuple(x.cpu() for x in seed),
+                              backward=backward)
+            _close(got, ref, dtype)
+    else:
+        from cnf2freq_tpu_torch.parallel.mesh import pad_markers
+        fb12 = pad_markers(fbt, 12)
+        d12 = torch.cat([d, torch.zeros(1, dtype=dtype, device=card)])
+        NI = int(fbt.slot_ind.max()) + 1
+        lut = torch.arange(NI + 1, device=card)
+        got = ps.blocked_scan_chunk(fb12, d12, None, lut, cfg, params, 3, NI)
+        ref = ps.blocked_scan_chunk(fb12.to("cpu", dtype), d12.cpu(), None,
+                                    lut.cpu(), cfg, params, 3, NI)
+        _close(got, ref, dtype)
+
+
+def test_fb_sweep_blocked_checks(card):
+    """The blocked entries refuse carries of the wrong shape, a CPU lam
+    row, and count nothing then."""
+    fbt, st, d, cfg, params, B, M = _inputs(card, torch.float64)
+    e = ps.emission(st, M, cfg)
+    lam = ps.sweep_eigenvalues(d, cfg, params, torch.float64)
+    bad = (torch.ones((512, st.R + 32), dtype=torch.float64, device=card),
+           torch.zeros((8, st.R + 32), dtype=torch.float64, device=card))
+    before = (ps.fb_sweeps.launches, ps.fb_carry.launches)
+    with pytest.raises(ValueError):
+        ps.fb_sweeps(e, None, cfg, None, lam_pad=lam, init_fwd=bad)
+    with pytest.raises(ValueError):
+        ps.fb_carry(e, lam, cfg, init=bad)
+    with pytest.raises(ValueError):
+        ps.fb_carry(e, lam, cfg, backward=True, lam_below=lam[0].cpu())
+    assert (ps.fb_sweeps.launches, ps.fb_carry.launches) == before

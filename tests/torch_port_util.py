@@ -27,6 +27,12 @@ from cnf2freq_tpu_torch.updates.phaseflip import make_flip_scorer
 
 FLAT_LIMIT = 1.0 / (1e-2 * np.finfo(np.float64).eps ** 0.5)
 
+# the suite runs several pytest workers on one machine's cores; the port's
+# tensors in these tests are small, and one torch thread a worker keeps
+# the workers' thread pools from spinning against each other (every worker
+# imports this module while it collects the tests)
+torch.set_num_threads(1)
+
 
 def cohort(B=6, M=9, seed=3, with_vacant=False):
     """(ped, numpy FamilyBatch, dists, cfg, params) with randomised
@@ -189,11 +195,12 @@ def patch_jax_with_port_rules(mp, seen):
     mp.setattr(jax_updates, "cappedgd", cappedgd_freezing_flat)
 
 def run_pair(base, adaptive: bool, jax_resident: bool = False,
-             **driver_attrs):
+             iters: int = 3, **driver_attrs):
     """Both drivers from the cohort ``base``, each through its own
-    preprocess and three iterations: the port's Driver on its default
-    iteration, the JAX Driver with ``resident=jax_resident``, and
-    ``driver_attrs`` (flip_mode, parent_swap) set on both."""
+    preprocess and ``iters`` iterations (the first early): the port's
+    Driver on its default iteration, the JAX Driver with
+    ``resident=jax_resident``, and ``driver_attrs`` (flip_mode,
+    parent_swap, marker_block) set on both."""
     from cnf2freq_tpu.driver import Driver as JaxDriver
 
     seen = {"anchors": [], "winners": [], "flat": [], "scored": [],
@@ -222,7 +229,8 @@ def run_pair(base, adaptive: bool, jax_resident: bool = False,
             pre = (state(d.ped), np.stack([i.variances
                                             for i in d.ped.inds[1:]]))
             out[name] = dict(
-                pre=pre, iters=[d.iterate(early=(i == 0)) for i in range(3)],
+                pre=pre,
+                iters=[d.iterate(early=(i == 0)) for i in range(iters)],
                 post=state(d.ped), pairs=d.pair_tables,
                 export=d.export_state())
     return out
