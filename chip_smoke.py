@@ -17,7 +17,11 @@ Phases, in order, each printing its lines (any failure exits non-zero):
            units, 0.05 cM apart): with seeded boundary carries
            (fb_sweep_init) and carry-only, forward and backward (fb_carry,
            timed per launch); in float32 there the kernel is held to its
-           plain twin's accuracy against float64 (ACCURACY_SLACK)
+           plain twin's accuracy against float64 (ACCURACY_SLACK); the
+           statistics kernel's probe-rule entries (stats_rules,
+           stats_bmns_rules: parity mode's form, one launch per dup-flip
+           variant) on the same cohort gathered with 4 variants, every
+           variant against the plain twin, timed on variant 1
   slice    simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20,
            seed=7) on cuda in float32 with adaptive_relhaplo=False (the
            v2 pipeline) on the host-gathered iteration (resident=False):
@@ -92,11 +96,33 @@ Phases, in order, each printing its lines (any failure exits non-zero):
            (--count 2 --output --dump --lineorigin): every printed number
            of the genotype table, the line-origin table and the dump
            agrees to 2e-5
-The launch counters are set to 0 just before each slice and each CLI run
+  scan_parity
+           engine.chromosome_scan(probe_rules=True, n_variants=4) on the
+           slice's cohort (gathered as parity mode gathers it) in float32:
+           the v2 pipeline (4 stats_rules launches) and the classic one
+           with coherence (4 stats_bmns_rules); seconds, launches, peak
+           memory; fails on a launch count off 4, a non-finite output, or
+           statistics equal to the scan's without probe rules
+  slice_parity
+           Driver(parity=True) in float64 on simulate_f2(n_f2=PARITY_UNITS,
+           n_markers=192, n_founder_pairs=20, seed=7): preprocess(), run(3)
+           (two full iterations; iteration 0 is skipped); seconds of the
+           scan, the reference flip stage and the updates, launches, peak
+           memory and each iteration's flip winner; fails on a kernel of
+           the path at 0 launches or a non-finite output
+  parity_mode
+           Driver(parity=True), 24 x 32, float64, run(3) on cuda and on the
+           CPU: as simulated, then with the F1 parents marked typed (so
+           that a flip wins), unblocked and with marker_block=8: the same
+           flip winners, haploweights, markersure and pair tables at rtol
+           1e-10 / atol 1e-12
+The launch counters are set to 0 just before each slice, scan and CLI run
 and read just after it; the kernels line takes the launches of the v2
-kernels from slice, of the classic ones from slice_resident and of the
-sweep kernel's two blocked entries from slice_blocked.  The last three lines are a JSON summary of the
-kernels, the card's name and power limit, and {"ok": true, "device":
+kernels from slice, of the classic ones from slice_resident, of the
+sweep kernel's two blocked entries from slice_blocked, of stats_rules
+from slice_parity and of stats_bmns_rules from scan_parity.  The last
+three lines are a JSON summary of the kernels, the card's name and power
+limit, and {"ok": true, "device":
 {...}}.  Imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -141,6 +167,13 @@ KERNELS = {
                       "cnf2freq_tpu/ops/scan_v2.py:631", "blocked"),
     "fb_carry": ("cnf2freq_tpu_torch/csrc/fb_sweep.cu",
                  "cnf2freq_tpu/ops/scan_v2.py:285", "blocked"),
+    # the statistics kernel's probe-rule form (_kernel with rules=True),
+    # parity mode: launched per dup-flip variant by stats_from_v2 and by
+    # stats_pallas
+    "stats_rules": ("cnf2freq_tpu_torch/csrc/stats.cu",
+                    "cnf2freq_tpu/ops/stats_pallas.py:509", "parity"),
+    "stats_bmns_rules": ("cnf2freq_tpu_torch/csrc/stats.cu",
+                         "cnf2freq_tpu/ops/stats_pallas.py:612", "parity"),
 }
 # operations per unit of work, counted from each kernel's arithmetic (for
 # the bound; every kernel here is far below the card's compute balance):
@@ -148,11 +181,13 @@ KERNELS = {
 # matches x ~12 + 16 entries x 6) + 512 outputs x 3; sweeps per (unit,
 # shift, marker) and direction: 64 x 4 (clip, emit, sum, divide) + two
 # 6-stage FWHTs (2 x 6 x 64) + 2 x 64 scalings; statistics per (marker,
-# unit): ~19,800 (block math and contractions); turn per (marker, unit):
-# three 512-point WHTs (3 x 9 x 512) + 4 x 512
+# unit): ~19,800 (block math and contractions), with probe rules 576 more
+# (the 512 masked entries and 64 froot values decorated); turn per
+# (marker, unit): three 512-point WHTs (3 x 9 x 512) + 4 x 512
 OPS = {"emission": 2880, "fb_sweep": 2 * 1152, "stats": 19800,
        "turn": 15872, "fb_classic": 2 * 1152, "stats_bmns": 19800,
-       "fb_sweep_init": 2 * 1152, "fb_carry": 1152}
+       "fb_sweep_init": 2 * 1152, "fb_carry": 1152,
+       "stats_rules": 19800 + 576, "stats_bmns_rules": 19800 + 576}
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12       # float32 outside the tensor cores
 # (rtol, atol) per dtype; f32 sweeps compound rounding over 192 markers
@@ -184,6 +219,14 @@ MIN_MASKED_ACCURACY = 0.95
 # iterations may hold (the unblocked working set at this size is ~67 GB)
 BLOCK = 256
 BLOCKED_PEAK_LIMIT = 20e9
+# parity mode: its probe-dedup variants on simulate_f2 cohorts, and the
+# units of slice_parity, cut for the host flip stage (updates/refflips.py,
+# Python whose cost grows faster than the units: the call of the second
+# full iteration, the first with gainful turns, took 3.9 s at 40 units
+# and over ten minutes at 100 on one CPU core)
+PARITY_VARIANTS = 4
+PARITY_UNITS = 40
+PARITY_RTOL, PARITY_ATOL = 1e-10, 1e-12
 
 
 def fail(msg):
@@ -203,7 +246,9 @@ def wrappers():
     return {"emission": ps.emission, "fb_sweep": ps.fb_sweeps,
             "stats": pst.stats, "turn": ps.turn_weights,
             "fb_classic": pfb.fb_sweeps, "stats_bmns": pst.stats_pallas,
-            "fb_sweep_init": ps.fb_sweeps, "fb_carry": ps.fb_carry}
+            "fb_sweep_init": ps.fb_sweeps, "fb_carry": ps.fb_carry,
+            "stats_rules": pst.stats_rules,
+            "stats_bmns_rules": pst.stats_bmns_rules}
 
 
 def cuda_rounds(fn, rounds, reps):
@@ -314,9 +359,10 @@ def as_accurate(ref64):
     return cmp
 
 
-def kernel_inputs(dtype, n_markers=192, spacing_cm=1.0):
+def kernel_inputs(dtype, n_markers=192, spacing_cm=1.0, n_variants=1):
     """The slice's cohort on the card as a family batch, with randomised
-    haploweights and error rates so every block branch is exercised."""
+    haploweights and error rates so every block branch is exercised, and
+    ``n_variants`` probe-dedup variants."""
     from cnf2freq_tpu_torch.config import ModelConfig, RuntimeParams
     from cnf2freq_tpu_torch.hmm.family import gather_family
     from cnf2freq_tpu_torch.utils.simulate import simulate_f2
@@ -327,7 +373,7 @@ def kernel_inputs(dtype, n_markers=192, spacing_cm=1.0):
         ped.fixtrees(ind.n)
     ped.count_descendants()
     fb = gather_family(ped, list(ped.dous), 0, ped.num_markers - 1,
-                       n_variants=1)
+                       n_variants=n_variants)
     rng = np.random.default_rng(7)
     fb.hw = rng.uniform(0.05, 0.95, fb.hw.shape)
     fb.ms = np.where(fb.md > 0, rng.uniform(0.0, 0.3, fb.ms.shape), fb.ms)
@@ -347,8 +393,11 @@ def check_kernels(dtype):
     from cnf2freq_tpu_torch.ops import fb as pfb
     from cnf2freq_tpu_torch.ops import scan as ps
     from cnf2freq_tpu_torch.ops import stats as pst
-    fbt, dists, cfg, params = kernel_inputs(dtype)
+    fbt, dists, cfg, params = kernel_inputs(dtype,
+                                            n_variants=PARITY_VARIANTS)
     st = ps.prep_slots(fbt, dtype)
+    # the slot tensors that the entries without probe rules read
+    slots = (st.md, st.ms, st.hw, st.ex, st.at, st.f2, st.sh)
     B, _, M, _ = fbt.md.shape
     out = {}
 
@@ -393,7 +442,22 @@ def check_kernels(dtype):
     got = pst.stats(*args)
     record("stats", got, pst.stats_reference(*args),
            lambda: pst.stats(*args), lambda: pst.stats_reference(*args),
-           nbytes(tuple(st), args[1:6], got), M * B, cmp=compare_all)
+           nbytes(slots, args[1:6], got), M * B, cmp=compare_all)
+
+    # the probe-rule form: every variant checked, variant 1 timed (one
+    # launch reads em and one df column)
+    nv = PARITY_VARIANTS
+
+    def plain_rules(v):
+        return pst.stats_reference(*args, em=st.em, df=st.df[v], rules=True)
+    got = [pst.stats_rules(st, v, *args[1:]) for v in range(nv)]
+    record("stats_rules", [x for g in got for x in g],
+           [x for v in range(nv) for x in plain_rules(v)],
+           lambda: pst.stats_rules(st, 1, *args[1:]),
+           lambda: plain_rules(1),
+           nbytes(slots, st.em, st.df[1], args[1:6], got[1]), M * B,
+           cmp=compare_all)
+    del got
 
     desc = fbt.descendants.to(dtype)
     got = ps.turn_weights(fb2, st.sh, desc, cfg, B)
@@ -422,12 +486,23 @@ def check_kernels(dtype):
     args = (fbt, fbres.fw_pre, fbres.bw, fbres.fw_pre_f, fbres.bw_f, total,
             cfg)
     got = pst.stats_pallas(*args)
+    bmns_slots = (fbt.md, fbt.ms, fbt.hw, fbt.exists.int(), fbt.attop.int(),
+                  fbt.flag2ignore, fbt.shiftignore)
     record("stats_bmns", got, pst.stats_bmns_reference(*args),
            lambda: pst.stats_pallas(*args),
            lambda: pst.stats_bmns_reference(*args),
-           nbytes(fbt.md, fbt.ms, fbt.hw, fbt.exists.int(), fbt.attop.int(),
-                  fbt.flag2ignore, fbt.shiftignore, args[1:6], got),
-           M * B, cmp=compare_all)
+           nbytes(bmns_slots, args[1:6], got), M * B, cmp=compare_all)
+
+    def plain_bmns_rules(v):
+        return pst.stats_bmns_reference(*args, em=fbt.emptyslot,
+                                        df=fbt.dup_flip[:, v], rules=True)
+    got = [pst.stats_bmns_rules(fbt, v, *args[1:]) for v in range(nv)]
+    record("stats_bmns_rules", [x for g in got for x in g],
+           [x for v in range(nv) for x in plain_bmns_rules(v)],
+           lambda: pst.stats_bmns_rules(fbt, 1, *args[1:]),
+           lambda: plain_bmns_rules(1),
+           nbytes(bmns_slots, fbt.emptyslot.int(), fbt.dup_flip[:, 1].int(),
+                  args[1:6], got[1]), M * B, cmp=compare_all)
     del e, fbc, fbres, got, args
     torch.cuda.empty_cache()
 
@@ -738,6 +813,191 @@ def run_parity(adaptive, iters=2, **driver_attrs):
         fail("parity: adaptive relhaplo left relhaplo at its loaded value")
 
 
+def parity_batch(dtype):
+    """The slice's cohort gathered as parity mode gathers it (the fixtrees
+    mask, the gen<2 shift truncation, PARITY_VARIANTS variants), on the
+    card: (fb, dists, cfg, params)."""
+    from cnf2freq_tpu_torch.config import ModelConfig, RuntimeParams
+    from cnf2freq_tpu_torch.hmm.family import gather_family
+    from cnf2freq_tpu_torch.utils.simulate import simulate_f2
+    ped = simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20, seed=7)
+    for ind in ped.inds[1:]:
+        ped.fixtrees(ind.n)
+    ped.count_descendants()
+    fb = gather_family(ped, list(ped.dous), 0, ped.num_markers - 1,
+                       mask_mode="reference", parity=True,
+                       n_variants=PARITY_VARIANTS)
+    dists = torch.as_tensor(np.diff(ped.markerposes), dtype=dtype,
+                            device="cuda")
+    return fb.to("cuda", dtype), dists, ModelConfig(), RuntimeParams()
+
+
+def run_scan_parity():
+    """engine.chromosome_scan with probe rules at 1000 x 192 in float32, on
+    the v2 pipeline and on the classic one; returns their launches."""
+    from cnf2freq_tpu_torch.engine import chromosome_scan
+    fb, dists, cfg, params = parity_batch(torch.float32)
+    w = wrappers()
+    plain = chromosome_scan(fb, dists, cfg, params)
+    out = {}
+    for pipeline, coh in (("v2", False), ("classic", True)):
+        for fn in w.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = chromosome_scan(fb, dists, cfg, params, with_coherence=coh,
+                              probe_rules=True, n_variants=PARITY_VARIANTS)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = {k: w[k].launches for k in ("stats_rules",
+                                                "stats_bmns_rules",
+                                                "stats", "stats_bmns")}
+        stats = (res.haplo_b12, res.inf_accum, res.pair)
+        finite = all(bool(torch.isfinite(x).all()) for x in
+                     stats + (res.total, res.turn_weight))
+        moved = max(float((a - b).abs().max()) for a, b in
+                    zip(stats, (plain.haplo_b12, plain.inf_accum,
+                                plain.pair)))
+        say("scan_parity", pipeline=pipeline, seconds=f"{sec:.3f}",
+            launches=json.dumps(launches), n_variants=PARITY_VARIANTS,
+            finite=finite, max_abs_change_from_no_rules=f"{moved:.3e}",
+            peak_memory_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+        name = "stats_rules" if pipeline == "v2" else "stats_bmns_rules"
+        if launches[name] != PARITY_VARIANTS or \
+                launches["stats"] + launches["stats_bmns"] != 0:
+            fail(f"scan_parity {pipeline}: launches {launches}")
+        if not finite or moved == 0:
+            fail(f"scan_parity {pipeline}: non-finite statistics or the "
+                 f"probe rules changed nothing")
+        out[name] = launches[name]
+        del res
+    return out
+
+
+@contextlib.contextmanager
+def recording_flips(winners):
+    """Append each winner of the Driver's reference flip stage to
+    ``winners`` (its sorted (individual, marker) flips, or None)."""
+    from cnf2freq_tpu_torch import driver as dm
+    real = dm.reference_flips
+
+    def recording(*a):
+        win = real(*a)
+        winners.append(None if win is None else sorted(win.flips))
+        return win
+    dm.reference_flips = recording
+    try:
+        yield winners
+    finally:
+        dm.reference_flips = real
+
+
+def run_slice_parity():
+    """Driver(parity=True) in float64 on the card at PARITY_UNITS x 192:
+    preprocess() and run(3); returns the launches of its kernels."""
+    from cnf2freq_tpu_torch import Driver
+    from cnf2freq_tpu_torch.profile_slice import stage_timers
+    from cnf2freq_tpu_torch.utils.simulate import simulate_f2
+    ped = simulate_f2(n_f2=PARITY_UNITS, n_markers=192, n_founder_pairs=20,
+                      seed=7)
+    drv = Driver(ped, dtype=torch.float64, device="cuda", parity=True)
+    w = wrappers()
+    names = ("emission", "fb_sweep", "stats_rules", "turn", "stats")
+    for fn in w.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stages = ("scan_merged", "gather_family", "reference_flips",
+              "_process_infprobs", "_update_haploweights")
+    winners = []
+    with stage_timers() as acc, recording_flips(winners):
+        for name, fn in (("preprocess", drv.preprocess),
+                         ("run_3", lambda: drv.run(3))):
+            acc.clear()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            say("slice_parity", stage=name, seconds=f"{sec:.3f}",
+                **{f"{k}_s": f"{acc[k]:.3f}" for k in stages if k in acc})
+    launches = {k: w[k].launches for k in names}
+    hw = np.stack([ind.haploweight for ind in ped.inds[1:]])
+    tabs = np.stack(list(drv.pair_tables.values()))
+    finite = bool(np.isfinite(hw).all() and np.isfinite(tabs).all()
+                  and all(math.isfinite(i["loglik"]) for i in out[1:]))
+    say("slice_parity", units=PARITY_UNITS, n_variants=drv._n_variants(),
+        resident=drv._use_resident(), iterations=[
+            None if i is None else dict(hitnnn=i["hitnnn"],
+                                        inverted=i["inverted"],
+                                        loglik=f"{i['loglik']:.6f}")
+            for i in out], flip_winners=json.dumps(winners),
+        launches=json.dumps(launches),
+        finite=finite,
+        peak_memory_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    if out[0] is not None or len(out) != 3:
+        fail("slice_parity: run(3) did not skip iteration 0")
+    if launches["stats"] != 0 or min(launches[k] for k in names
+                                     if k != "stats") <= 0:
+        fail(f"slice_parity: launches {launches}")
+    if launches["stats_rules"] != PARITY_VARIANTS * launches["fb_sweep"]:
+        fail(f"slice_parity: not {PARITY_VARIANTS} stats_rules launches a "
+             f"scan: {launches}")
+    if not finite:
+        fail("slice_parity: non-finite outputs")
+    return launches
+
+
+def run_parity_mode(typed_parents=False, **driver_attrs):
+    """Driver(parity=True), 24 x 32, float64, run(3) on cuda and on the
+    CPU, with ``driver_attrs`` set on both: the same flip winners and the
+    same state at PARITY_RTOL / PARITY_ATOL.  ``typed_parents`` marks the
+    untyped F1 parents non-empty: an empty parent's turn bit is pinned and
+    enters the flip stage's clauses only as a positive literal, which the
+    solver satisfies for every clause of its families, so without this no
+    flip wins on a simulated cohort (and with it one must)."""
+    from cnf2freq_tpu_torch import Driver, copy_pedigree
+    from cnf2freq_tpu_torch.utils.simulate import simulate_f2
+    base = simulate_f2(n_f2=24, n_markers=32, n_founder_pairs=2, seed=11)
+    if typed_parents:
+        for ind in base.inds[1:]:
+            ind.empty = False
+    peds = {dev: copy_pedigree(base) for dev in ("cuda", "cpu")}
+    winners = {dev: [] for dev in peds}
+    tabs = {}
+    for dev, p in peds.items():
+        d = Driver(p, dtype=torch.float64, device=dev, parity=True)
+        for k, v in driver_attrs.items():
+            setattr(d, k, v)
+        with recording_flips(winners[dev]):
+            d.preprocess()
+            d.run(3)
+        tabs[dev] = d.pair_tables
+
+    def within(a, b):
+        """(max abs difference, all within PARITY_RTOL / PARITY_ATOL)."""
+        return (float(np.abs(a - b).max()),
+                bool(np.allclose(a, b, rtol=PARITY_RTOL, atol=PARITY_ATOL)))
+    errs = {f: within(*(np.stack([getattr(i, f) for i in peds[dev].inds[1:]])
+                        for dev in ("cuda", "cpu")))
+            for f in ("haploweight", "markersure")}
+    errs["pair"] = within(np.stack([tabs["cuda"][n] for n in tabs["cpu"]]),
+                          np.stack(list(tabs["cpu"].values())))
+    same_win = winners["cuda"] == winners["cpu"]
+    ok = same_win and all(e[1] for e in errs.values())
+    say("parity_mode", typed_parents=typed_parents,
+        marker_block=driver_attrs.get("marker_block"),
+        flip_stages=len(winners["cpu"]),
+        winners_cuda=json.dumps(winners["cuda"]), same_winners=same_win,
+        **{f"{k}_max_abs": f"{e[0]:.3e}" for k, e in errs.items()},
+        rtol=PARITY_RTOL, atol=PARITY_ATOL, ok=ok)
+    if not ok or len(winners["cpu"]) != 2:
+        fail(f"parity mode: cuda and CPU float64 runs disagree "
+             f"({driver_attrs})")
+    if typed_parents and not any(winners["cpu"]):
+        fail("parity mode: no flip won with typed parents")
+
+
 class Tee(io.TextIOBase):
     """Write to several streams (the CLI's stderr lines are both shown and
     checked)."""
@@ -1005,6 +1265,14 @@ def main():
         sources=len(_build.sources()), entry_functions=len(regs),
         max_registers=max(regs, default=None), spill_store_bytes=spills,
         ptxas_report=report)
+    # the statistics kernel's instantiations: (type, layout, probe rules)
+    for m in re.finditer(r"Compiling entry function '(\w*stats_kernel\w*)'"
+                         r"(.*?)Used (\d+) registers", text, re.S):
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       m.group(2))
+        say("build", stats_entry=m.group(1), registers=m.group(3),
+            spill_stores=sp.group(1) if sp else None,
+            spill_loads=sp.group(2) if sp else None)
 
     checks = {dt: check_kernels(dt) for dt in (torch.float64, torch.float32)}
     bad = [(str(dt), k) for dt, c in checks.items()
@@ -1039,6 +1307,11 @@ def main():
         run_cli_parity(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    launches.update(run_scan_parity())
+    launches["stats_rules"] = run_slice_parity()["stats_rules"]
+    run_parity_mode()
+    run_parity_mode(typed_parents=True)
+    run_parity_mode(typed_parents=True, marker_block=8)
 
     f32 = checks[torch.float32]
     summary = [dict(name=k, route="cuda", source=src, replaces=rep,

@@ -1,8 +1,9 @@
 // Posterior update statistics per (marker, unit) pair.
 //
 // Replaces the TPU kernel cnf2freq_tpu/ops/stats_pallas.py::_kernel (body
-// stats_tile), launched on the main path by ops/scan_v2.py::stats_from_v2.
-// Per pair (m, r) with probe rules off:
+// stats_tile), launched on the main path by ops/scan_v2.py::stats_from_v2,
+// in both of its forms (rules=False, and rules=True for parity mode's
+// probe dedup, below).  Per pair (m, r):
 //   W[b,a,v,u,t] = fw_pre * bw * exp(fw_pre_f + bw_f - total) * allowed,
 //   the root and masked parent blocks PBm[k][r0][fp][fpath][sk],
 //   the side collapses T1 (branch 1 folded) and T0 (branch 0 folded),
@@ -10,7 +11,23 @@
 //   focal's allele values 1 and 2 on either root side) and pair [2][2].
 // Outputs are written straight in the [B, M, ...] layout.
 //
-// Two entries share the kernel body, which reads its inputs through a
+// The probe-rule form (a compile-time flag, entries cnf_stats_rules_* and
+// cnf_stats_bmns_rules_*) also reads the empty-slot flags em and one
+// dup-flip variant df per unit, and multiplies froot by
+//   F0[r0][s0] = (tied(0) ? r0 ^ s0 : 1) * (dupf(0) ? 1 - 2 r0 : 1)
+// and each masked parent-block entry of side k by the product over its
+// path bits (xp = (f ^ fpath) & 1 for the parent ps, xg_j the bit 1 + j
+// of f ^ fpath for grandparent gs_j) of
+//   (tied(ps) ? xp ^ sk : 1) (dupf(ps) ? 1 - 2 xp : 1)
+//   (tied(gs_j) ? xg_j : 1) (dupf(gs_j) ? 1 - 2 xg_j : 1),
+// tied(s) = exists & !em & md[s,0] == md[s,1] & ms[s,0] == ms[s,1]
+// (ignoreflag2 rules 2-3; stats_pallas.py::_rule_factors_tile).  Each
+// factor is 0 or +-1, so the decoration is exact.  As in the TPU body the
+// allele-value shares stay undecorated: the reciprocal of U0 + U1 below
+// only ever sees undecorated, non-negative entries.  The caller launches
+// once per variant and averages.
+//
+// Two layouts share the kernel body, which reads its inputs through a
 // layout (index arithmetic only, no transposed copies):
 //   cnf_stats_*       the v2 layout of ops/scan.py: slot tensors
 //                     [7,2,M,R], sweeps [M,512,R], factors [M,8,R];
@@ -304,11 +321,30 @@ __device__ __forceinline__ T reduce_scatter(T (&v)[N], int lane) {
 // warps) and 3 in f64 (80 registers, 24 warps).  Uncapped the kernel takes
 // 75 and 114 registers, 3 and 2 blocks; capped it spills 8 and ~300 bytes
 // and still runs 12-14% faster at 1000 x 192 (H100).
-template <typename T, class L>
+// The probe-rule factor (0 or +-1) of a masked parent-block entry of side
+// k at lane (f, sk) and path p, from the warp's tied and dup-flip slot
+// bit masks.
+__device__ __forceinline__ int rule_factor(unsigned tied, unsigned dup,
+                                           int k, int f, int p, int sk) {
+  const int x = f ^ p, ps = 1 + 3 * k;
+  const int xb[3] = {x & 1, (x >> 1) & 1, (x >> 2) & 1};
+  if (((tied >> ps) & 1) && xb[0] == sk) return 0;
+  int neg = (dup >> ps) & xb[0];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int gs = ps + 1 + j;
+    if (((tied >> gs) & 1) && xb[1 + j] == 0) return 0;
+    neg ^= (dup >> gs) & xb[1 + j];
+  }
+  return neg & 1 ? -1 : 1;
+}
+
+template <typename T, class L, bool Rules>
 __global__ void __launch_bounds__(kWarps * 32, sizeof(T) == 4 ? 4 : 3)
     stats_kernel(const int* __restrict__ md, const T* __restrict__ ms,
                  const T* __restrict__ hw, const int* __restrict__ ex,
-                 const int* __restrict__ at, const int* __restrict__ f2,
+                 const int* __restrict__ at, const int* __restrict__ em,
+                 const int* __restrict__ df, const int* __restrict__ f2,
                  const int* __restrict__ sh, const T* __restrict__ fw_pre,
                  const T* __restrict__ bw, const T* __restrict__ fw_pre_f,
                  const T* __restrict__ bw_f, const T* __restrict__ total,
@@ -365,7 +401,26 @@ __global__ void __launch_bounds__(kWarps * 32, sizeof(T) == 4 ? 4 : 3)
   // loops below
   const int rr = lane >> 4, f = (lane >> 1) & 7, sk = lane & 1;
   const int f2ig = f2[r];
-  const T fr[2] = {s.root.froot[rr][0], s.root.froot[rr][1]};
+  T fr[2] = {s.root.froot[rr][0], s.root.froot[rr][1]};
+  // the probe-rule slot masks: bit s of tied / dup for slot s
+  unsigned tied = 0, dup = 0;
+  if constexpr (Rules) {
+    bool t = false, d = false;
+    if (lane < 7) {
+      const cnf::Slot<T>& sl = s.sl[lane];
+      const size_t i = lay.ex(lane, r);
+      t = sl.exists && em[i] == 0 && sl.md[0] == sl.md[1] &&
+          sl.ms[0] == sl.ms[1];
+      d = df[i] != 0;
+    }
+    tied = __ballot_sync(kFull, t);
+    dup = __ballot_sync(kFull, d);
+#pragma unroll
+    for (int t0 = 0; t0 < 2; ++t0) {
+      const int f0 = (tied & 1) ? (rr ^ t0) : 1;
+      fr[t0] *= T((dup & 1) ? f0 * (1 - 2 * rr) : f0);
+    }
+  }
   bool pex[2], pat[2];
   int mask[2];
 #pragma unroll
@@ -387,6 +442,7 @@ __global__ void __launch_bounds__(kWarps * 32, sizeof(T) == 4 ? 4 : 3)
 #pragma unroll
     for (int p = 0; p < 8; ++p) {
       pb[k][p] = entry(s, k, k * 6 + rr, mk, pex[k], pat[k], f, p, sk);
+      if constexpr (Rules) pb[k][p] *= T(rule_factor(tied, dup, k, f, p, sk));
       q += pb[k][p];
     }
     s.PBq[k * 32 + lane] = q;
@@ -557,23 +613,27 @@ __global__ void __launch_bounds__(kWarps * 32, sizeof(T) == 4 ? 4 : 3)
   if ((lane & 7) == 0) pair_out[((size_t)r * M + m) * 4 + (lane >> 3)] = red;
 }
 
-template <typename T, class L>
+// em / df are null for the form without probe rules
+template <typename T, class L, bool Rules = false>
 int launch_stats(const int* md, const T* ms, const T* hw, const int* ex,
-                 const int* at, const int* f2, const int* sh, const T* fw_pre,
-                 const T* bw, const T* fw_pre_f, const T* bw_f,
-                 const T* total, T* b12, T* accum, T* pair, const L& lay,
-                 void* stream) {
+                 const int* at, const int* em, const int* df, const int* f2,
+                 const int* sh, const T* fw_pre, const T* bw,
+                 const T* fw_pre_f, const T* bw_f, const T* total, T* b12,
+                 T* accum, T* pair, const L& lay, void* stream) {
   if (lay.M <= 0 || lay.B <= 0) return 0;
+  if (Rules && (em == nullptr || df == nullptr))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(Scratch<T>) * kWarps;
   cudaError_t err = cudaFuncSetAttribute(
-      stats_kernel<T, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      stats_kernel<T, L, Rules>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long pairs = (long long)lay.M * lay.B;
   const dim3 grid((unsigned)((pairs + kWarps - 1) / kWarps));
-  stats_kernel<T, L><<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      md, ms, hw, ex, at, f2, sh, fw_pre, bw, fw_pre_f, bw_f, total, b12,
-      accum, pair, lay);
+  stats_kernel<T, L, Rules><<<grid, kWarps * 32, smem,
+                              (cudaStream_t)stream>>>(
+      md, ms, hw, ex, at, em, df, f2, sh, fw_pre, bw, fw_pre_f, bw_f, total,
+      b12, accum, pair, lay);
   return (int)cudaGetLastError();
 }
 
@@ -586,9 +646,9 @@ int cnf_stats_f32(const int* md, const float* ms, const float* hw,
                   const float* bw_f, const float* total, float* b12,
                   float* accum, float* pair, int M, int R, int B,
                   void* stream) {
-  return launch_stats<float>(md, ms, hw, ex, at, f2, sh, fw_pre, bw, fw_pre_f,
-                             bw_f, total, b12, accum, pair,
-                             V2Layout{M, R, B}, stream);
+  return launch_stats<float>(md, ms, hw, ex, at, nullptr, nullptr, f2, sh,
+                             fw_pre, bw, fw_pre_f, bw_f, total, b12, accum,
+                             pair, V2Layout{M, R, B}, stream);
 }
 
 int cnf_stats_f64(const int* md, const double* ms, const double* hw,
@@ -597,9 +657,9 @@ int cnf_stats_f64(const int* md, const double* ms, const double* hw,
                   const double* fw_pre_f, const double* bw_f,
                   const double* total, double* b12, double* accum,
                   double* pair, int M, int R, int B, void* stream) {
-  return launch_stats<double>(md, ms, hw, ex, at, f2, sh, fw_pre, bw,
-                              fw_pre_f, bw_f, total, b12, accum, pair,
-                              V2Layout{M, R, B}, stream);
+  return launch_stats<double>(md, ms, hw, ex, at, nullptr, nullptr, f2, sh,
+                              fw_pre, bw, fw_pre_f, bw_f, total, b12, accum,
+                              pair, V2Layout{M, R, B}, stream);
 }
 
 int cnf_stats_bmns_f32(const int* md, const float* ms, const float* hw,
@@ -608,9 +668,9 @@ int cnf_stats_bmns_f32(const int* md, const float* ms, const float* hw,
                        const float* fw_pre_f, const float* bw_f,
                        const float* total, float* b12, float* accum,
                        float* pair, int M, int B, void* stream) {
-  return launch_stats<float>(md, ms, hw, ex, at, f2, sh, fw_pre, bw, fw_pre_f,
-                             bw_f, total, b12, accum, pair,
-                             BMNSLayout{M, B}, stream);
+  return launch_stats<float>(md, ms, hw, ex, at, nullptr, nullptr, f2, sh,
+                             fw_pre, bw, fw_pre_f, bw_f, total, b12, accum,
+                             pair, BMNSLayout{M, B}, stream);
 }
 
 int cnf_stats_bmns_f64(const int* md, const double* ms, const double* hw,
@@ -619,9 +679,60 @@ int cnf_stats_bmns_f64(const int* md, const double* ms, const double* hw,
                        const double* fw_pre_f, const double* bw_f,
                        const double* total, double* b12, double* accum,
                        double* pair, int M, int B, void* stream) {
-  return launch_stats<double>(md, ms, hw, ex, at, f2, sh, fw_pre, bw,
-                              fw_pre_f, bw_f, total, b12, accum, pair,
-                              BMNSLayout{M, B}, stream);
+  return launch_stats<double>(md, ms, hw, ex, at, nullptr, nullptr, f2, sh,
+                              fw_pre, bw, fw_pre_f, bw_f, total, b12, accum,
+                              pair, BMNSLayout{M, B}, stream);
+}
+
+// the probe-rule form: em [7, R] / [B, 7] int32 empty-slot flags, df one
+// dup-flip variant in the same layout
+int cnf_stats_rules_f32(const int* md, const float* ms, const float* hw,
+                        const int* ex, const int* at, const int* em,
+                        const int* df, const int* f2, const int* sh,
+                        const float* fw_pre, const float* bw,
+                        const float* fw_pre_f, const float* bw_f,
+                        const float* total, float* b12, float* accum,
+                        float* pair, int M, int R, int B, void* stream) {
+  return launch_stats<float, V2Layout, true>(
+      md, ms, hw, ex, at, em, df, f2, sh, fw_pre, bw, fw_pre_f, bw_f, total,
+      b12, accum, pair, V2Layout{M, R, B}, stream);
+}
+
+int cnf_stats_rules_f64(const int* md, const double* ms, const double* hw,
+                        const int* ex, const int* at, const int* em,
+                        const int* df, const int* f2, const int* sh,
+                        const double* fw_pre, const double* bw,
+                        const double* fw_pre_f, const double* bw_f,
+                        const double* total, double* b12, double* accum,
+                        double* pair, int M, int R, int B, void* stream) {
+  return launch_stats<double, V2Layout, true>(
+      md, ms, hw, ex, at, em, df, f2, sh, fw_pre, bw, fw_pre_f, bw_f, total,
+      b12, accum, pair, V2Layout{M, R, B}, stream);
+}
+
+int cnf_stats_bmns_rules_f32(const int* md, const float* ms, const float* hw,
+                             const int* ex, const int* at, const int* em,
+                             const int* df, const int* f2, const int* sh,
+                             const float* fw_pre, const float* bw,
+                             const float* fw_pre_f, const float* bw_f,
+                             const float* total, float* b12, float* accum,
+                             float* pair, int M, int B, void* stream) {
+  return launch_stats<float, BMNSLayout, true>(
+      md, ms, hw, ex, at, em, df, f2, sh, fw_pre, bw, fw_pre_f, bw_f, total,
+      b12, accum, pair, BMNSLayout{M, B}, stream);
+}
+
+int cnf_stats_bmns_rules_f64(const int* md, const double* ms,
+                             const double* hw, const int* ex, const int* at,
+                             const int* em, const int* df, const int* f2,
+                             const int* sh, const double* fw_pre,
+                             const double* bw, const double* fw_pre_f,
+                             const double* bw_f, const double* total,
+                             double* b12, double* accum, double* pair, int M,
+                             int B, void* stream) {
+  return launch_stats<double, BMNSLayout, true>(
+      md, ms, hw, ex, at, em, df, f2, sh, fw_pre, bw, fw_pre_f, bw_f, total,
+      b12, accum, pair, BMNSLayout{M, B}, stream);
 }
 
 }  // extern "C"

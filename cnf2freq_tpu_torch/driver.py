@@ -1,8 +1,8 @@
 """Iteration driver: preprocessing and the outer EM-like loop.
 
-Port of ``cnf2freq_tpu/driver.py`` on its unmeshed, non-parity
-branches: per chromosome and chunk of analysis units, the scan
-and the segment-sum merges run on the device and fold into per-individual
+Port of ``cnf2freq_tpu/driver.py`` on its unmeshed branches: per
+chromosome and chunk of analysis units, the scan and the segment-sum
+merges run on the device and fold into per-individual
 accumulators that stay device tensors; phase flips come from the native
 solver (device scoring, component solve on the host in C++) or the legacy
 negshift pass (``flip_mode``, with optional parent-pair swaps); the
@@ -33,6 +33,17 @@ chromosome's blocks (``ops.scan.blocked_carries``, then
 ``blocked_block_pass`` per block), so that the sweep tensors held on the
 device are those of one block at any chromosome length.  Such a run takes
 the host-gathered iteration.
+
+``parity=True`` is the JAX package's strict reference-trajectory mode:
+the fixtrees canonical-path mask that also pins empty members
+(``mask_mode="reference"``), the gen<2 shift truncation, relhaplo inert
+(the v2 pipeline), the statistics with the ignoreflag2 rule 2-3 probe
+dedup over ``_n_variants()`` sign variants (the probe-rule entries of
+csrc/stats.cu), an infprob merge that counts non-empty slots only,
+descendants accumulated across the correction rounds, the reference-exact
+flip stage of ``updates/refflips.py`` (host Python; under marker blocking
+over staged whole-chromosome weights), the host-gathered iteration, and a
+``run()`` that skips iteration 0 as the reference main loop does.
 
 The Driver runs on the card unless it is given ``device="cpu"``.
 """
@@ -68,6 +79,7 @@ from .updates.phaseflip import (FlipCandidate, _components, apply_flips,
                                 extract_candidates, family_variables,
                                 make_flip_scorer, select_winner,
                                 solve_component)
+from .updates.refflips import reference_flips
 from .updates.relskew import relskew_ratio
 from .utils.transfer import constant, fetch, upload
 
@@ -135,13 +147,15 @@ def _torch_dtype(dtype) -> torch.dtype:
 class Driver:
     def __init__(self, ped: Pedigree, params: Optional[RuntimeParams] = None,
                  dtype=torch.float64, device="cuda",
-                 adaptive_relhaplo: bool = True):
+                 adaptive_relhaplo: bool = True, parity: bool = False):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device "
                                "is available")
         self.ped = ped
         self.cfg: ModelConfig = ped.config
+        # (parity mode, like the JAX package's, needs numgen == 3 and the
+        # standard state space: the port carries no other model)
         if self.cfg.numgen != 3 or not self.cfg.haplotyping \
                 or self.cfg.selfing or self.cfg.relskewstates:
             raise NotImplementedError(
@@ -149,8 +163,14 @@ class Driver:
         self.params = params or RuntimeParams()
         self.state = DriverState(scalefactor=self.params.scalefactor)
         self.dtype = _torch_dtype(dtype)
-        # measured adjacent-phase coherence feeding relhaplo
-        self.adaptive_relhaplo = adaptive_relhaplo
+        # the reference-exact trajectory (the module docstring)
+        self.parity = parity
+        # canonical-path masks: "reference" (parity) = the fixtrees mask,
+        # which also pins empty members; "missing" pins vacant slots only
+        self.mask_mode = "reference" if parity else "missing"
+        # measured adjacent-phase coherence feeding relhaplo (inert in
+        # parity mode, as in the reference)
+        self.adaptive_relhaplo = adaptive_relhaplo and not parity
         # genetic-map re-estimation (the reference's default-off
         # DOREMAPDISTANCES, as a direct posterior EM update of per-sex
         # per-interval rates in ped.actrec)
@@ -171,9 +191,6 @@ class Driver:
         # run in O(marker_block) sweep memory through boundary carries
         # (ops.scan.blocked_scan_chunk); None disables
         self.marker_block = None
-        # the JAX package's reference-exact parity mode is not ported:
-        # iterate() refuses to run with it set
-        self.parity = False
         self._pair_tables: Dict[int, np.ndarray] = {}
         self._pair_pending: list = []
         self._cache: dict = {}
@@ -210,6 +227,31 @@ class Driver:
         self._pair_pending.clear()
         return self._pair_tables
 
+    def _n_variants(self) -> int:
+        """Probe-dedup sign variants: 2**(pair constraints) of the deepest
+        duplicate-member family in the cohort (a member in k non-empty
+        slots needs k-1 constraints); 1 outside parity mode."""
+        if not self.parity:
+            return 1
+        if "n_variants" not in self._cache:
+            ped, n = self.ped, 1
+            for d in ped.dous:
+                groups = {}
+                for s, sid in enumerate(ped.family_slots(d)):
+                    if sid and not ped.by_id(sid).empty:
+                        groups.setdefault(sid, []).append(s)
+                cons = sum(len(g) - 1 for g in groups.values() if len(g) > 1)
+                n = max(n, 1 << cons)
+            self._cache["n_variants"] = n
+        return self._cache["n_variants"]
+
+    def _gather(self, ids, lo: int, hi: int, light: bool = False):
+        """gather_family over markers [lo, hi) with the Driver's mask mode
+        and probe-dedup variants."""
+        return gather_family(self.ped, ids, lo, hi - 1,
+                             mask_mode=self.mask_mode, parity=self.parity,
+                             n_variants=self._n_variants(), light=light)
+
     def _chunk_size(self, n_units: int, m_markers: int,
                     with_coherence: bool = False) -> int:
         """Units per scan chunk.  "auto" on the card: half the free device
@@ -236,7 +278,8 @@ class Driver:
     def preprocess(self):
         ped = self.ped
         self._correction_inference_loop()
-        ped.count_descendants()
+        if not self.parity:
+            ped.count_descendants()
         for ind in ped.inds[1:]:
             ped.fixtrees(ind.n)       # sets founder flags
         self._compute_variances()
@@ -247,11 +290,16 @@ class Driver:
 
     def _correction_inference_loop(self):
         ped = self.ped
+        if self.parity:
+            # the reference accumulates descendants across the rounds
+            # (count_descendants(reset=False)), from zero
+            for ind in ped.inds[1:]:
+                ind.descendants = 0
         while True:
             ped.count_children(dous_only=False)
             for ind in ped.inds[1:]:
                 self._fixkid(ind)
-            ped.count_descendants(reset=True)
+            ped.count_descendants(reset=not self.parity)
             if not self._fixparents_round():
                 break
 
@@ -274,7 +322,8 @@ class Driver:
         ped = self.ped
         for b0 in range(0, len(ids), chunk):
             sub = ids[b0:b0 + chunk]
-            fb = gather_family(ped, sub, 0, ped.num_markers - 1)
+            fb = gather_family(ped, sub, 0, ped.num_markers - 1,
+                               mask_mode=self.mask_mode)
             yield sub, fb.to(self.device, self.dtype)
 
     def _feasibility(self, chunk: int = 1024):
@@ -496,25 +545,28 @@ class Driver:
     # ------------------------------------------------------------------
     def _use_resident(self) -> bool:
         """The JAX package's rule: the resident iteration for the native
-        flip mode when no chromosome runs marker-blocked; a forced
-        resident iteration cannot block."""
+        flip mode outside parity mode when no chromosome runs
+        marker-blocked; a forced resident iteration cannot block, nor run
+        parity mode (its flip stage reads host accumulators)."""
         if self.resident is not None:
             if self.resident and self.marker_block is not None:
                 raise ValueError(
                     "resident=True cannot run marker-blocked chromosomes: "
                     "leave resident at None (auto) or set it False with "
                     "marker_block")
+            if self.resident and self.parity:
+                raise ValueError(
+                    "resident=True cannot run parity mode: leave resident "
+                    "at None (auto) or set it False")
             return bool(self.resident)
-        return self.marker_block is None and self.flip_mode == "native"
+        return self.marker_block is None and not self.parity and \
+            self.flip_mode == "native"
 
     def iterate(self, early: bool = False):
         ped, cfg, params = self.ped, self.cfg, self.params
         dev, dt = self.device, self.dtype
         if self.flip_mode not in ("native", "negshift"):
             raise ValueError(f"unknown flip_mode {self.flip_mode!r}")
-        if self.parity:
-            raise NotImplementedError(
-                "parity mode (the reference-exact trajectory) is not ported")
         st = self.state
         st.iter += 1
         dous = list(ped.dous)
@@ -566,11 +618,11 @@ class Driver:
                 if resident:
                     fb = self._fill_family_dev(chunk, c, b0, ids, lut_h)
                 else:
-                    fb = gather_family(ped, chunk, lo, hi - 1,
-                                       n_variants=1).to(dev, dt)
+                    fb = self._gather(chunk, lo, hi).to(dev, dt)
                 res, hb_p, hc_p, inf_p = scan_merged(
                     fb, dists, lut, rm, cfg, params, NI,
-                    with_coherence=need_coh)
+                    with_coherence=need_coh, probe_rules=self.parity,
+                    n_variants=self._n_variants())
                 self._pair_pending.append((list(chunk), lo, res.pair))
                 loglik += res.total.sum()
                 accum.add(lo, hb_p, hc_p, inf_p)
@@ -621,15 +673,28 @@ class Driver:
 
     def _flips(self, dous, lo, hi, weight_parts, accum, ind_index, chrom,
                resident, swap_cands) -> Optional[FlipCandidate]:
-        """One chromosome's phase-flip winner.  negshift: the turn weights
-        on the host with the descendant factor divided out, the legacy
-        single-member pass, and the parent-swap hypotheses (scored now,
-        applied genome-wide after the updates)."""
-        if self.flip_mode == "native":
+        """One chromosome's phase-flip winner.  Parity mode: the
+        reference-exact pipeline on the host turn weights.  negshift: the
+        turn weights on the host with the descendant factor divided out,
+        the legacy single-member pass, and the parent-swap hypotheses
+        (scored now, applied genome-wide after the updates)."""
+        if self.flip_mode == "native" and not self.parity:
             return self._optimise_flips(dous, lo, hi, weight_parts, accum,
                                         ind_index, chrom, resident)
         (weights,) = fetch([torch.cat(weight_parts).double()])
+        if self.parity:
+            return self._reference_flips(dous, lo, hi, weights, accum,
+                                         ind_index)
         return self._negshift(dous, lo, hi, weights, swap_cands)
+
+    def _reference_flips(self, dous, lo, hi, weights, accum, ind_index
+                         ) -> Optional[FlipCandidate]:
+        """Parity mode's flip stage (updates/refflips.py, the reference's
+        DOTOULBAR pipeline) on a chromosome's host turn weights [B, Mc, T]
+        in float64, with the accumulators' rows on the host."""
+        hb, hc = fetch([accum.hb.double(), accum.hc.double()])
+        return reference_flips(self.ped, self.cfg, dous, lo, hi, weights, hb,
+                               hc, ind_index)
 
     def _negshift(self, dous, lo, hi, weights, swap_cands
                   ) -> Optional[FlipCandidate]:
@@ -722,8 +787,7 @@ class Driver:
         key = ("fb_light", c, b0)
         cached = self._cache.get(key)
         if cached is None or cached[0] != chunk:
-            skel = gather_family(self.ped, chunk, lo, hi - 1, n_variants=1,
-                                 light=True)
+            skel = self._gather(chunk, lo, hi, light=True)
             rows = lut_h[skel.slot_ind]       # vacant slots: id 0 -> row NI
             cached = (list(chunk), skel.to(self.device, self.dtype),
                       upload(rows, self.device))
@@ -976,9 +1040,11 @@ class Driver:
         if self.parent_swap and not early:
             raise NotImplementedError(
                 "parent-pair swap moves are unblocked-only")
-        # negshift consumes the whole chromosome's turn weights at once, so
-        # the blocks' weights are staged in host memory and concatenated
-        negshift = self.flip_mode == "negshift" and not early
+        # negshift and parity mode's flip stage consume the whole
+        # chromosome's turn weights at once, so the blocks' weights are
+        # staged in host memory and concatenated
+        negshift = (self.flip_mode == "negshift" or self.parity) and \
+            not early
         block = self.marker_block
         Mc = hi - lo
         Mp = -(-Mc // block) * block
@@ -1000,8 +1066,7 @@ class Driver:
         states = []
         for b0 in range(0, len(dous), bs):
             chunk = dous[b0:b0 + bs]
-            fb = pad_markers(gather_family(ped, chunk, lo, hi - 1,
-                                           n_variants=1), Mp).to(dev,
+            fb = pad_markers(self._gather(chunk, lo, hi), Mp).to(dev,
                                                                  self.dtype)
             bc = v2.blocked_carries(fb, dists, rm, cfg, self.params, block)
             loglik += bc.total_r[:len(chunk)].sum()
@@ -1038,7 +1103,9 @@ class Driver:
                 B = len(chunk)
                 fb_blk, _, fb2, pair_i, hb_i, hc_i, inf_i, w = \
                     v2.blocked_block_pass(st["fb"], st["bc"], i, block, lut,
-                                          cfg, NI, with_turn=not early)
+                                          cfg, NI, with_turn=not early,
+                                          probe_rules=self.parity,
+                                          n_variants=self._n_variants())
                 self._pair_pending.append((list(chunk), lo + off,
                                            pair_i[:, :span]))
                 accum.add(lo + off, hb_i[:, :span], hc_i[:, :span],
@@ -1077,6 +1144,9 @@ class Driver:
         if negshift:
             weights = np.concatenate([np.concatenate(p) for p in neg_parts],
                                      axis=1)
+            if self.parity:
+                return self._reference_flips(dous, lo, hi, weights, accum,
+                                             ind_index)
             return self._negshift(dous, lo, hi, weights, swap_cands)
         if early or not scored:
             return None
@@ -1323,8 +1393,9 @@ class Driver:
             bs = self._chunk_size(len(dous), Mc, with_coherence=True)
             for b0 in range(0, len(dous), bs):
                 chunk = dous[b0:b0 + bs]
-                fb = gather_family(ped, chunk, lo, hi - 1).to(self.device,
-                                                              self.dtype)
+                fb = gather_family(ped, chunk, lo, hi - 1,
+                                   mask_mode=self.mask_mode).to(self.device,
+                                                                self.dtype)
                 P = line_origin(fb, dists, cfg, self.params, ratemat=rm)
                 P = P.to("cpu", torch.float64).numpy()
                 for i, n in enumerate(chunk):
@@ -1334,5 +1405,10 @@ class Driver:
     # ------------------------------------------------------------------
     def run(self, iterations: int):
         """The main loop: a first pass without phase flips, then full
-        iterations."""
+        iterations.  Parity mode runs no iteration 0 (the reference main
+        loop's ``if (!early) doit``): None, then iterations - 1 full
+        ones."""
+        if self.parity:
+            return [None] + [self.iterate(early=False)
+                             for _ in range(iterations - 1)]
         return [self.iterate(early=(i == 0)) for i in range(iterations)]

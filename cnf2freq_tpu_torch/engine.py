@@ -38,19 +38,24 @@ class ScanResult(NamedTuple):
 
 def chromosome_scan(fb: FamilyBatch, dists: torch.Tensor, cfg: ModelConfig,
                     params: RuntimeParams, with_coherence: bool = False,
-                    ratemat=None) -> ScanResult:
+                    ratemat=None, probe_rules: bool = False,
+                    n_variants: int = 1) -> ScanResult:
     """Every per-(chromosome, iteration) statistic of one chunk: totals,
     haplo/genotype update statistics, turn weights, pair posteriors and,
     with ``with_coherence``, the adjacent-phase coherence of every slot.
     ``with_coherence`` picks the pipeline: v2 without it, classic with
-    it."""
+    it.  ``probe_rules`` (parity mode): the statistics with the
+    ignoreflag2 rule 2-3 probe-dedup factors, averaged over the first
+    ``n_variants`` dup-flip variants."""
     if cfg.selfing or cfg.relskewstates or cfg.numgen != 3 \
             or not cfg.haplotyping:
         raise NotImplementedError(
             "the port carries the default F2 haplotyping model only")
     if not with_coherence:
         from .ops.scan import chromosome_scan_v2
-        return chromosome_scan_v2(fb, dists, cfg, params, ratemat=ratemat)
+        return chromosome_scan_v2(fb, dists, cfg, params, ratemat=ratemat,
+                                  probe_rules=probe_rules,
+                                  n_variants=n_variants)
 
     from .hmm.emission import assemble_e_all, build_blocks
     from .hmm.forward_backward import combined_loglik, forward_backward
@@ -67,7 +72,8 @@ def chromosome_scan(fb: FamilyBatch, dists: torch.Tensor, cfg: ModelConfig,
     total = combined_loglik(fbres, fb.shiftignore)
     b12, inf_accum, pair = stats_pallas(fb, fbres.fw_pre, fbres.bw,
                                         fbres.fw_pre_f, fbres.bw_f, total,
-                                        cfg)
+                                        cfg, probe_rules=probe_rules,
+                                        n_variants=n_variants)
     hmask = haplo_update_mask(fb, cfg)
     turn_w = turn_weights_fast(fbres, fb, cfg)
     lam = transition_eigenvalues(
@@ -81,17 +87,22 @@ def chromosome_scan(fb: FamilyBatch, dists: torch.Tensor, cfg: ModelConfig,
 
 def scan_merged(fb: FamilyBatch, dists: torch.Tensor, lut: torch.Tensor,
                 ratemat, cfg: ModelConfig, params: RuntimeParams,
-                num_individuals: int, with_coherence: bool = False):
+                num_individuals: int, with_coherence: bool = False,
+                probe_rules: bool = False, n_variants: int = 1):
     """Scan plus accumulator merge: per-family statistics segment-summed
-    onto per-individual rows.  Returns (res, haplobase [NI, M],
-    haplocount [NI, M], infacc [NI, M, 2, 2])."""
+    onto per-individual rows (under ``probe_rules`` the infprob merge's
+    duplicate-slot damping counts non-empty slots only, as the
+    reference's reltreeordered holds only non-empty members).  Returns
+    (res, haplobase [NI, M], haplocount [NI, M], infacc [NI, M, 2, 2])."""
     from .parallel.collective import merge_haplos, merge_infprobs
     res = chromosome_scan(fb, dists, cfg, params,
-                          with_coherence=with_coherence, ratemat=ratemat)
+                          with_coherence=with_coherence, ratemat=ratemat,
+                          probe_rules=probe_rules, n_variants=n_variants)
     hb, hc = merge_haplos(res.haplo_b12, res.haplo_mask, fb.hw, fb.slot_ind,
                           fb.descendants, lut, num_individuals)
     inf = merge_infprobs(res.inf_accum, fb.slot_ind, fb.descendants, lut,
-                         num_individuals)
+                         num_individuals,
+                         emptyslot=fb.emptyslot if probe_rules else None)
     return res, hb, hc, inf
 
 

@@ -68,12 +68,17 @@ class FamilyBatch:
 
 def gather_family(ped: Pedigree, focal_ids: Sequence[int],
                   startmark: int, endmark: int,
-                  dtype=np.float64, n_variants: int = None,
+                  dtype=np.float64, mask_mode: str = "missing",
+                  parity: bool = False, n_variants: int = None,
                   light: bool = False) -> FamilyBatch:
-    """Build the batch for markers [startmark, endmark] inclusive.  The
-    canonical-path mask pins only vacant slots' path bits (the JAX
-    package's "missing" mode).  n_variants: the probe-dedup variant count
-    of the dup_flip axis.  light: the skeleton only (slot indices, flags,
+    """Build the batch for markers [startmark, endmark] inclusive.
+
+    mask_mode selects the canonical-path mask: "missing" pins only vacant
+    slots' path bits; "reference" keeps the fixtrees mask, which also
+    pins empty members (the reference's own, for parity mode).  parity:
+    a focal of generation < 2 keeps only shift modes {0, 1}, as the
+    reference truncates it.  n_variants: the probe-dedup variant count of
+    the dup_flip axis.  light: the skeleton only (slot indices, flags,
     masks, descendants) with md/ms/hw None, for a caller that gathers
     those on the device (``resident.gather_dev``)."""
     cfg: ModelConfig = ped.config
@@ -98,10 +103,14 @@ def gather_family(ped: Pedigree, focal_ids: Sequence[int],
 
     sl = slice(startmark, endmark + 1)
     for b, n in enumerate(focal_ids):
-        shig[b], _ = ped.fixtrees(n)
-        f2ig[b] = ped.missing_flag2_mask(n)
+        shig[b], f2ig[b] = ped.fixtrees(n)
+        if mask_mode == "missing":
+            f2ig[b] = ped.missing_flag2_mask(n)
         slots = ped.family_slots(n)
-        desc[b] = ped.by_id(n).descendants
+        focal = ped.by_id(n)
+        desc[b] = focal.descendants
+        if parity and focal.gen < 2:
+            shig[b] |= (cfg.numshifts - 1) & ~1
         for s, sid in enumerate(slots):
             if not sid:
                 continue

@@ -101,6 +101,68 @@ def _valid_paths(flag2ignore: torch.Tensor, k: int) -> torch.Tensor:
     return (torch.arange(8, device=flag2ignore.device)[None, :] & f2) == 0
 
 
+def probe_rule_factors(fb: FamilyBatch, cfg: ModelConfig, dtype,
+                       variant: int = 0):
+    """Multiplicative probe-survival factors of the ignoreflag2 rules 2-3
+    (cnF2freq.cpp:3462-3496), for the statistics contractions.
+
+    Rule 3 (shift-tied dedup): a member whose genotype is a duplicate pair
+    with equal error values admits a probe only when its phase bit
+    disagrees with its shift bit: focal r0 != s0; parent k
+    (rp ^ p0) != s_{1+k}; grandparent phase bit == 1.  Rule 2
+    (duplicate-member consistency): an individual in two slots needs equal
+    phase bits there; the indicator is the average over the sign variants
+    of ``fb.dup_flip`` of prod (-1)^(phase bit of a flipped slot), so
+    callers average the statistics of variants 0..NV-1.  (The JAX
+    package's ``tied_rule`` switch serves the extended state spaces,
+    which the port does not carry: rule 3 always applies here.)
+
+    Returns (F0 [b, m, r0, s0], [FPk [b, m, 1, fp, fpath, sk] for k])."""
+    dev = fb.md.device
+    md, ms = fb.md, fb.ms
+    tied = fb.exists[:, :, None] & ~fb.emptyslot[:, :, None] & \
+        (md[..., 0] == md[..., 1]) & (ms[..., 0] == ms[..., 1])
+    tied = tied.transpose(1, 2)                        # [b, m, slot]
+
+    def tab(x):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    r0 = np.arange(2)[:, None]
+    s0 = np.arange(2)[None, :]
+    one = tab(1.0)
+    F0 = torch.where(tied[:, :, 0, None, None], tab(r0 ^ s0), one)
+    if fb.dup_flip is not None:
+        F0 = F0 * torch.where(fb.dup_flip[:, variant, 0, None, None, None],
+                              tab((-1.0) ** r0[:, 0])[None, None, :, None],
+                              one)
+    fp = np.arange(8)[:, None, None]
+    fpath = np.arange(8)[None, :, None]
+    sk = np.arange(2)[None, None, :]
+    xp = (fp & 1) ^ (fpath & 1)                        # parent phase bit
+    FPs = []
+    for k in range(2):
+        f = torch.ones((md.shape[0], md.shape[2], 8, 8, 2), dtype=dtype,
+                       device=dev)
+        ps = cfg.parent_slot(k)
+        f = f * torch.where(tied[:, :, ps, None, None, None], tab(xp ^ sk),
+                            one)
+        if fb.dup_flip is not None:
+            f = f * torch.where(
+                fb.dup_flip[:, variant, ps, None, None, None, None],
+                tab((-1.0) ** xp), one)
+        for j in range(2):
+            gs = cfg.grandparent_slot(k, j)
+            xg = ((fp >> (1 + j)) & 1) ^ ((fpath >> (1 + j)) & 1)
+            f = f * torch.where(tied[:, :, gs, None, None, None], tab(xg),
+                                one)
+            if fb.dup_flip is not None:
+                f = f * torch.where(
+                    fb.dup_flip[:, variant, gs, None, None, None, None],
+                    tab((-1.0) ** xg), one)
+        FPs.append(f[:, :, None])                      # add r0 axis
+    return F0, FPs
+
+
 def turn_weights_fast(fbres: FBResult, fb: FamilyBatch,
                       cfg: ModelConfig) -> torch.Tensor:
     """Turn clause weights [B, M, T] from one joint Walsh-Hadamard

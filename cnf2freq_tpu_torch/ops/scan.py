@@ -57,6 +57,8 @@ class SlotTensors(NamedTuple):
     at: torch.Tensor    # [7, R] int32
     f2: torch.Tensor    # [R] int32
     sh: torch.Tensor    # [R] int32
+    em: torch.Tensor = None   # [7, R] int32 empty-slot flags
+    df: torch.Tensor = None   # [NV, 7, R] int32 dup-flip variants
 
     @property
     def R(self) -> int:
@@ -65,7 +67,8 @@ class SlotTensors(NamedTuple):
 
 def prep_slots(fb: FamilyBatch, dtype) -> SlotTensors:
     """Torch FamilyBatch [B, 7, M, ...] -> feature-leading slot tensors
-    with the batch padded to R (padded units: vacant, all-unknown)."""
+    with the batch padded to R (padded units: vacant, all-unknown, no
+    empty slot, no dup flip)."""
     B, _, M, _ = fb.md.shape
     R = -(-B // R_QUANTUM) * R_QUANTUM
 
@@ -84,7 +87,9 @@ def prep_slots(fb: FamilyBatch, dtype) -> SlotTensors:
         ex=padb(fb.exists.to(i32)).T.contiguous(),
         at=padb(fb.attop.to(i32)).T.contiguous(),
         f2=padb(fb.flag2ignore.to(i32)).contiguous(),
-        sh=padb(fb.shiftignore.to(i32)).contiguous())
+        sh=padb(fb.shiftignore.to(i32)).contiguous(),
+        em=padb(fb.emptyslot.to(i32)).T.contiguous(),
+        df=padb(fb.dup_flip.to(i32)).permute(1, 2, 0).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -447,16 +452,20 @@ turn_weights.launches = 0
 # Statistics and the whole scan
 # ---------------------------------------------------------------------------
 def stats_from_v2(st: SlotTensors, fb2: FBv2, total: torch.Tensor, B: int,
-                  cfg: ModelConfig):
+                  cfg: ModelConfig, probe_rules: bool = False,
+                  n_variants: int = 1):
     """(b12 [B,M,7,2], accum [B,M,7,2,2], pair [B,M,2,2]) read straight
-    from the v2 sweep tensors (ops.stats.stats)."""
+    from the v2 sweep tensors (ops.stats.stats); ``probe_rules``: the
+    probe-rule form averaged over ``n_variants`` dup-flip variants."""
     return stats_mod.stats(st, fb2.fw_pre, fb2.bw, fb2.fw_pre_f, fb2.bw_f,
-                           total, B, cfg)
+                           total, B, cfg, probe_rules=probe_rules,
+                           n_variants=n_variants)
 
 
 def chromosome_scan_v2(fb: FamilyBatch, dists: torch.Tensor,
                        cfg: ModelConfig, params: RuntimeParams,
-                       ratemat=None):
+                       ratemat=None, probe_rules: bool = False,
+                       n_variants: int = 1):
     """engine.chromosome_scan on the feature-leading pipeline; returns an
     engine.ScanResult whose sweep fields are [B, M, NS, S] views."""
     from ..engine import ScanResult
@@ -469,7 +478,8 @@ def chromosome_scan_v2(fb: FamilyBatch, dists: torch.Tensor,
     fb2 = fb_sweeps(e, dists, cfg, params, ratemat=ratemat)
     del e
     total_r = combined_loglik_v2(fb2, st.sh)
-    b12, accum, pair = stats_from_v2(st, fb2, total_r, B, cfg)
+    b12, accum, pair = stats_from_v2(st, fb2, total_r, B, cfg, probe_rules,
+                                     n_variants)
     turn_w = turn_weights(fb2, st.sh, fb.descendants.to(dtype), cfg, B)
     hmask = haplo_update_mask(fb, cfg)
     coh = torch.full((B, M, cfg.numslots), 0.5, dtype=dtype,
@@ -586,10 +596,13 @@ def blocked_carries(fb: FamilyBatch, dists: torch.Tensor, ratemat,
 
 def blocked_block_pass(fb: FamilyBatch, bc: BlockedCarries, i: int,
                        block: int, lut: torch.Tensor, cfg: ModelConfig,
-                       num_individuals: int, with_turn: bool = True):
+                       num_individuals: int, with_turn: bool = True,
+                       probe_rules: bool = False, n_variants: int = 1):
     """Pass C for one (batch chunk, block): the block's sweeps recomputed
     from its boundary carries, the statistics against the whole
-    chromosome's totals, the merges and (``with_turn``) the turn weights.
+    chromosome's totals (``probe_rules``: the probe-rule form over
+    ``n_variants`` variants, the infprob merge then counting non-empty
+    slots only), the merges and (``with_turn``) the turn weights.
     Returns (fb_blk, st_blk, fb2, pair, hb, hc, inf, w or None) for the
     block's markers."""
     from ..hmm.probes import haplo_update_mask
@@ -601,12 +614,14 @@ def blocked_block_pass(fb: FamilyBatch, bc: BlockedCarries, i: int,
                     lam_pad=bc.lam_pad[i * block:(i + 1) * block],
                     init_fwd=bc.fbound[i], init_bwd=bc.bbound[i])
     del e
-    b12, accum, pair = stats_from_v2(st_i, fb2, bc.total_r, B, cfg)
+    b12, accum, pair = stats_from_v2(st_i, fb2, bc.total_r, B, cfg,
+                                     probe_rules, n_variants)
     hmask = haplo_update_mask(fb_blk, cfg)
     hb, hc = merge_haplos(b12, hmask, fb_blk.hw, fb_blk.slot_ind,
                           fb_blk.descendants, lut, num_individuals)
     inf = merge_infprobs(accum, fb_blk.slot_ind, fb_blk.descendants, lut,
-                         num_individuals)
+                         num_individuals,
+                         emptyslot=fb_blk.emptyslot if probe_rules else None)
     w = None
     if with_turn:
         w = turn_weights(fb2, st_i.sh, fb_blk.descendants.to(fb2.bw.dtype),
@@ -617,7 +632,8 @@ def blocked_block_pass(fb: FamilyBatch, bc: BlockedCarries, i: int,
 def blocked_scan_chunk(fb: FamilyBatch, dists: torch.Tensor, ratemat,
                        lut: torch.Tensor, cfg: ModelConfig,
                        params: RuntimeParams, block: int,
-                       num_individuals: int, turn_consumer=None):
+                       num_individuals: int, turn_consumer=None,
+                       probe_rules: bool = False, n_variants: int = 1):
     """The scan and merges of one batch chunk in O(block) sweep memory:
     ``blocked_carries``, then ``blocked_block_pass`` per block.
     ``turn_consumer(offset, w)`` takes each block's turn weights, so that
@@ -634,7 +650,8 @@ def blocked_scan_chunk(fb: FamilyBatch, dists: torch.Tensor, ratemat,
     for i in range(M // block):
         _, _, _, pair_i, hb_i, hc_i, inf_i, w = blocked_block_pass(
             fb, bc, i, block, lut, cfg, NI,
-            with_turn=turn_consumer is not None)
+            with_turn=turn_consumer is not None, probe_rules=probe_rules,
+            n_variants=n_variants)
         sl = slice(i * block, (i + 1) * block)
         pair[:, sl], hb[:, sl], hc[:, sl], inf[:, sl] = \
             pair_i, hb_i, hc_i, inf_i

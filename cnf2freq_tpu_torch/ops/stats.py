@@ -16,6 +16,14 @@ launcher ``stats_pallas.stats_pallas`` of the same kernel): a CPU tensor
 goes to ``stats_bmns_reference``, a CUDA tensor launches the second entry
 of ``csrc/stats.cu``, which reads the sweeps and the family batch in
 place.
+
+The TPU kernel has a second form, ``rules=True`` (parity mode's probe
+dedup): the ignoreflag2 rule 2-3 factors of ``_rule_factors_tile``
+decorate froot and the masked parent blocks, launched once per dup-flip
+variant and averaged.  ``stats_rules`` and ``stats_bmns_rules`` are its
+wrappers (one variant a call; the rules entries of ``csrc/stats.cu``);
+``stats(probe_rules=True)`` and ``stats_pallas(probe_rules=True)`` average
+them over the variants.
 """
 
 from __future__ import annotations
@@ -207,13 +215,61 @@ def root_block_L(focal: SlotL, haplotyping: bool = True, inval=None,
     return froot, up(bound), up(msA), up(md_o), up(svB)
 
 
+def _rule_factors_tile(md, ms, exists, empty, dupf, cfg: ModelConfig,
+                       dtype):
+    """Probe-survival factors of the ignoreflag2 rules 2-3 on enum-leading
+    operands: the tile form of ``hmm.probes.probe_rule_factors``.
+
+    empty [7,N] int (1 = a genotype-less member); dupf [7,N] int (this
+    variant's duplicate-pair sign slots) or None.
+    Returns (F0 [2(r0),2(s0),N], [FPk [8(f),8(p),2(sk),N] for k])."""
+    dev = md.device
+
+    def tied(s):
+        return (exists[s] & (empty[s] == 0) & (md[s, 0] == md[s, 1])
+                & (ms[s, 0] == ms[s, 1]))
+
+    def iota(shape, dim):
+        return _iota(shape + (1,) * DATA_ND, dim, dev)
+
+    one = torch.ones((), dtype=dtype, device=dev)
+    ri, ti = iota((2, 1), 0), iota((1, 2), 1)
+    F0 = torch.where(tied(0)[None, None], (ri ^ ti).to(dtype), one)
+    if dupf is not None:
+        F0 = F0 * torch.where(dupf[0][None, None] != 0,
+                              1.0 - 2.0 * ri.to(dtype), one)
+    fi, pi, si = iota((8, 1, 1), 0), iota((1, 8, 1), 1), iota((1, 1, 2), 2)
+    FPs = []
+    for k in range(2):
+        xp = (fi & 1) ^ (pi & 1)
+        ps = cfg.parent_slot(k)
+        f = torch.where(tied(ps)[None, None, None], (xp ^ si).to(dtype), one)
+        if dupf is not None:
+            f = f * torch.where(dupf[ps][None, None, None] != 0,
+                                1.0 - 2.0 * xp.to(dtype), one)
+        for j in range(2):
+            gs = cfg.grandparent_slot(k, j)
+            xg = ((fi >> (1 + j)) & 1) ^ ((pi >> (1 + j)) & 1)
+            f = f * torch.where(tied(gs)[None, None, None], xg.to(dtype),
+                                one)
+            if dupf is not None:
+                f = f * torch.where(dupf[gs][None, None, None] != 0,
+                                    1.0 - 2.0 * xg.to(dtype), one)
+        FPs.append(f)
+    return F0, FPs
+
+
 def stats_tile(md, ms, hw, exists, attop, f2ig, shig, fw_pre, bw,
-               fw_pre_f, bw_f, total, cfg: ModelConfig):
+               fw_pre_f, bw_f, total, cfg: ModelConfig, empty=None,
+               dupf=None):
     """All update statistics for a batch of (marker, unit) pairs.
 
     md [7,2,N] int; ms [7,2,N]; hw [7,N]; exists/attop [7,N] bool;
     f2ig/shig [N] int; fw_pre/bw [8,8,2,2,2,N] (fp1,fp0,s2,s1,s0);
-    fw_pre_f/bw_f [2,2,2,N]; total [N].
+    fw_pre_f/bw_f [2,2,2,N]; total [N]; empty/dupf [7,N] int or None
+    (the probe-dedup inputs: with ``empty`` the ignoreflag2 rule 2-3
+    factors decorate froot and the masked parent blocks; the share
+    tensors of the infprob statistics stay undecorated).
     Returns (b12 [7,2,N], accum [7,2,2,N], pair [2,2,N])."""
     dtype = hw.dtype
     dev = hw.device
@@ -248,6 +304,11 @@ def stats_tile(md, ms, hw, exists, attop, f2ig, shig, fw_pre, bw,
         bits = (f2ig >> (1 + 3 * k)) & 7
         V = ((bits[None] & pidx) == 0).to(dtype)              # [8, *T]
         PBm.append(pb[k] * V[None, None, :, None])
+
+    if empty is not None:
+        F0, FPs = _rule_factors_tile(md, ms, exists, empty, dupf, cfg, dtype)
+        froot = froot * F0
+        PBm = [PBm[k] * FPs[k][None] for k in range(2)]
 
     # posterior weight W[b(fp1), a(fp0), v(s2), u(s1), t(s0)]
     sidx = iota((2, 1, 1), 0) * 4 + iota((1, 2, 1), 1) * 2 + \
@@ -385,11 +446,14 @@ def stats_tile(md, ms, hw, exists, attop, f2ig, shig, fw_pre, bw,
 
 
 def stats_reference(st, fw_pre, bw, fw_pre_f, bw_f, total, B: int,
-                    cfg: ModelConfig, max_pairs: int = 1 << 15):
+                    cfg: ModelConfig, max_pairs: int = 1 << 15, em=None,
+                    df=None, rules: bool = False):
     """Plain PyTorch statistics from the v2 tensors.
 
     st: ops.scan.SlotTensors ([7,2,M,R] ... layouts); fw_pre/bw [M,512,R]
-    (feature x = shift*64 + state); fw_pre_f/bw_f [M,8,R]; total [R].
+    (feature x = shift*64 + state); fw_pre_f/bw_f [M,8,R]; total [R];
+    with ``rules`` the probe-rule form: em [7,R] the empty-slot flags and
+    df [7,R] one variant's dup-flip column.
     Runs stats_tile over marker slabs of at most ``max_pairs`` pairs.
     Returns (b12 [B,M,7,2], accum [B,M,7,2,2], pair [B,M,2,2])."""
     M, X, R = fw_pre.shape
@@ -419,7 +483,9 @@ def stats_reference(st, fw_pre, bw, fw_pre_f, bw_f, total, B: int,
             flat_m(st.hw, (7,)), flat_b(st.ex, (7,)) != 0,
             flat_b(st.at, (7,)) != 0, flat_b(st.f2, ()), flat_b(st.sh, ()),
             fwp, bwt, sweep(fw_pre_f, (2, 2, 2)), sweep(bw_f, (2, 2, 2)),
-            flat_b(total, ()), cfg)
+            flat_b(total, ()), cfg,
+            empty=flat_b(em, (7,)) if rules else None,
+            dupf=flat_b(df, (7,)) if rules else None)
 
         def back(x, shape):         # [shape..., K*B] -> [B, K, shape...]
             nl = len(shape)
@@ -431,12 +497,15 @@ def stats_reference(st, fw_pre, bw, fw_pre_f, bw_f, total, B: int,
     return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
 
 
-def stats(st, fw_pre, bw, fw_pre_f, bw_f, total, B: int, cfg: ModelConfig):
-    """Statistics from the v2 tensors: (b12 [B,M,7,2], accum [B,M,7,2,2],
-    pair [B,M,2,2]).  CPU tensors run ``stats_reference``; CUDA tensors
-    launch the kernel of csrc/stats.cu."""
-    if fw_pre.device.type == "cpu":
-        return stats_reference(st, fw_pre, bw, fw_pre_f, bw_f, total, B, cfg)
+def _variant_mean(parts):
+    """The probe-rule variants' statistics averaged, as the JAX package
+    sums them: sum(parts) / nv."""
+    nv = len(parts)
+    return tuple(sum(p) / nv for p in zip(*parts))
+
+
+def _check_v2(st, fw_pre, bw, fw_pre_f, bw_f, total, B: int,
+              cfg: ModelConfig):
     M, X, R = fw_pre.shape
     _build.check_config(cfg)
     dt = fw_pre.dtype
@@ -455,12 +524,29 @@ def stats(st, fw_pre, bw, fw_pre_f, bw_f, total, B: int, cfg: ModelConfig):
     if not 0 < B <= R:
         raise ValueError(f"B={B} outside (0, R={R}]")
     kw = dict(dtype=dt, device=fw_pre.device)
-    b12 = torch.empty((B, M, 7, 2), **kw)
-    accum = torch.empty((B, M, 7, 2, 2), **kw)
-    pair = torch.empty((B, M, 2, 2), **kw)
-    _build.launch("stats", dt, st.md, st.ms, st.hw, st.ex, st.at, st.f2,
-                  st.sh, fw_pre, bw, fw_pre_f, bw_f, total, b12, accum, pair,
-                  M, R, B)
+    return (torch.empty((B, M, 7, 2), **kw),
+            torch.empty((B, M, 7, 2, 2), **kw),
+            torch.empty((B, M, 2, 2), **kw))
+
+
+def stats(st, fw_pre, bw, fw_pre_f, bw_f, total, B: int, cfg: ModelConfig,
+          probe_rules: bool = False, n_variants: int = 1):
+    """Statistics from the v2 tensors: (b12 [B,M,7,2], accum [B,M,7,2,2],
+    pair [B,M,2,2]).  CPU tensors run ``stats_reference``; CUDA tensors
+    launch the kernel of csrc/stats.cu.  ``probe_rules``: the probe-rule
+    form (``stats_rules``), once per dup-flip variant of the first
+    ``n_variants``, averaged."""
+    args = (fw_pre, bw, fw_pre_f, bw_f, total, B, cfg)
+    if probe_rules:
+        return _variant_mean([stats_rules(st, v, *args)
+                              for v in range(n_variants)])
+    if fw_pre.device.type == "cpu":
+        return stats_reference(st, *args)
+    M, _, R = fw_pre.shape
+    b12, accum, pair = _check_v2(st, *args)
+    _build.launch("stats", fw_pre.dtype, st.md, st.ms, st.hw, st.ex, st.at,
+                  st.f2, st.sh, fw_pre, bw, fw_pre_f, bw_f, total, b12, accum,
+                  pair, M, R, B)
     stats.launches += 1
     return b12, accum, pair
 
@@ -468,14 +554,40 @@ def stats(st, fw_pre, bw, fw_pre_f, bw_f, total, B: int, cfg: ModelConfig):
 stats.launches = 0
 
 
+def stats_rules(st, variant: int, fw_pre, bw, fw_pre_f, bw_f, total, B: int,
+                cfg: ModelConfig):
+    """The probe-rule form of ``stats`` for dup-flip variant ``variant``
+    (st.em, st.df[variant]): ``stats_reference(rules=True)`` on the CPU,
+    the rules entry of csrc/stats.cu on the card."""
+    args = (fw_pre, bw, fw_pre_f, bw_f, total, B, cfg)
+    df = st.df[variant]
+    if fw_pre.device.type == "cpu":
+        return stats_reference(st, *args, em=st.em, df=df, rules=True)
+    M, _, R = fw_pre.shape
+    b12, accum, pair = _check_v2(st, *args)
+    _build.check(st.em, torch.int32, (7, R), "em")
+    _build.check(df, torch.int32, (7, R), "df")
+    _build.launch("stats_rules", fw_pre.dtype, st.md, st.ms, st.hw, st.ex,
+                  st.at, st.em, df, st.f2, st.sh, fw_pre, bw, fw_pre_f, bw_f,
+                  total, b12, accum, pair, M, R, B)
+    stats_rules.launches += 1
+    return b12, accum, pair
+
+
+stats_rules.launches = 0
+
+
 def stats_bmns_reference(fb, fw_pre, bw, fw_pre_f, bw_f, total,
-                         cfg: ModelConfig, max_pairs: int = 1 << 15):
+                         cfg: ModelConfig, max_pairs: int = 1 << 15,
+                         em=None, df=None, rules: bool = False):
     """Plain PyTorch statistics from the [B, M, NS, S] sweeps.
 
     fb: torch FamilyBatch ([B, 7, M, ...]); fw_pre/bw [B, M, NS, S] with
     the feature index shift-major (x = ns*64 + g); fw_pre_f/bw_f
-    [B, M, NS]; total [B].  Runs stats_tile over slabs of whole units of
-    at most ``max_pairs`` (unit, marker) pairs.
+    [B, M, NS]; total [B]; with ``rules`` the probe-rule form: em [B, 7]
+    the empty-slot flags and df [B, 7] one variant's dup-flip column.
+    Runs stats_tile over slabs of whole units of at most ``max_pairs``
+    (unit, marker) pairs.
     Returns (b12 [B,M,7,2], accum [B,M,7,2,2], pair [B,M,2,2])."""
     B, M = fw_pre.shape[:2]
     dt = fw_pre.dtype
@@ -507,7 +619,9 @@ def stats_bmns_reference(fb, fw_pre, bw, fw_pre_f, bw_f, total,
             slot_unit(fb.exists), slot_unit(fb.attop),
             per_unit(fb.flag2ignore), per_unit(fb.shiftignore),
             sweep(fw_pre), sweep(bw), factors(fw_pre_f), factors(bw_f),
-            per_unit(total), cfg)
+            per_unit(total), cfg,
+            empty=slot_unit(em.to(torch.int32)) if rules else None,
+            dupf=slot_unit(df.to(torch.int32)) if rules else None)
 
         def back(x, shape):         # [shape..., K*M] -> [K, M, shape...]
             nl = len(shape)
@@ -519,14 +633,8 @@ def stats_bmns_reference(fb, fw_pre, bw, fw_pre_f, bw_f, total,
     return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
 
 
-def stats_pallas(fb, fw_pre, bw, fw_pre_f, bw_f, total, cfg: ModelConfig):
-    """Statistics from the [B, M, NS, S] sweeps: (b12 [B,M,7,2], accum
-    [B,M,7,2,2], pair [B,M,2,2]).  CPU tensors run
-    ``stats_bmns_reference``; CUDA tensors launch the [B, M, NS, S] entry
-    of csrc/stats.cu."""
-    if fw_pre.device.type == "cpu":
-        return stats_bmns_reference(fb, fw_pre, bw, fw_pre_f, bw_f, total,
-                                    cfg)
+def _bmns_operands(fb, fw_pre, bw, fw_pre_f, bw_f, total, cfg: ModelConfig):
+    """The [B, M, NS, S] entry's checked operands and empty outputs."""
     _build.check_config(cfg)
     B, M = fw_pre.shape[:2]
     dt = fw_pre.dtype
@@ -550,13 +658,56 @@ def stats_pallas(fb, fw_pre, bw, fw_pre_f, bw_f, total, cfg: ModelConfig):
     _build.check(f2, i32, (B,), "flag2ignore")
     _build.check(sh, i32, (B,), "shiftignore")
     kw = dict(dtype=dt, device=fw_pre.device)
-    b12 = torch.empty((B, M, 7, 2), **kw)
-    accum = torch.empty((B, M, 7, 2, 2), **kw)
-    pair = torch.empty((B, M, 2, 2), **kw)
-    _build.launch("stats_bmns", dt, md, ms, hw, ex, at, f2, sh, fw_pre, bw,
-                  fw_pre_f, bw_f, total, b12, accum, pair, M, B)
+    outs = (torch.empty((B, M, 7, 2), **kw),
+            torch.empty((B, M, 7, 2, 2), **kw),
+            torch.empty((B, M, 2, 2), **kw))
+    return (md, ms, hw, ex, at), (f2, sh), outs
+
+
+def stats_pallas(fb, fw_pre, bw, fw_pre_f, bw_f, total, cfg: ModelConfig,
+                 probe_rules: bool = False, n_variants: int = 1):
+    """Statistics from the [B, M, NS, S] sweeps: (b12 [B,M,7,2], accum
+    [B,M,7,2,2], pair [B,M,2,2]).  CPU tensors run
+    ``stats_bmns_reference``; CUDA tensors launch the [B, M, NS, S] entry
+    of csrc/stats.cu.  ``probe_rules``: the probe-rule form
+    (``stats_bmns_rules``), once per dup-flip variant of the first
+    ``n_variants``, averaged."""
+    args = (fw_pre, bw, fw_pre_f, bw_f, total, cfg)
+    if probe_rules:
+        return _variant_mean([stats_bmns_rules(fb, v, *args)
+                              for v in range(n_variants)])
+    if fw_pre.device.type == "cpu":
+        return stats_bmns_reference(fb, *args)
+    slots, flags, outs = _bmns_operands(fb, *args)
+    B, M = fw_pre.shape[:2]
+    _build.launch("stats_bmns", fw_pre.dtype, *slots, *flags, fw_pre, bw,
+                  fw_pre_f, bw_f, total, *outs, M, B)
     stats_pallas.launches += 1
-    return b12, accum, pair
+    return outs
 
 
 stats_pallas.launches = 0
+
+
+def stats_bmns_rules(fb, variant: int, fw_pre, bw, fw_pre_f, bw_f, total,
+                     cfg: ModelConfig):
+    """The probe-rule form of ``stats_pallas`` for dup-flip variant
+    ``variant`` (fb.emptyslot, fb.dup_flip[:, variant]):
+    ``stats_bmns_reference(rules=True)`` on the CPU, the [B, M, NS, S]
+    rules entry of csrc/stats.cu on the card."""
+    args = (fw_pre, bw, fw_pre_f, bw_f, total, cfg)
+    em, df = fb.emptyslot, fb.dup_flip[:, variant]
+    if fw_pre.device.type == "cpu":
+        return stats_bmns_reference(fb, *args, em=em, df=df, rules=True)
+    slots, flags, outs = _bmns_operands(fb, *args)
+    B, M = fw_pre.shape[:2]
+    em, df = (x.to(torch.int32).contiguous() for x in (em, df))
+    _build.check(em, torch.int32, (B, 7), "emptyslot")
+    _build.check(df, torch.int32, (B, 7), "dup_flip")
+    _build.launch("stats_bmns_rules", fw_pre.dtype, *slots, em, df, *flags,
+                  fw_pre, bw, fw_pre_f, bw_f, total, *outs, M, B)
+    stats_bmns_rules.launches += 1
+    return outs
+
+
+stats_bmns_rules.launches = 0

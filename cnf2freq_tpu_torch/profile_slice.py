@@ -57,10 +57,10 @@ STAGES = ("_feasibility", "_compute_variances", "_score_turns",
           "_writeback_resident")
 # driver-module functions timed under their own names: the host gather
 # and the scan of the other iteration, the update arithmetic of the
-# resident one, the negshift pass
+# resident one, the negshift pass, parity mode's flip stage
 FUNCTIONS = ("gather_family", "scan_merged", "resident_updates",
              "negshift_flips", "parent_swap_candidates",
-             "apply_parent_swaps")
+             "apply_parent_swaps", "reference_flips")
 # stages inside the classic scan (engine.chromosome_scan imports them at
 # each call): (module, function)
 SCAN_STAGES = (("hmm.emission", "build_blocks"),

@@ -26,7 +26,8 @@ the port's own unblocked path (float64, on the CPU).
   ``torch_port_util.run_pair`` (the port's rules patched into the JAX
   Driver) at that harness's tolerances.
 * Refusals: parent-pair swaps under blocking, resident=True with
-  marker_block, parity mode.
+  marker_block, resident=True with parity mode (which itself runs
+  blocked: tests/test_torch_parity.py).
 * ``python -m cnf2freq_tpu_torch --markerblock 8`` on a 12 x 16 file set
   prints the numbers of the unblocked run, to 2e-5.
 """
@@ -282,8 +283,12 @@ def test_blocked_refusals(refusal):
         with pytest.raises(ValueError, match="marker-blocked"):
             d.iterate(early=True)
     elif refusal == "parity":
-        d.parity = True
-        with pytest.raises(NotImplementedError, match="parity"):
+        # parity mode runs blocked (tests/test_torch_parity.py); what it
+        # refuses is a forced resident iteration
+        d = Driver(port_simulate(n_f2=3, n_markers=8, seed=2),
+                   dtype=torch.float64, device="cpu", parity=True)
+        d.resident = True
+        with pytest.raises(ValueError, match="parity"):
             d.iterate(early=True)
     else:
         d.flip_mode, d.parent_swap = "negshift", True

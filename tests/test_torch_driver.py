@@ -271,6 +271,9 @@ def test_port_imports_nothing_of_jax():
              for f in fs if f.endswith(".py")]
     files.append(os.path.join(REPO, "chip_smoke.py"))
     assert len(files) > 20
+    # parity mode's copied flip stage among them
+    assert os.path.join(REPO, "cnf2freq_tpu_torch", "updates",
+                        "refflips.py") in files
     bad = {f: sorted(_imported_modules(f) & {"jax", "jaxlib",
                                              "cnf2freq_tpu"})
            for f in files}

@@ -2,8 +2,10 @@
 originals: ``config`` (every ModelConfig field and derived size, for each
 model family), ``utils.simulate`` (the same cohort arrays for the same
 seed), ``pedigree`` (``from_host`` carries a JAX-package pedigree over,
-copying every array) and ``native`` (the port's flip solver gives the
-JAX package's answer).
+copying every array), ``native`` (the port's flip solver gives the
+JAX package's answer) and ``updates.refflips`` (parity mode's
+reference-exact flip stage: the WCNF solver on seeded clause sets and
+the whole stage on a seeded cohort give the original's answers).
 """
 import dataclasses
 
@@ -96,3 +98,70 @@ def test_native_flip_solver_matches():
     got = solve_component(fams, 5, lib=load_flipsolve())
     ref = solve_component(fams, 5, lib=jax_load())
     np.testing.assert_array_equal(got, ref)
+
+
+def _clause_sets(seed, nvar=12, ncl=40):
+    """Seeded weighted clause sets over at most ``nvar`` variables, with
+    repeated and opposite literals (dedup and tautologies) and ties."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(ncl):
+        k = int(rng.integers(1, 5))
+        lits = [int(v) * (1 if rng.random() < 0.5 else -1)
+                for v in rng.integers(1, nvar + 1, k)]
+        out.append((int(rng.integers(0, 6)) * 1000, lits))
+    return out
+
+
+@pytest.mark.parametrize("seed,maxexact", [(0, None), (1, None), (2, None),
+                                           (3, 4)],
+                         ids=["s0", "s1", "s2", "s3_icm"])
+def test_refflips_solver_matches(seed, maxexact, monkeypatch):
+    """``_solve_wcnf`` of the copy against the original: exact enumeration
+    (ties to the lowest assignment bits) and, with MAXEXACT lowered on
+    both, iterated conditional modes."""
+    import cnf2freq_tpu.updates.refflips as jref
+    import cnf2freq_tpu_torch.updates.refflips as pref
+    if maxexact is not None:
+        monkeypatch.setattr(jref, "MAXEXACT", maxexact)
+        monkeypatch.setattr(pref, "MAXEXACT", maxexact)
+    clauses = _clause_sets(seed)
+    got = pref._solve_wcnf(clauses, nbvar=12)
+    assert got == jref._solve_wcnf(clauses, nbvar=12)
+    assert any(got)
+
+
+def test_reference_flips_matches():
+    """The whole reference flip stage on a seeded 10-unit cohort with
+    synthetic turn weights: the same winner and score.  The F1 parents are
+    marked typed: an empty parent's turn bit is pinned, appears only as a
+    positive literal, and the solver satisfies every clause of its
+    families by setting it, so no flip would win."""
+    import cnf2freq_tpu.updates.refflips as jref
+    import cnf2freq_tpu_torch.updates.refflips as pref
+    base = jax_simulate_f2(n_f2=10, n_markers=24, seed=3)
+    for ind in base.inds[1:]:
+        ind.empty = False
+        base.fixtrees(ind.n)
+    base.count_descendants()
+    rng = np.random.default_rng(10)
+    dous = list(base.dous)
+    ids = [ind.n for ind in base.inds[1:]]
+    ind_index = {n: i for i, n in enumerate(ids)}
+    M, T = base.num_markers, base.config.numturns
+    for ind in base.inds[1:]:
+        ind.haploweight[:] = rng.uniform(0.05, 0.95, M)
+    W = rng.normal(-1.0, 2.0, (len(dous), M, T))
+    # the no-flip turn and its copies over the absent slots (4, 5)
+    W[:, :, [0, 16, 32, 48]] = 0.0
+    W[0, 3, 5] = -np.inf
+    hc = rng.integers(0, 3, (len(ids), M)).astype(float)
+    hb = hc * rng.uniform(0, 1, (len(ids), M))
+    ref = jref.reference_flips(base, base.config, dous, 0, M, W, hb, hc,
+                               ind_index)
+    port = from_host(base)
+    got = pref.reference_flips(port, port.config, dous, 0, M, W, hb, hc,
+                               ind_index)
+    assert ref is not None and got is not None
+    assert got.flips == ref.flips and got.cover == ref.cover
+    assert got.score == ref.score

@@ -365,3 +365,80 @@ def test_fb_sweep_blocked_checks(card):
     with pytest.raises(ValueError):
         ps.fb_carry(e, lam, cfg, backward=True, lam_below=lam[0].cpu())
     assert (ps.fb_sweeps.launches, ps.fb_carry.launches) == before
+
+
+def _rules_inputs(card, dtype):
+    """The slice's 1000 x 192 cohort (chip_smoke.py's kernel_inputs) with
+    four probe-dedup variants, in both layouts: (fbt, st, v2 sweeps and
+    total, [B, M, NS, S] sweeps and total, cfg, B, M)."""
+    from cnf2freq_tpu_torch.config import ModelConfig, RuntimeParams
+    from cnf2freq_tpu_torch.hmm.family import gather_family
+    from cnf2freq_tpu_torch.utils.simulate import simulate_f2
+    ped = simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20, seed=7)
+    for ind in ped.inds[1:]:
+        ped.fixtrees(ind.n)
+    ped.count_descendants()
+    fb = gather_family(ped, list(ped.dous), 0, ped.num_markers - 1,
+                       n_variants=4)
+    rng = np.random.default_rng(7)
+    fb.hw = rng.uniform(0.05, 0.95, fb.hw.shape)
+    fb.ms = np.where(fb.md > 0, rng.uniform(0.0, 0.3, fb.ms.shape), fb.ms)
+    fbt = fb.to(card, dtype)
+    cfg, params = ModelConfig(), RuntimeParams()
+    B, _, M, _ = fbt.md.shape
+    d = torch.as_tensor(np.diff(ped.markerposes), dtype=dtype, device=card)
+    st = ps.prep_slots(fbt, dtype)
+    fb2 = ps.fb_sweeps(ps.emission(st, M, cfg), d, cfg, params)
+    v2 = (fb2.fw_pre, fb2.bw, fb2.fw_pre_f, fb2.bw_f,
+          ps.combined_loglik_v2(fb2, st.sh))
+    bmns = (ps.to_std(fb2.fw_pre, B, cfg).contiguous(),
+            ps.to_std(fb2.bw, B, cfg).contiguous(),
+            ps.to_std_f(fb2.fw_pre_f, B).contiguous(),
+            ps.to_std_f(fb2.bw_f, B).contiguous(), v2[4][:B].contiguous())
+    return fbt, st, v2, bmns, cfg, B, M
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("layout", ["v2", "bmns"])
+@pytest.mark.parametrize("case", ["variants", "df_zero"])
+def test_stats_rules_match_plain(card, case, layout, dtype):
+    """The probe-rule entries of csrc/stats.cu (one launch per dup-flip
+    variant) against their plain twins at the slice's 1000 x 192 shape.
+    df_zero: every dup-flip column zero; the entry then equals its plain
+    twin with the empty-slot flags applied, and with every slot marked
+    empty as well (no factor left) the entry without probe rules."""
+    fbt, st, v2, bmns, cfg, B, M = _rules_inputs(card, dtype)
+    assert fbt.dup_flip.shape[1] == 4
+    if case == "df_zero":
+        fbt.dup_flip = torch.zeros_like(fbt.dup_flip)
+        st = st._replace(df=torch.zeros_like(st.df))
+    if layout == "v2":
+        before = pst.stats_rules.launches
+        for v in range(4):
+            _close(pst.stats_rules(st, v, *v2, B, cfg),
+                   pst.stats_reference(st, *v2, B, cfg, em=st.em,
+                                       df=st.df[v], rules=True), dtype)
+        _close(pst.stats(st, *v2, B, cfg, probe_rules=True, n_variants=4),
+               [sum(p) / 4 for p in zip(*(
+                   pst.stats_reference(st, *v2, B, cfg, em=st.em,
+                                       df=st.df[v], rules=True)
+                   for v in range(4)))], dtype)
+        assert pst.stats_rules.launches == before + 8
+        if case == "df_zero":
+            full = st._replace(em=torch.ones_like(st.em))
+            _close(pst.stats_rules(full, 0, *v2, B, cfg),
+                   pst.stats(st, *v2, B, cfg), dtype)
+        return
+    before = pst.stats_bmns_rules.launches
+    for v in range(4):
+        _close(pst.stats_bmns_rules(fbt, v, *bmns, cfg),
+               pst.stats_bmns_reference(fbt, *bmns, cfg, em=fbt.emptyslot,
+                                        df=fbt.dup_flip[:, v], rules=True),
+               dtype)
+    assert pst.stats_bmns_rules.launches == before + 4
+    if case == "df_zero":
+        import dataclasses
+        full = dataclasses.replace(
+            fbt, emptyslot=torch.ones_like(fbt.emptyslot))
+        _close(pst.stats_bmns_rules(full, 0, *bmns, cfg),
+               pst.stats_pallas(fbt, *bmns, cfg), dtype)
