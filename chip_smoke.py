@@ -36,10 +36,12 @@ Phases, in order, each printing its lines (any failure exits non-zero):
            [1e-4, 1 - 1e-4], or no relhaplo moved from its loaded value
   slice_resident
            the same cohort through the default Driver (the
-           device-resident iteration, adaptive relhaplo): the same
-           stages and checks, and the peak device memory; fails unless
-           its full iterations make fewer synchronising calls than
-           slice_coherence's
+           device-resident iteration, adaptive relhaplo) with a live
+           Tracer: the same stages and checks, the peak device memory and
+           the Tracer's span split of the preprocess and each iteration
+           (host clock, unsynchronised); fails unless its full iterations
+           make fewer synchronising calls than slice_coherence's, or if
+           they make more than RESIDENT_SYNCS (4) in all
   slice_negshift
            the same cohort with flip_mode="negshift" and
            parent_swap=True (the host-gathered iteration, the default
@@ -63,9 +65,10 @@ Phases, in order, each printing its lines (any failure exits non-zero):
            iterations on the host-gathered iteration (resident=False)
            and on the resident one, each with adaptive relhaplo off and
            on, then three with flip_mode="negshift" and
-           parent_swap=True, then two marker-blocked (marker_block=8):
-           haploweights, relhaplo and pair tables agree to 1e-9,
-           markerdata exactly
+           parent_swap=True, then two marker-blocked (marker_block=8),
+           then two with resident=True and marker_block=32 (no chromosome
+           longer: the resident iteration): haploweights, relhaplo and
+           pair tables agree to 1e-9, markerdata exactly
   blocked_parity
            simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20,
            seed=7) on cuda in float64, adaptive relhaplo off,
@@ -96,6 +99,30 @@ Phases, in order, each printing its lines (any failure exits non-zero):
            (--count 2 --output --dump --lineorigin): every printed number
            of the genotype table, the line-origin table and the dump
            agrees to 2e-5
+  cli_formats
+           the slice's cohort written by utils.simulate.write_cohort_files
+           as a ShapeIT set (.sample, .bim, two haps files, PLINK fam/bed,
+           a VCF template; every sample an analysis unit: 3040 units)
+           through cli.main on the card in float32 with --count 3 --dump
+           --trace --outputvcffile, then one --createhapfile run; prints
+           the seconds of reading, preprocess, each iteration and the
+           writers, each iteration's inverted flag, the launches of
+           fb_classic and stats_bmns, the chunks per iteration, the peak
+           memory, the trace's ten longest spans and its split by
+           iteration; fails on a nonzero return, a launch count off the
+           chunk scans, other than 3 iteration records, a non-finite dump,
+           a rewritten VCF without samples x markers valid GT fields, or a
+           --createhapfile run that iterates or writes other than one line
+           a marker
+  cli_formats_parity
+           a 24 x 32 cohort as MERLIN, Gigi, ccoeff and haps (+ fam/bed,
+           VCF) through the CLI in float64 on cuda and on the CPU (--count
+           3): every number of the genotype and line-origin tables within
+           2e-5, the same iteration records (but hitnnn, printed),
+           the same VCF and haps text, the dumps within 2e-5 but for
+           blocks that differ in haploweight and relhaplo alone where a
+           member's collapse flags differed between the devices as that
+           iteration started (run_cli_formats_parity)
   scan_parity
            engine.chromosome_scan(probe_rules=True, n_variants=4) on the
            slice's cohort (gathered as parity mode gathers it) in float32:
@@ -227,6 +254,9 @@ BLOCKED_PEAK_LIMIT = 20e9
 PARITY_VARIANTS = 4
 PARITY_UNITS = 40
 PARITY_RTOL, PARITY_ATOL = 1e-10, 1e-12
+# synchronising calls of slice_resident's two full iterations, which the
+# Tracer's spans (host clock only) must not raise
+RESIDENT_SYNCS = 4
 
 
 def fail(msg):
@@ -573,19 +603,25 @@ def sync_counter(sites):
             sites[f"{os.path.basename(w.filename)}:{w.lineno}"] += 1
 
 
-def run_slice(phase, adaptive, **driver_attrs):
+def run_slice(phase, adaptive, tracer=False, **driver_attrs):
     """The slice at 1000 x 192 in float32 through Driver.preprocess() and
-    Driver.iterate(), with ``driver_attrs`` set on the Driver; returns the
-    launch counts of the kernels of its pipeline, read just after the
-    run, and the synchronising calls of its full iterations."""
+    Driver.iterate(), with ``driver_attrs`` set on the Driver and, with
+    ``tracer``, a live Tracer on it (its span split of each full iteration
+    printed: host clock, unsynchronised); returns the launch counts of the
+    kernels of its pipeline, read just after the run, and the
+    synchronising calls of its full iterations."""
     from cnf2freq_tpu_torch import Driver
     from cnf2freq_tpu_torch.utils.simulate import simulate_f2
+    from cnf2freq_tpu_torch.utils.tracing import Tracer
     ped = simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20, seed=7)
     rh0 = np.stack([ind.relhaplo for ind in ped.inds[1:]]).copy()
     drv = Driver(ped, dtype=torch.float32, device="cuda",
                  adaptive_relhaplo=adaptive)
     for k, v in driver_attrs.items():
         setattr(drv, k, v)
+    sink = io.StringIO()
+    if tracer:
+        drv.tracer = Tracer(sink=sink)
     pipeline = "classic" if adaptive else "v2"
     wr = {k: fn for k, fn in wrappers().items()
           if KERNELS[k][2] == pipeline}
@@ -634,6 +670,9 @@ def run_slice(phase, adaptive, **driver_attrs):
     say(phase, full_iteration_syncs=full_syncs,
         per_full_iteration=f"{full_syncs / 2:.1f}",
         top_sites=json.dumps(sites.most_common(8)))
+    if tracer:
+        for split in trace_split(sink.getvalue()):
+            say(phase, tracer="host clock, unsynchronised", **split)
     if not (finite and hw_ok):
         fail(f"{phase}: non-finite or out-of-range outputs")
     if min(launches.values()) <= 0:
@@ -646,6 +685,29 @@ def run_slice(phase, adaptive, **driver_attrs):
     elif moved:
         fail(f"{phase}: relhaplo moved with adaptive relhaplo off")
     return launches, full_syncs
+
+
+def trace_split(text):
+    """A Tracer's JSON lines cut after ``preprocess`` and at each
+    ``iteration`` record: for each part, the seconds of its spans (host
+    clock, unsynchronised), top-level spans first, and for an iteration
+    its record's inverted flag."""
+    out, cur = [], collections.Counter()
+
+    def part(**kw):
+        order = sorted(cur.items(), key=lambda kv: (kv[0].count("/"), -kv[1]))
+        out.append(dict(kw, spans=json.dumps({k: round(v, 4)
+                                              for k, v in order})))
+        cur.clear()
+    for line in text.splitlines():
+        rec = json.loads(line)
+        if rec["type"] == "span":
+            cur[rec["name"]] += rec["seconds"]
+            if rec["name"] == "preprocess":
+                part(stage="preprocess")
+        elif rec.get("event") == "iteration":
+            part(stage=f"iteration_{rec['iter']}", inverted=rec["inverted"])
+    return out
 
 
 def run_slice_blocked():
@@ -1016,9 +1078,17 @@ def timed_stages(record):
     """Time the CLI's stages: each wrapped call appends (stage, seconds,
     positional arguments), synchronised with the card on either side."""
     import cnf2freq_tpu_torch.io as pio
+    import cnf2freq_tpu_torch.io.haps as phaps
     import cnf2freq_tpu_torch.io.outputs as pout
+    import cnf2freq_tpu_torch.io.plink as pplink
+    import cnf2freq_tpu_torch.io.vcf as pvcf
     from cnf2freq_tpu_torch import Driver
     targets = [(pio, "load_plantimpute", "load"),
+               (phaps, "read_sample", "read_sample"),
+               (phaps, "read_haps_full", "read_haps"),
+               (pplink, "read_fam_bed", "read_fam_bed"),
+               (pvcf, "output_vcf", "write_vcf"),
+               (phaps, "create_hap_file", "create_hap_file"),
                (Driver, "preprocess", "preprocess"),
                (Driver, "iterate", "iterate"),
                (Driver, "line_origin_tables", "line_origin"),
@@ -1206,6 +1276,249 @@ def run_cli(tmp, card, n_f2=1000, n_markers=192):
         fail("cli: the final dump does not read back into a fresh pedigree")
 
 
+def argv_of(flags):
+    """Command-line arguments of write_cohort_files' {flag: path(s)}."""
+    out = []
+    for k, v in flags.items():
+        out += [f"--{k}"] + (list(v) if isinstance(v, list) else [v])
+    return out
+
+
+def run_cli_formats(tmp, card, n_f2=1000, n_markers=192):
+    """The ShapeIT haps + PLINK fam/bed + VCF input set of the slice's
+    cohort through the port's CLI on the card (float32), then one
+    --createhapfile run."""
+    from cnf2freq_tpu_torch import driver as dm
+    from cnf2freq_tpu_torch.utils.simulate import (simulate_f2,
+                                                   write_cohort_files)
+    d = os.path.join(tmp, "cli_formats")
+    t0 = time.perf_counter()
+    ped = simulate_f2(n_f2=n_f2, n_markers=n_markers, n_founder_pairs=20,
+                      seed=7)
+    flags = write_cohort_files(ped, d, "haps", seed=7)
+    say("cli_formats", stage="write_files",
+        seconds=f"{time.perf_counter() - t0:.3f}")
+    trace, vcf = os.path.join(d, "trace.jsonl"), os.path.join(d, "out.vcf")
+    argv = argv_of(flags) + ["--count", "3", "--dump", os.path.join(d, "dump"),
+                             "--trace", trace, "--outputvcffile", vcf]
+    scans = []
+    real_scan = dm.scan_merged
+
+    def counted_scan(fb, *a, **kw):
+        scans.append(fb.md.shape[0])
+        return real_scan(fb, *a, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    dm.scan_merged = counted_scan
+    try:
+        rc, record, launches, err = run_cli_once(argv)
+    finally:
+        dm.scan_merged = real_scan
+    peak = torch.cuda.max_memory_allocated()
+    for stage, sec, _ in record:
+        say("cli_formats", stage=stage, seconds=f"{sec:.3f}")
+    if rc != 0:
+        fail(f"cli_formats: returned {rc}")
+    with open(trace) as f:
+        text = f.read()
+    recs = [json.loads(line) for line in text.splitlines()]
+    its = [r for r in recs if r.get("event") == "iteration"]
+    totals = collections.Counter()
+    for r in recs:
+        if r["type"] == "span":
+            totals[r["name"]] += r["seconds"]
+    n_units = len(ped.inds) - 1
+    chunks = len(scans) / 3
+    say("cli_formats", rc=rc, units=n_units, launches=json.dumps(launches),
+        chunks_per_iteration=chunks, chunk_units=json.dumps(sorted(
+            set(scans))), peak_memory_gb=f"{peak / 1e9:.3f}", card=card,
+        iteration_records=len(its),
+        inverted=[r["inverted"] for r in its],
+        hitnnn=[r["hitnnn"] for r in its])
+    say("cli_formats", longest_spans=json.dumps(
+        [(k, round(v, 3)) for k, v in totals.most_common(10)]))
+    for split in trace_split(text):
+        say("cli_formats", tracer="host clock, unsynchronised", **split)
+    if len(its) != 3:
+        fail(f"cli_formats: {len(its)} iteration records, expected 3")
+    if min(launches.values()) <= 0 or \
+            launches["fb_classic"] != len(scans) or \
+            launches["stats_bmns"] != len(scans):
+        fail(f"cli_formats: launches {launches} against {len(scans)} "
+             f"chunk scans")
+    if not np.isfinite(numbers(os.path.join(d, "dump"))).all():
+        fail("cli_formats: non-finite values in the dump")
+    with open(vcf) as f:
+        gts = [c.split(":")[0] for ln in f if not ln.startswith("#")
+               for c in ln.rstrip("\n").split("\t")[9:]]
+    valid = sum(g in ("0|0", "0|1", "1|0", "1|1") for g in gts)
+    say("cli_formats", rewritten_gt_fields=len(gts), valid=valid,
+        expected=n_units * n_markers)
+    if len(gts) != n_units * n_markers or valid != len(gts):
+        fail("cli_formats: the VCF rewrite is incomplete")
+
+    created = os.path.join(d, "created.haps")
+    rc, record, _, err = run_cli_once(argv_of(flags) +
+                                      ["--createhapfile", created])
+    for stage, sec, _ in record:
+        say("cli_formats", run="createhapfile", stage=stage,
+            seconds=f"{sec:.3f}")
+    with open(created) as f:
+        lines = sum(1 for _ in f)
+    say("cli_formats", run="createhapfile", rc=rc, lines=lines,
+        iterations=sum(ln.startswith("iter ") for ln in err.splitlines()))
+    if rc != 0 or lines != n_markers or "iter " in err:
+        fail("cli_formats: --createhapfile did not write the haps file "
+             "alone")
+
+
+def dump_blocks(path):
+    """[(individual line, rows [M, columns])] of a haplotype dump."""
+    blocks = []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) == 2:
+                blocks.append((line.strip(), []))
+            else:
+                blocks[-1][1].append([float(x) for x in parts])
+    return [(head, np.array(rows)) for head, rows in blocks]
+
+
+# a dump's haploweight and relhaplo columns, the only ones a collapse tie
+# may move (see run_cli_formats_parity)
+DEPARTING_COLUMNS = (0, 6)
+
+
+def collapse_flags(ped):
+    """{id: [M] bool}: where the emission's phase factor collapses for the
+    individual (homozygous, its two markersure values equal)."""
+    return {i.n: (i.markerdata[:, 0] == i.markerdata[:, 1]) &
+            (i.markersure[:, 0] == i.markersure[:, 1]) for i in ped.inds[1:]}
+
+
+@contextlib.contextmanager
+def recording_collapse(seen):
+    """Append (the pedigree's family_slots, its collapse flags) to ``seen``
+    as each Driver.iterate starts."""
+    from cnf2freq_tpu_torch import Driver
+    real = Driver.iterate
+
+    def iterate(self, *a, **kw):
+        seen.append((self.ped.family_slots, collapse_flags(self.ped)))
+        return real(self, *a, **kw)
+    Driver.iterate = iterate
+    try:
+        yield seen
+    finally:
+        Driver.iterate = real
+
+
+def run_cli_formats_parity(tmp):
+    """Each other input set of a 24 x 32 cohort through the CLI in float64
+    with --device cuda and --device cpu (--count 3 --output --dump
+    --lineorigin --trace, the haps set also --outputvcffile, then
+    --createhapfile): every number of the tables within CLI_ATOL, the
+    same iteration records, the same VCF and haps text.  Two decisions
+    hang on rounding, and the check shows their cause where they differ:
+    the emission's phase factor collapses where a homozygous member's two
+    markersure values are exactly equal, which the other device's
+    summation order can decide otherwise, so a dump block (individual,
+    iteration) may differ in its haploweight and relhaplo columns alone,
+    if a member of its unit had other collapse flags as that iteration
+    started on the two devices (the CPU tests' cross-package rule).  The
+    iteration records must agree in inverted, the flips and the
+    scalefactor; their hitnnn is printed, not compared: on the MERLIN set
+    the card's count is not reproducible from run to run (2815, 2814 and
+    2810 in three runs of one iteration, the CPU's 2814, every table and
+    dump equal; an NVIDIA H100 80GB HBM3 at 700.00 W), an open question
+    of ROADMAP Queue 3."""
+    from cnf2freq_tpu_torch import cli
+    from cnf2freq_tpu_torch.utils.simulate import (COHORT_FORMATS,
+                                                   simulate_f2,
+                                                   write_cohort_files)
+    ped = simulate_f2(n_f2=24, n_markers=32, n_founder_pairs=2, seed=11)
+    for fmt in COHORT_FORMATS:
+        d = os.path.join(tmp, "cli_formats_parity", fmt)
+        flags = write_cohort_files(ped, d, fmt, seed=11)
+        texts = collections.defaultdict(list)
+        seen = {}
+        for dev in ("cuda", "cpu"):
+            argv = argv_of(flags) + ["--count", "3", "--device", dev,
+                                     "--x64"]
+            for ext in ("output", "dump", "lineorigin", "trace"):
+                argv += [f"--{ext}", os.path.join(d, f"{dev}.{ext}")]
+            if fmt == "haps":
+                argv += ["--outputvcffile", os.path.join(d, f"{dev}.vcf")]
+            runs = [argv]
+            if fmt == "haps":
+                runs.append(argv_of(flags) + [
+                    "--device", dev, "--createhapfile",
+                    os.path.join(d, f"{dev}.created")])
+            seen[dev] = []
+            for a in runs:
+                with contextlib.redirect_stderr(io.StringIO()), \
+                        recording_collapse(seen[dev]):
+                    rc = cli.main(a)
+                if rc != 0:
+                    fail(f"cli_formats_parity {fmt}: --device {dev} "
+                         f"returned {rc}")
+            for ext in ("vcf", "created"):
+                path = os.path.join(d, f"{dev}.{ext}")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        texts[ext].append(f.read())
+        worst = 0.0
+        for ext in ("output", "lineorigin"):
+            a, b = (numbers(os.path.join(d, f"{dev}.{ext}"))
+                    for dev in ("cuda", "cpu"))
+            if a.size != b.size or a.size == 0:
+                fail(f"cli_formats_parity {fmt}: {ext} prints {a.size} and "
+                     f"{b.size} numbers")
+            worst = max(worst, float(np.abs(a - b).max()))
+        bc, bp = (dump_blocks(os.path.join(d, f"{dev}.dump"))
+                  for dev in ("cuda", "cpu"))
+        if [h for h, _ in bc] != [h for h, _ in bp]:
+            fail(f"cli_formats_parity {fmt}: the dumps hold other blocks")
+        n_inds, departed, dump_err, unexplained = len(bc) // 3, [], 0.0, []
+        for i, ((head, x), (_, y)) in enumerate(zip(bc, bp)):
+            off = np.abs(x - y)
+            if (off > CLI_ATOL).any():
+                it, n = i // n_inds, int(head.split()[0])
+                (slots, fc), (_, fp) = seen["cuda"][it], seen["cpu"][it]
+                departed.append((it, head))
+                if not set(np.nonzero(off > CLI_ATOL)[1]) <= \
+                        set(DEPARTING_COLUMNS) or not any(
+                            (fc[m] != fp[m]).any() for m in slots(n) if m):
+                    unexplained.append((it, head))
+            else:
+                dump_err = max(dump_err, float(off.max()))
+        its = []
+        for dev in ("cuda", "cpu"):
+            with open(os.path.join(d, f"{dev}.trace")) as f:
+                its.append([(r["hitnnn"], r["inverted"], r["flips"],
+                             r["scalefactor"]) for r in map(json.loads, f)
+                            if r.get("event") == "iteration"])
+        same_text = all(len(v) == 2 and v[0] == v[1] for v in texts.values())
+        same_its = len(its[0]) == len(its[1]) == 3 and all(
+            a[1:3] == b[1:3] and math.isclose(a[3], b[3], rel_tol=1e-12)
+            for a, b in zip(*its))
+        ok = (worst <= CLI_ATOL and dump_err <= CLI_ATOL and not unexplained
+              and same_its and same_text)
+        say("cli_formats_parity", input_set=fmt,
+            dump_blocks_per_iteration=n_inds,
+            tables_max_abs=f"{worst:.2e}", dump_max_abs=f"{dump_err:.2e}",
+            departed_dump_blocks=json.dumps(departed),
+            unexplained=json.dumps(unexplained),
+            hitnnn_cuda=[i[0] for i in its[0]],
+            hitnnn_cpu=[i[0] for i in its[1]],
+            inverted_flips_scalefactor_equal=same_its,
+            inverted=[i[1] for i in its[1]], texts_equal=same_text,
+            tol=CLI_ATOL, ok=ok)
+        if not ok:
+            fail(f"cli_formats_parity {fmt}: cuda and CPU float64 CLI "
+                 f"outputs disagree")
+
+
 def run_cli_parity(tmp):
     """24 x 32 files through the CLI in float64 on cuda and on the CPU."""
     from cnf2freq_tpu_torch import cli
@@ -1282,15 +1595,21 @@ def main():
     launches, _ = run_slice("slice", adaptive=False, resident=False)
     _, host_syncs = run_slice("slice_coherence", adaptive=True,
                               resident=False)
-    classic, resident_syncs = run_slice("slice_resident", adaptive=True)
+    classic, resident_syncs = run_slice("slice_resident", adaptive=True,
+                                        tracer=True)
     # the kernels' launches on the main path: the default Driver
     launches.update(classic)
     say("slice_resident", full_iteration_syncs=resident_syncs,
         slice_coherence_full_iteration_syncs=host_syncs,
-        fewer=resident_syncs < host_syncs)
+        fewer=resident_syncs < host_syncs, tracer=True,
+        limit=RESIDENT_SYNCS)
     if not resident_syncs < host_syncs:
         fail("the resident iteration synchronises no less often than the "
              "host-gathered one")
+    if resident_syncs > RESIDENT_SYNCS:
+        fail(f"the resident iteration with a live Tracer made "
+             f"{resident_syncs} synchronising calls in two full iterations, "
+             f"more than {RESIDENT_SYNCS}")
     run_slice("slice_negshift", adaptive=True, flip_mode="negshift",
               parent_swap=True)
     for resident in (False, True):
@@ -1300,11 +1619,15 @@ def main():
     blocked = run_slice_blocked()
     launches.update({k: blocked[k] for k in ("fb_sweep_init", "fb_carry")})
     run_parity(True, marker_block=8)
+    # resident=True with a block no chromosome exceeds runs resident
+    run_parity(True, resident=True, marker_block=32)
     run_blocked_parity()
     tmp = tempfile.mkdtemp(prefix="cnf2freq_smoke_")
     try:
         run_cli(tmp, card)
         run_cli_parity(tmp)
+        run_cli_formats(tmp, card)
+        run_cli_formats_parity(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches.update(run_scan_parity())

@@ -1,17 +1,19 @@
 """Command-line interface of the port: ``python -m cnf2freq_tpu_torch``.
 
-The PlantImpute subset of ``cnf2freq_tpu/cli.py`` (the reference's
-boost::program_options surface, cnF2freq.cpp:7946-7988), with the same
-flag names, defaults and semantics, plus ``--device``: the port runs on
-the card unless it is asked for the CPU, and never falls back from one to
-the other.  Flags of the JAX CLI that the port does not carry yet (the
-other readers, ``--model``, ``--trace``) are not defined, so argparse
-refuses them.
+The flags of ``cnf2freq_tpu/cli.py`` (the reference's
+boost::program_options surface, cnF2freq.cpp:7946-7988) for the default
+F2 model, with the same names, defaults, help and semantics: every input
+set (PlantImpute, ShapeIT haps with PLINK fam/bed, MERLIN, ccoeff, Gigi),
+``--createhapfile``, the VCF rewrite and ``--trace``; plus ``--device``:
+the port runs on the card unless it is asked for the CPU, and never falls
+back from one to the other.  ``--model`` (the other model families) is
+not defined, so argparse refuses it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -27,6 +29,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mapfile", help="PlantImpute cM map file")
     p.add_argument("--pedfile", help="PlantImpute pedigree file")
     p.add_argument("--genfile", help="PlantImpute genotype file")
+    p.add_argument("--samplefile", help="ShapeIT-style .sample file")
+    p.add_argument("--bimfile", help="BIM file (with --samplefile)")
+    p.add_argument("--hapfiles", nargs="+",
+                   help="haps files: maximum realization then samples")
+    p.add_argument("--famfile", help="PLINK fam file (with --bedfile)")
+    p.add_argument("--bedfile", help="PLINK bed file (with --famfile)")
+    p.add_argument("--createhapfile",
+                   help="write a phase-corrected haps file and exit")
+    p.add_argument("--merlinmap", help="MERLIN map file")
+    p.add_argument("--merlinped", help="MERLIN ped file (with genotypes)")
+    p.add_argument("--gigimapfile", help="Gigi-compatible map file")
+    p.add_argument("--gigipedfile", help="Gigi-compatible ped file")
+    p.add_argument("--templatevcffile", help="template VCF whose GT fields "
+                   "get rewritten with the phased results")
+    p.add_argument("--outputvcffile", help="output path for the rewritten "
+                   "VCF (.gz for gzip)")
+    p.add_argument("--markerinfo", help="ccoeff-style marker info file")
+    p.add_argument("--ccoeffped", help="ccoeff-style pedigree file")
+    p.add_argument("--ccoeffgen", help="ccoeff-style genotype file")
     p.add_argument("--protmarkers", help="protected marker positions "
                    "(with --clear)")
     p.add_argument("--protinds", help="protected individuals (with --clear)")
@@ -65,6 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--parentswap", action="store_true",
                    help="with --flipmode negshift: also apply parent-"
                    "pair swap moves (parentswapnegshifts)")
+    p.add_argument("--trace", help="write structured tracing/metrics as "
+                   "JSON lines to this file; span summary on stderr")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the model runs (default: the CUDA card; "
                    "without one the run fails rather than use the CPU)")
@@ -90,6 +113,51 @@ def _write_checkpoint(path, driver, ped, iterations_done):
     os.replace(tmp, path)
 
 
+def load_input(args):
+    """The pedigree of the input set the arguments name (the JAX CLI's
+    order of precedence), or (None, rc) when the CLI returns without a
+    run: 0 after --createhapfile, 2 without a complete input set."""
+    from .pedigree import Pedigree
+    if args.mapfile and args.pedfile and args.genfile:
+        from .io import load_plantimpute
+        return load_plantimpute(args.mapfile, args.pedfile, args.genfile), 0
+    if args.samplefile and args.bimfile and args.hapfiles:
+        from .io.haps import create_hap_file, read_haps_full, read_sample
+        ped = Pedigree()
+        samples = read_sample(args.samplefile)
+        read_haps_full(ped, samples, args.bimfile, list(args.hapfiles))
+        if args.famfile and args.bedfile:
+            from .io.plink import read_fam_bed
+            read_fam_bed(ped, args.famfile, args.bedfile)
+        if args.createhapfile:
+            with open(args.createhapfile, "w") as f:
+                create_hap_file(ped, samples, args.hapfiles[0], f)
+            return None, 0
+        return ped, 0
+    if args.hapfiles and not args.samplefile:
+        print("--hapfiles without --samplefile requires pre-loaded "
+              "individuals; combine with another input set", file=sys.stderr)
+        return None, 2
+    if args.merlinmap and args.merlinped:
+        from .io.merlin import read_merlin_map, read_merlin_ped
+        ped = Pedigree()
+        read_merlin_map(ped, args.merlinmap)
+        read_merlin_ped(ped, args.merlinped)
+        return ped, 0
+    if args.markerinfo and args.ccoeffped and args.ccoeffgen:
+        from .io.ccoeff import load_ccoeff
+        return load_ccoeff(args.markerinfo, args.ccoeffped,
+                           args.ccoeffgen), 0
+    if args.gigimapfile and args.gigipedfile:
+        from .io.gigi import load_gigi
+        return load_gigi(args.gigimapfile, args.gigipedfile), 0
+    print("need an input set: --mapfile/--pedfile/--genfile, "
+          "--merlinmap/--merlinped, "
+          "--gigimapfile/--gigipedfile, or "
+          "--markerinfo/--ccoeffped/--ccoeffgen", file=sys.stderr)
+    return None, 2
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -107,15 +175,10 @@ def main(argv=None) -> int:
                   file=sys.stderr)
 
     from .driver import Driver
-    from .io import load_plantimpute
-    from .io.outputs import (deserialize, output_ped, write_genotype_table,
-                             write_haplotype_dump, write_line_origin_table)
 
-    if not (args.mapfile and args.pedfile and args.genfile):
-        print("need an input set: --mapfile/--pedfile/--genfile",
-              file=sys.stderr)
-        return 2
-    ped = load_plantimpute(args.mapfile, args.pedfile, args.genfile)
+    ped, rc = load_input(args)
+    if ped is None:
+        return rc
 
     if args.clear and not args.deserialize:
         from .io.masking import (clear_unprotected, read_protected_markers,
@@ -145,6 +208,23 @@ def main(argv=None) -> int:
     driver.parent_swap = args.parentswap
     if args.markerblock:
         driver.marker_block = args.markerblock
+    with contextlib.ExitStack() as stack:
+        if args.trace:
+            from .utils.tracing import Tracer
+            driver.tracer = Tracer(sink=stack.enter_context(
+                open(args.trace, "w")))
+        _run(args, driver, ped)
+        if args.trace:
+            print(driver.tracer.report(), file=sys.stderr)
+    return 0
+
+
+def _run(args, driver, ped):
+    """Preprocess, the iterations with their dumps and checkpoints, and
+    the outputs."""
+    from .io.outputs import (deserialize, output_ped, write_genotype_table,
+                             write_haplotype_dump, write_line_origin_table)
+
     driver.preprocess()
 
     if args.deserialize:
@@ -191,7 +271,9 @@ def main(argv=None) -> int:
     if args.lineorigin:
         with open(args.lineorigin, "w") as f:
             write_line_origin_table(ped, driver.line_origin_tables(), f)
-    return 0
+    if args.templatevcffile and args.outputvcffile:
+        from .io.vcf import output_vcf
+        output_vcf(ped, args.templatevcffile, args.outputvcffile)
 
 
 if __name__ == "__main__":

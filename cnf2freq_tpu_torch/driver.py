@@ -32,7 +32,9 @@ Chromosomes longer than ``marker_block`` markers run marker-blocked
 chromosome's blocks (``ops.scan.blocked_carries``, then
 ``blocked_block_pass`` per block), so that the sweep tensors held on the
 device are those of one block at any chromosome length.  Such a run takes
-the host-gathered iteration.
+the host-gathered iteration; ``resident=True`` with ``marker_block`` runs
+resident when no chromosome is longer than the block, and raises before
+any work otherwise (the JAX Driver fails mid-iteration there).
 
 ``parity=True`` is the JAX package's strict reference-trajectory mode:
 the fixtrees canonical-path mask that also pins empty members
@@ -46,6 +48,30 @@ over staged whole-chromosome weights), the host-gathered iteration, and a
 ``run()`` that skips iteration 0 as the reference main loop does.
 
 The Driver runs on the card unless it is given ``device="cpu"``.
+
+Tracing: ``Driver.tracer`` (``utils/tracing.py``; a no-op ``NullTracer``
+by default) gets the JAX Driver's spans and its per-iteration ``metric``
+record (event "iteration": iter, hitnnn, inverted, scalefactor, flips).
+Spans read the host clock and add no synchronisation, so a span around a
+device stage measures what the host spent there (enqueueing, or waiting
+where the stage reads back).  The spans and the port's stage each wraps:
+``preprocess`` with ``correction_inference``, ``variances`` and
+``lockhaplos``; per chunk ``gather`` (the host gather and upload, or the
+resident device gather), ``scan`` (``scan_merged``; the port computes the
+adjacent-phase coherence inside it), ``scatter`` (the accumulator merges)
+and ``coherence`` (the scatter of the scan's coherence onto the
+per-individual sums; the JAX Driver computes the coherence there too);
+per chromosome ``flips`` (the flip stage of every flip mode and parity
+mode, and the application of its winner) with ``optimise`` (the native
+solver), ``score`` (the device scoring) and ``solve`` / ``filter`` (the
+component solves and the identity-flip filter); ``updates`` with, on the
+host-gathered iteration, ``infprobs`` (its ``stack`` and ``device``
+stages) and ``haploweights``, and on the resident one ``stack``,
+``device`` (the whole-cohort update and its readback) and ``writeback``;
+on a marker-blocked chromosome ``carries`` (passes A and B), ``block``
+and ``scatter`` per block and chunk (pass C), and ``flips`` around the
+solve.  The relhaplo refresh of the host-gathered iteration and the
+per-block follow-ups run outside any span, as in the JAX Driver.
 """
 
 from __future__ import annotations
@@ -81,6 +107,7 @@ from .updates.phaseflip import (FlipCandidate, _components, apply_flips,
                                 solve_component)
 from .updates.refflips import reference_flips
 from .updates.relskew import relskew_ratio
+from .utils.tracing import NullTracer
 from .utils.transfer import constant, fetch, upload
 
 
@@ -191,6 +218,9 @@ class Driver:
         # run in O(marker_block) sweep memory through boundary carries
         # (ops.scan.blocked_scan_chunk); None disables
         self.marker_block = None
+        # spans and per-iteration records (utils/tracing.py); swap in a
+        # Tracer(sink=...) for JSON lines
+        self.tracer = NullTracer()
         self._pair_tables: Dict[int, np.ndarray] = {}
         self._pair_pending: list = []
         self._cache: dict = {}
@@ -276,17 +306,21 @@ class Driver:
     # Preprocessing (postmarkerdata)
     # ------------------------------------------------------------------
     def preprocess(self):
-        ped = self.ped
-        self._correction_inference_loop()
-        if not self.parity:
-            ped.count_descendants()
-        for ind in ped.inds[1:]:
-            ped.fixtrees(ind.n)       # sets founder flags
-        self._compute_variances()
-        for ind in ped.inds[1:]:
-            if ind.haploweight is not None:
-                for c in range(ped.num_chromosomes):
-                    self._lockhaplos(ind, c)
+        ped, tr = self.ped, self.tracer
+        with tr.span("preprocess"):
+            with tr.span("correction_inference"):
+                self._correction_inference_loop()
+            if not self.parity:
+                ped.count_descendants()
+            for ind in ped.inds[1:]:
+                ped.fixtrees(ind.n)       # sets founder flags
+            with tr.span("variances"):
+                self._compute_variances()
+            with tr.span("lockhaplos"):
+                for ind in ped.inds[1:]:
+                    if ind.haploweight is not None:
+                        for c in range(ped.num_chromosomes):
+                            self._lockhaplos(ind, c)
 
     def _correction_inference_loop(self):
         ped = self.ped
@@ -545,15 +579,22 @@ class Driver:
     # ------------------------------------------------------------------
     def _use_resident(self) -> bool:
         """The JAX package's rule: the resident iteration for the native
-        flip mode outside parity mode when no chromosome runs
-        marker-blocked; a forced resident iteration cannot block, nor run
-        parity mode (its flip stage reads host accumulators)."""
+        flip mode outside parity mode when no marker block is set; a
+        forced resident iteration runs with a marker block that no
+        chromosome exceeds (so none runs blocked), and cannot block a
+        longer one, nor run parity mode (their flip stages read host
+        accumulators)."""
         if self.resident is not None:
             if self.resident and self.marker_block is not None:
-                raise ValueError(
-                    "resident=True cannot run marker-blocked chromosomes: "
-                    "leave resident at None (auto) or set it False with "
-                    "marker_block")
+                for c in range(self.ped.num_chromosomes):
+                    lo, hi = self.ped.chromosome_range(c)
+                    if hi - lo > self.marker_block:
+                        raise ValueError(
+                            f"resident=True cannot run marker-blocked "
+                            f"chromosomes: chromosome {c} has {hi - lo} "
+                            f"markers, more than marker_block="
+                            f"{self.marker_block}; leave resident at None "
+                            f"(auto) or set it False")
             if self.resident and self.parity:
                 raise ValueError(
                     "resident=True cannot run parity mode: leave resident "
@@ -567,6 +608,9 @@ class Driver:
         dev, dt = self.device, self.dtype
         if self.flip_mode not in ("native", "negshift"):
             raise ValueError(f"unknown flip_mode {self.flip_mode!r}")
+        # (raises before any work on a combination it cannot run)
+        resident = self._use_resident()
+        tr = self.tracer
         st = self.state
         st.iter += 1
         dous = list(ped.dous)
@@ -576,7 +620,6 @@ class Driver:
         ind_index = {n: i for i, n in enumerate(ids)}
         M = ped.num_markers
         NI = len(ids)
-        resident = self._use_resident()
         need_coh = self.adaptive_relhaplo and bool(cfg.relskews)
         accum = ResidentAccum(NI, M, dt, dev, with_coh=need_coh)
         winners: List[Optional[FlipCandidate]] = []
@@ -615,20 +658,24 @@ class Driver:
             remap_acc = (np.zeros((2, Mc - 1)), np.zeros(2, dtype=np.int64))
             for b0 in range(0, len(dous), bs):
                 chunk = dous[b0:b0 + bs]
-                if resident:
-                    fb = self._fill_family_dev(chunk, c, b0, ids, lut_h)
-                else:
-                    fb = self._gather(chunk, lo, hi).to(dev, dt)
-                res, hb_p, hc_p, inf_p = scan_merged(
-                    fb, dists, lut, rm, cfg, params, NI,
-                    with_coherence=need_coh, probe_rules=self.parity,
-                    n_variants=self._n_variants())
-                self._pair_pending.append((list(chunk), lo, res.pair))
-                loglik += res.total.sum()
-                accum.add(lo, hb_p, hc_p, inf_p)
+                with tr.span("gather"):
+                    if resident:
+                        fb = self._fill_family_dev(chunk, c, b0, ids, lut_h)
+                    else:
+                        fb = self._gather(chunk, lo, hi).to(dev, dt)
+                with tr.span("scan"):
+                    res, hb_p, hc_p, inf_p = scan_merged(
+                        fb, dists, lut, rm, cfg, params, NI,
+                        with_coherence=need_coh, probe_rules=self.parity,
+                        n_variants=self._n_variants())
+                with tr.span("scatter"):
+                    self._pair_pending.append((list(chunk), lo, res.pair))
+                    loglik += res.total.sum()
+                    accum.add(lo, hb_p, hc_p, inf_p)
                 if need_coh:
-                    accum.add_coh(lo, res.coherence, fb.slot_ind,
-                                  fb.descendants, lut)
+                    with tr.span("coherence"):
+                        accum.add_coh(lo, res.coherence, fb.slot_ind,
+                                      fb.descendants, lut)
                 if self.remap_distances:
                     self._accumulate_recomb(fb, dists, res, rm, remap_acc)
                     self._count_recomb(remap_acc, len(chunk))
@@ -637,16 +684,17 @@ class Driver:
                 del res
             winner = None
             if not early:
-                winner = self._flips(dous, lo, hi, weight_parts, accum,
-                                     ind_index, c, resident, swap_cands)
-                if winner is not None and resident:
-                    apply_flips(ped, winner, c)
-                    rows = [(ind_index[n], m) for n, m in winner.flips]
-                    accum.flip_rows(rows, hi)
-                    self._flip_param(rows, hi)
-                elif winner is not None:
-                    apply_flips(ped, winner, c, accum.hb, accum.hc,
-                                ind_index)
+                with tr.span("flips"):
+                    winner = self._flips(dous, lo, hi, weight_parts, accum,
+                                         ind_index, c, resident, swap_cands)
+                    if winner is not None and resident:
+                        apply_flips(ped, winner, c)
+                        rows = [(ind_index[n], m) for n, m in winner.flips]
+                        accum.flip_rows(rows, hi)
+                        self._flip_param(rows, hi)
+                    elif winner is not None:
+                        apply_flips(ped, winner, c, accum.hb, accum.hc,
+                                    ind_index)
             winners.append(winner)
             del weight_parts
             if self.remap_distances:
@@ -655,12 +703,17 @@ class Driver:
         any_inv = any(w is not None for w in winners)
         sf = 0.0 if any_inv else st.scalefactor
         if resident:
-            hits, loglik = self._updates_resident(ids, accum, sf, loglik)
+            with tr.span("updates"):
+                hits, loglik = self._updates_resident(ids, accum, sf, loglik)
         else:
             if need_coh:
                 self._refresh_relhaplo(ids, accum.cnum, accum.cden)
-            hits = self._process_infprobs(ids, accum.inf, sf)
-            hits += self._update_haploweights(ids, accum.hb, accum.hc, sf)
+            with tr.span("updates"):
+                with tr.span("infprobs"):
+                    hits = self._process_infprobs(ids, accum.inf, sf)
+                with tr.span("haploweights"):
+                    hits += self._update_haploweights(ids, accum.hb,
+                                                      accum.hc, sf)
         if swap_cands:
             # one genome-wide dominance pass after the updates (the
             # reference's parentswapnegshifts placement); the swaps change
@@ -668,6 +721,9 @@ class Driver:
             # finds its mirror stale and uploads again
             apply_parent_swaps(ped, swap_cands)
         self._adapt_scalefactor(any_inv, hits, len(dous))
+        tr.metric(event="iteration", iter=st.iter, hitnnn=hits,
+                  inverted=any_inv, scalefactor=st.scalefactor,
+                  flips=sum(len(w.flips) for w in winners if w is not None))
         return dict(hitnnn=hits, inverted=any_inv,
                     scalefactor=st.scalefactor, loglik=float(loglik))
 
@@ -679,8 +735,10 @@ class Driver:
         the legacy single-member pass, and the parent-swap hypotheses
         (scored now, applied genome-wide after the updates)."""
         if self.flip_mode == "native" and not self.parity:
-            return self._optimise_flips(dous, lo, hi, weight_parts, accum,
-                                        ind_index, chrom, resident)
+            with self.tracer.span("optimise"):
+                return self._optimise_flips(dous, lo, hi, weight_parts,
+                                            accum, ind_index, chrom,
+                                            resident)
         (weights,) = fetch([torch.cat(weight_parts).double()])
         if self.parity:
             return self._reference_flips(dous, lo, hi, weights, accum,
@@ -808,24 +866,27 @@ class Driver:
         one device update (resident.resident_updates) from the
         accumulators and the mirrors, read back in one batched copy with
         the iteration's log-likelihood.  Returns (hits, loglik)."""
-        ped, cfg = self.ped, self.cfg
+        ped, cfg, tr = self.ped, self.cfg, self.tracer
         C = ped.num_chromosomes
         static = self._cohort_static(ids)
-        lastinv_c = np.array([[ped.by_id(n).lastinved[c] != -1
-                               for c in range(C)] for n in ids])
-        mdms, param = self._md_ms_dev(ids), self._param_dev(ids)
-        out = resident_updates(
-            cfg, self.params,
-            [ped.chromosome_range(c) for c in range(C)], accum, mdms["md"],
-            mdms["ms"], static, param["hw"], param["rh"],
-            upload(lastinv_c, self.device), scalefactor)
-        pulls = dict(md_e=out.markerdata_e, ms_e=out.markersure_e,
-                     take_e=out.take_e, hw=out.haploweight, active=out.active,
-                     hits=out.hits, loglik=loglik)
-        if accum.cnum is not None:
-            pulls.update(rh=out.relhaplo, got=out.got)
-        host = dict(zip(pulls, fetch(list(pulls.values()))))
-        self._writeback_resident(ids, static, out, host)
+        with tr.span("stack"):
+            lastinv_c = np.array([[ped.by_id(n).lastinved[c] != -1
+                                   for c in range(C)] for n in ids])
+        with tr.span("device"):
+            mdms, param = self._md_ms_dev(ids), self._param_dev(ids)
+            out = resident_updates(
+                cfg, self.params,
+                [ped.chromosome_range(c) for c in range(C)], accum,
+                mdms["md"], mdms["ms"], static, param["hw"], param["rh"],
+                upload(lastinv_c, self.device), scalefactor)
+            pulls = dict(md_e=out.markerdata_e, ms_e=out.markersure_e,
+                         take_e=out.take_e, hw=out.haploweight,
+                         active=out.active, hits=out.hits, loglik=loglik)
+            if accum.cnum is not None:
+                pulls.update(rh=out.relhaplo, got=out.got)
+            host = dict(zip(pulls, fetch(list(pulls.values()))))
+        with tr.span("writeback"):
+            self._writeback_resident(ids, static, out, host)
         return int(host["hits"]), float(host["loglik"])
 
     def _writeback_resident(self, ids, static, out, host):
@@ -1013,11 +1074,13 @@ class Driver:
         k = min(MAX_FLIP_MARKERS, M)
         if "flip_scorer" not in self._cache:
             self._cache["flip_scorer"] = make_flip_scorer()
-        idx, mg, gains, S_top = self._cache["flip_scorer"](
-            weight_parts, constant(pat, dev, torch.int64),
-            constant(allowed, dev), hw, rh, hb, hc, constant(desc, dev, dt),
-            constant(tsel, dev), k=k, with_skew=with_skew, halo=halo)
-        idx, mg, gains, S_top = fetch([idx, mg, gains, S_top])
+        with self.tracer.span("score"):
+            idx, mg, gains, S_top = self._cache["flip_scorer"](
+                weight_parts, constant(pat, dev, torch.int64),
+                constant(allowed, dev), hw, rh, hb, hc,
+                constant(desc, dev, dt), constant(tsel, dev), k=k,
+                with_skew=with_skew, halo=halo)
+            idx, mg, gains, S_top = fetch([idx, mg, gains, S_top])
         return (idx + marker_offset, mg.astype(np.float64),
                 gains.astype(np.float64), S_top.astype(np.float64))
 
@@ -1064,13 +1127,15 @@ class Driver:
                           per_marker) + 1
         bs = self._chunk_size(len(dous), m_eff, with_coh)
         states = []
-        for b0 in range(0, len(dous), bs):
-            chunk = dous[b0:b0 + bs]
-            fb = pad_markers(self._gather(chunk, lo, hi), Mp).to(dev,
-                                                                 self.dtype)
-            bc = v2.blocked_carries(fb, dists, rm, cfg, self.params, block)
-            loglik += bc.total_r[:len(chunk)].sum()
-            states.append(dict(chunk=chunk, fb=fb, bc=bc, prev=None))
+        with self.tracer.span("carries"):
+            for b0 in range(0, len(dous), bs):
+                chunk = dous[b0:b0 + bs]
+                fb = pad_markers(self._gather(chunk, lo, hi), Mp).to(
+                    dev, self.dtype)
+                bc = v2.blocked_carries(fb, dists, rm, cfg, self.params,
+                                        block)
+                loglik += bc.total_r[:len(chunk)].sum()
+                states.append(dict(chunk=chunk, fb=fb, bc=bc, prev=None))
 
         rows = constant([ind_index[n] for n in dous], dev)
         remap_acc = (np.zeros((2, Mc - 1)), np.zeros(2, dtype=np.int64)) \
@@ -1101,15 +1166,17 @@ class Driver:
             for ci, st in enumerate(states):
                 chunk = st["chunk"]
                 B = len(chunk)
-                fb_blk, _, fb2, pair_i, hb_i, hc_i, inf_i, w = \
-                    v2.blocked_block_pass(st["fb"], st["bc"], i, block, lut,
-                                          cfg, NI, with_turn=not early,
-                                          probe_rules=self.parity,
-                                          n_variants=self._n_variants())
-                self._pair_pending.append((list(chunk), lo + off,
-                                           pair_i[:, :span]))
-                accum.add(lo + off, hb_i[:, :span], hc_i[:, :span],
-                          inf_i[:, :span])
+                with self.tracer.span("block"):
+                    fb_blk, _, fb2, pair_i, hb_i, hc_i, inf_i, w = \
+                        v2.blocked_block_pass(
+                            st["fb"], st["bc"], i, block, lut, cfg, NI,
+                            with_turn=not early, probe_rules=self.parity,
+                            n_variants=self._n_variants())
+                with self.tracer.span("scatter"):
+                    self._pair_pending.append((list(chunk), lo + off,
+                                               pair_i[:, :span]))
+                    accum.add(lo + off, hb_i[:, :span], hc_i[:, :span],
+                              inf_i[:, :span])
                 if negshift:
                     neg_parts[i] += fetch([w[:, :span].double()])
                 elif not early:
@@ -1155,9 +1222,10 @@ class Driver:
             np.concatenate([s[j] for s in scored], axis=0 if j < 2 else 1)
             for j in range(4)))
         k = MAX_FLIP_MARKERS
-        return self._solve_scored(dous, lo, hi, (idx[:k], mg[:k],
-                                                 gains[:, :k],
-                                                 S_top[:, :k]), c)
+        with self.tracer.span("flips"):
+            return self._solve_scored(dous, lo, hi, (idx[:k], mg[:k],
+                                                     gains[:, :k],
+                                                     S_top[:, :k]), c)
 
     def _blocked_followups(self, st, fb_blk, fbres, i, off, span, block,
                            dists, rm, coh, remap_acc):
@@ -1239,35 +1307,37 @@ class Driver:
         plen = [1 << len(vl) for vl in varlists]
 
         cands: List[FlipCandidate] = []
-        for j in range(len(idx)):
-            if mg[j] <= 1e-12:
-                continue
-            m = int(idx[j])
-            hot_comps = sorted(set(
-                comp_of_fam[np.where(gains[:, j] > 1e-12)[0]]))
-            assign = {}
-            fams_m = []
-            for ci in hot_comps:
-                comp, vidx, pos, n = comp_struct[ci]
-                fam_masks = [(pos[jj], S_top[fi, j, :plen[fi]])
-                             for jj, fi in enumerate(comp)]
-                vec = solve_component(fam_masks, n, lib=lib)
-                for v, i in vidx.items():
-                    if vec[i]:
-                        assign[v] = True
-                fams_m.extend((varlists[fi], S_top[fi, j, :plen[fi]])
-                              for fi in comp)
-            if not assign:
-                continue
-            cands.extend(extract_candidates(fams_m, assign, lo + m))
+        with self.tracer.span("solve"):
+            for j in range(len(idx)):
+                if mg[j] <= 1e-12:
+                    continue
+                m = int(idx[j])
+                hot_comps = sorted(set(
+                    comp_of_fam[np.where(gains[:, j] > 1e-12)[0]]))
+                assign = {}
+                fams_m = []
+                for ci in hot_comps:
+                    comp, vidx, pos, n = comp_struct[ci]
+                    fam_masks = [(pos[jj], S_top[fi, j, :plen[fi]])
+                                 for jj, fi in enumerate(comp)]
+                    vec = solve_component(fam_masks, n, lib=lib)
+                    for v, i in vidx.items():
+                        if vec[i]:
+                            assign[v] = True
+                    fams_m.extend((varlists[fi], S_top[fi, j, :plen[fi]])
+                                  for fi in comp)
+                if not assign:
+                    continue
+                cands.extend(extract_candidates(fams_m, assign, lo + m))
         # a flip of an all-0.5 tail is the identity on every parameter:
         # drop it rather than trip the inversion freeze
-        for c_ in cands:
-            c_.flips = [
-                (n, m) for n, m in c_.flips
-                if np.abs(ped.by_id(n).haploweight[m + 1:hi] - 0.5).max(
-                    initial=0.0) > 1e-9]
-        cands = [c_ for c_ in cands if c_.flips]
+        with self.tracer.span("filter"):
+            for c_ in cands:
+                c_.flips = [
+                    (n, m) for n, m in c_.flips
+                    if np.abs(ped.by_id(n).haploweight[m + 1:hi] - 0.5).max(
+                        initial=0.0) > 1e-9]
+            cands = [c_ for c_ in cands if c_.flips]
         return select_winner(cands)
 
     # -- parameter updates ----------------------------------------------
@@ -1276,22 +1346,25 @@ class Driver:
         ped = self.ped
         NI, M = infacc.shape[:2]
         inds = [ped.by_id(n) for n in ids]
-        md = np.stack([ind.markerdata for ind in inds])
-        msu = np.stack([ind.markersure for ind in inds])
-        prior = np.stack([ind.priormarkerdata if ind.has_prior else
-                          np.zeros((M, 2), dtype=np.int32) for ind in inds])
-        priorsure = np.stack([ind.priormarkersure if ind.has_prior else
-                              np.zeros((M, 2)) for ind in inds])
-        has_prior = np.array([ind.has_prior for ind in inds])
-        children = np.array([ind.children for ind in inds])
-        res = update_infprobs(infacc, self._t(md, torch.int32), self._t(msu),
-                              self._t(prior, torch.int32),
-                              self._t(priorsure),
-                              self._t(has_prior, torch.bool),
-                              self._t(children), self.params,
-                              float(scalefactor))
-        newp = res.newprob.to("cpu", torch.float64).numpy()
-        live = (infacc > 0).cpu().numpy()
+        with self.tracer.span("stack"):
+            md = np.stack([ind.markerdata for ind in inds])
+            msu = np.stack([ind.markersure for ind in inds])
+            prior = np.stack([ind.priormarkerdata if ind.has_prior else
+                              np.zeros((M, 2), dtype=np.int32)
+                              for ind in inds])
+            priorsure = np.stack([ind.priormarkersure if ind.has_prior else
+                                  np.zeros((M, 2)) for ind in inds])
+            has_prior = np.array([ind.has_prior for ind in inds])
+            children = np.array([ind.children for ind in inds])
+        with self.tracer.span("device"):
+            res = update_infprobs(infacc, self._t(md, torch.int32),
+                                  self._t(msu), self._t(prior, torch.int32),
+                                  self._t(priorsure),
+                                  self._t(has_prior, torch.bool),
+                                  self._t(children), self.params,
+                                  float(scalefactor))
+            newp = res.newprob.to("cpu", torch.float64).numpy()
+            live = (infacc > 0).cpu().numpy()
         for i, ind in enumerate(inds):
             if ind.empty or not ind.has_prior:
                 continue

@@ -349,3 +349,166 @@ def simulate_plantimpute_selfed_files(dirpath, n_lines: int = 8,
             f.write("L_%d " % i
                     + " ".join(str(c) for c in r) + " %d\n" % r[-1])
     return mapfile, pedfile, genfile, truths
+
+
+# the input formats of the CLI's other input sets that write_cohort_files
+# writes; each returns {CLI flag (without "--"): path or paths}
+COHORT_FORMATS = ("merlin", "gigi", "ccoeff", "haps")
+
+
+def write_cohort_files(ped: Pedigree, dirpath, fmt: str, seed: int = 0):
+    """Write a ``simulate_f2`` cohort as the input set ``fmt`` of the CLI
+    (one of ``COHORT_FORMATS``) into ``dirpath``; returns {flag: path} for
+    the flags that read it (``--hapfiles`` gets a list).
+
+    Parents are written before their children: the founder pairs (the
+    first of each pair as the father), the implicit F1 pairs (the ``realf``
+    member as the father), then the F2s, whose parents are their F1 pair.
+    Genotypes are the observed ``markerdata`` (0 = unknown); the implicit
+    F1s carry none.
+    * ``merlin``: ``.map`` (``chrom name cM bp``) and ``.ped`` with a
+      phenotype column (``fam id father mother sex pheno a b ...``).
+    * ``gigi``: ``.map`` (``chrom name cM 0``) and ``.ped``; the Gigi map
+      holds one chromosome, so a cohort of more raises ValueError.
+    * ``ccoeff``: marker info, pedigree and genotypes.  Individuals are
+      named by their id ``n``; each F2 is a block of one (its four
+      grandparents, its F1 pair, itself).  The global marker numbering is a
+      seeded permutation of the map order with one extra marker on no
+      chromosome (its genotype column is skipped), and the per-sex maps
+      split each interval 1:3 (father:mother), averaging to the cohort's
+      map.
+    * ``haps``: ShapeIT ``.sample`` and ``.bim`` (bp = cM x 1e6), two
+      ``.haps`` files from the simulated truths (the maximum realisation;
+      then a sample in which a seeded half of the individuals switch phase
+      from a seeded marker on and a seeded 2% of the alleles are wrong),
+      PLINK ``.fam/.bed`` of the founders' and F2s' observed genotypes
+      (``io.plink.write_fam_bed``), and a VCF template (REF 1, ALT 2,
+      ``GT:DP``) over every sample.  The last marker is written as
+      monomorphic (both alleles 1), which the bed reader reads as a
+      hom-second-allele site."""
+    import os
+
+    from ..io.plink import write_fam_bed
+    if fmt not in COHORT_FORMATS:
+        raise ValueError(f"unknown format {fmt!r}: one of {COHORT_FORMATS}")
+    if fmt == "gigi" and ped.num_chromosomes != 1:
+        raise ValueError("the Gigi map holds one chromosome")
+    rng = np.random.default_rng(seed)
+    os.makedirs(dirpath, exist_ok=True)
+    M = ped.num_markers
+    inds = ped.inds[1:]
+    typed = [i for i in inds if not i.empty]
+    gen1 = [i for i in inds if i.empty]          # the implicit F1s
+    f2 = [ped.by_id(n) for n in ped.dous]
+    founders = [i for i in typed if not (i.pars[0] or i.pars[1])]
+    order = founders + gen1 + f2
+    fathers = {i.pars[0] for i in inds if i.pars[0]}
+    sex = {i.n: 1 if i.n in fathers else 2 for i in order}
+    chrom = np.zeros(M, dtype=int)
+    for c in range(ped.num_chromosomes):
+        lo, hi = ped.chromosome_range(c)
+        chrom[lo:hi] = c + 1
+    names = [f"m{k}" for k in range(M)]
+
+    def name(n):
+        return ped.by_id(n).name if n else "0"
+
+    def geno(ind):
+        md = ind.markerdata if not ind.empty else np.zeros((M, 2), int)
+        return " ".join(f"{a} {b}" for a, b in md)
+
+    def path(ext):
+        return os.path.join(dirpath, f"cohort.{ext}")
+
+    if fmt in ("merlin", "gigi"):
+        with open(path("map"), "w") as f:
+            for k in range(M):
+                extra = int(round(ped.markerposes[k] * 1e6)) \
+                    if fmt == "merlin" else 0
+                f.write(f"{chrom[k]} {names[k]} {ped.markerposes[k]:.6f} "
+                        f"{extra}\n")
+        with open(path("ped"), "w") as f:
+            for ind in order:
+                f.write(f"1 {ind.name} {name(ind.pars[0])} "
+                        f"{name(ind.pars[1])} {sex[ind.n]} 0 {geno(ind)}\n")
+        return {f"{fmt}map" if fmt == "merlin" else "gigimapfile":
+                path("map"),
+                "merlinped" if fmt == "merlin" else "gigipedfile":
+                path("ped")}
+
+    if fmt == "ccoeff":
+        perm = rng.permutation(M + 1)   # global number - 1 of map marker k
+        with open(path("info"), "w") as f:
+            f.write(f"{ped.num_chromosomes} {M + 1}\n")
+            for c in range(ped.num_chromosomes):
+                lo, hi = ped.chromosome_range(c)
+                f.write(f"{hi - lo} " + " ".join(
+                    str(perm[k] + 1) for k in range(lo, hi)) + "\n")
+            for c in range(ped.num_chromosomes):
+                lo, hi = ped.chromosome_range(c)
+                d = np.diff(ped.markerposes[lo:hi], prepend=0.0)
+                for t, share in enumerate((0.5, 1.5)):
+                    f.write(f"{t + 1} " + " ".join(
+                        f"{x:.6f}" for x in d * share) + "\n")
+        with open(path("ped"), "w") as f:
+            for kid in f2:
+                pf, pm = (ped.by_id(p) for p in kid.pars)
+                rows = [ped.by_id(g) for p in (pf, pm) for g in p.pars] + \
+                    [pf, pm, kid]
+                f.write("1\n")
+                for i, ind in enumerate(rows):
+                    strain = (founders.index(ind) % 2) + 1 if i < 4 else -1
+                    f.write(f"{ind.n} {ind.pars[0]} {ind.pars[1]} "
+                            f"{sex[ind.n]} {strain}\n")
+        col = np.argsort(perm)          # map marker of global number i + 1
+        with open(path("gen"), "w") as f:
+            for ind in founders + f2:
+                md = ind.markerdata
+                f.write(f"{ind.n} " + " ".join(
+                    f"{md[col[i], 0]} {md[col[i], 1]}" if col[i] < M
+                    else "0 0" for i in range(M + 1)) + "\n")
+        return {"markerinfo": path("info"), "ccoeffped": path("ped"),
+                "ccoeffgen": path("gen")}
+
+    # haps: every sample is an analysis unit of the haps reader
+    with open(path("sample"), "w") as f:
+        f.write("ID_1 ID_2 missing father mother sex plink_pheno\n"
+                "0 0 0 D D B\n")
+        for ind in order:
+            f.write(f"1 {ind.name} 0 {name(ind.pars[0])} "
+                    f"{name(ind.pars[1])} {sex[ind.n]} -9\n")
+    bp = np.round(ped.markerposes * 1e6).astype(np.int64)
+    alleles = [("1", "2")] * (M - 1) + [("1", "1")]
+    with open(path("bim"), "w") as f:
+        for k in range(M):
+            f.write(f"{chrom[k]} {names[k]} 0 {bp[k]} {alleles[k][0]} "
+                    f"{alleles[k][1]}\n")
+    truth = np.stack([ped.truths[i.n] for i in order], axis=1) - 1  # [M,N,2]
+    sampled = truth.copy()
+    N = len(order)
+    switch = rng.random(N) < 0.5
+    at = rng.integers(1, M, N)
+    for j in np.nonzero(switch)[0]:
+        sampled[at[j]:, j] = sampled[at[j]:, j, ::-1]
+    wrong = rng.random(sampled.shape) < 0.02
+    sampled[wrong] = 1 - sampled[wrong]
+    haps = []
+    for h, vals in enumerate((truth, sampled)):
+        haps.append(path(f"{h}.haps"))
+        with open(haps[-1], "w") as f:
+            for k in range(M):
+                f.write(f"{chrom[k]} {names[k]} {bp[k]} {alleles[k][0]} "
+                        f"{alleles[k][1]} " + " ".join(
+                            str(x) for x in vals[k].ravel()) + "\n")
+    write_fam_bed(ped, path("fam"), path("bed"),
+                  ids=[i.n for i in founders + f2])
+    with open(path("vcf"), "w") as f:
+        f.write("##fileformat=VCFv4.2\n##source=write_cohort_files\n"
+                "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t" +
+                "\t".join(i.name for i in order) + "\n")
+        for k in range(M):
+            f.write(f"{chrom[k]}\t{bp[k]}\t{names[k]}\t1\t2\t.\tPASS\t.\t"
+                    f"GT:DP\t" + "\t".join(["0|0:9"] * N) + "\n")
+    return {"samplefile": path("sample"), "bimfile": path("bim"),
+            "hapfiles": haps, "famfile": path("fam"), "bedfile": path("bed"),
+            "templatevcffile": path("vcf")}

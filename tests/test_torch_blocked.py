@@ -25,9 +25,13 @@ the port's own unblocked path (float64, on the CPU).
   relhaplo off, early plus one full iteration, through
   ``torch_port_util.run_pair`` (the port's rules patched into the JAX
   Driver) at that harness's tolerances.
-* Refusals: parent-pair swaps under blocking, resident=True with
-  marker_block, resident=True with parity mode (which itself runs
-  blocked: tests/test_torch_parity.py).
+* Refusals: parent-pair swaps under blocking, resident=True with a
+  marker_block that a chromosome exceeds (raised before any work),
+  resident=True with parity mode (which itself runs blocked:
+  tests/test_torch_parity.py); and resident=True with a marker_block that
+  no chromosome exceeds runs resident, unblocked: on 12 x 16 with block 16
+  the state of resident=True without a block, exactly (haploweights,
+  markersure, relhaplo, pair tables; float64, three iterations).
 * ``python -m cnf2freq_tpu_torch --markerblock 8`` on a 12 x 16 file set
   prints the numbers of the unblocked run, to 2e-5.
 """
@@ -49,7 +53,7 @@ from cnf2freq_tpu.hmm.transition import \
     transition_eigenvalues as jax_eigenvalues
 from cnf2freq_tpu.ops import scan_v2 as v2
 from cnf2freq_tpu.utils.simulate import simulate_f2
-from cnf2freq_tpu_torch import Driver
+from cnf2freq_tpu_torch import Driver, copy_pedigree
 from cnf2freq_tpu_torch.cli import main as port_main
 from cnf2freq_tpu_torch.config import MINFACTOR, ModelConfig, RuntimeParams
 from cnf2freq_tpu_torch.hmm.family import gather_family
@@ -273,15 +277,41 @@ def test_blocked_slice_matches_jax_driver():
     assert sum(runs["seen"]["winners"]) <= 1
 
 
-@pytest.mark.parametrize("refusal", ["parent_swap", "resident", "parity"])
+@pytest.mark.parametrize("refusal", ["parent_swap", "resident", "parity",
+                                     "resident_fits"])
 def test_blocked_refusals(refusal):
     d = Driver(port_simulate(n_f2=3, n_markers=8, seed=2),
                dtype=torch.float64, device="cpu")
     d.marker_block = 4
     if refusal == "resident":
         d.resident = True
-        with pytest.raises(ValueError, match="marker-blocked"):
+        with pytest.raises(ValueError, match="marker-blocked chromosomes: "
+                           "chromosome 0 has 8 markers, more than "
+                           "marker_block=4"):
             d.iterate(early=True)
+        assert d.state.iter == 0      # raised before any work
+    elif refusal == "resident_fits":
+        base = port_simulate(n_f2=12, n_markers=16)
+        drvs = []
+        for block in (16, None):
+            dr = Driver(copy_pedigree(base), dtype=torch.float64,
+                        device="cpu")
+            dr.resident, dr.marker_block = True, block
+            dr.preprocess()
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(Driver, "_chromosome_blocked", None)
+                for i in range(3):
+                    dr.iterate(early=(i == 0))
+            drvs.append(dr)
+        assert drvs[0]._use_resident()
+        for key in ("haploweight", "markersure", "relhaplo", "markerdata"):
+            a, b = (np.stack([getattr(i, key) for i in dr.ped.inds[1:]])
+                    for dr in drvs)
+            np.testing.assert_array_equal(a, b, err_msg=key)
+        tabs = [dr.pair_tables for dr in drvs]
+        assert tabs[0].keys() == tabs[1].keys()
+        for n in tabs[1]:
+            np.testing.assert_array_equal(tabs[0][n], tabs[1][n])
     elif refusal == "parity":
         # parity mode runs blocked (tests/test_torch_parity.py); what it
         # refuses is a forced resident iteration

@@ -23,7 +23,9 @@ JAX package's, and the reporters it runs.
   the re-estimated rates.  (A whole JAX Driver run with remapping costs
   more JAX tracing and compilation than this file's budget allows.)
 * No fallback: ``--device cuda`` without a card raises the Driver's error
-  and writes nothing; flags the port does not carry are refused.
+  and writes nothing; ``--model`` (not carried) is refused, and each flag
+  of another input set or ``--trace`` alone is an incomplete input set,
+  on which the port returns what the JAX CLI returns, with its message.
 """
 import json
 import os
@@ -128,10 +130,17 @@ def test_cuda_cli_fails_without_card(files, tmp_path):
 
 # the port carries the flip modes native and negshift, --parentswap with
 # negshift only (the JAX CLI's rule) and a numeric --markerblock; argparse
-# refuses the others
+# refuses the others, and --model
 ERRORS = {"--flipmode": "invalid choice: 'toulbar'",
           "--parentswap": "--parentswap requires --flipmode negshift",
           "--markerblock": "invalid int value: 'x'"}
+# flags of the other input sets, and --trace: alone, none makes an input
+# set
+INCOMPLETE = {"--trace", "--samplefile", "--bimfile", "--hapfiles",
+              "--famfile", "--bedfile", "--createhapfile", "--merlinmap",
+              "--merlinped", "--gigimapfile", "--gigipedfile", "--markerinfo",
+              "--ccoeffped", "--ccoeffgen", "--templatevcffile",
+              "--outputvcffile"}
 
 
 @pytest.mark.parametrize("flag", [
@@ -143,10 +152,24 @@ ERRORS = {"--flipmode": "invalid choice: 'toulbar'",
     ["--markerinfo", "m"], ["--ccoeffped", "c"], ["--ccoeffgen", "c"],
     ["--templatevcffile", "v"], ["--outputvcffile", "v"]],
     ids=lambda f: f[0].lstrip("-"))
-def test_cli_refuses_flags_it_does_not_carry(flag, capsys):
-    """Flags the port does not carry, a flip mode it does not carry, a
+def test_cli_refuses_flags_it_does_not_carry(flag, capsys, tmp_path,
+                                             monkeypatch):
+    """--model (not carried), a flip mode the port does not carry, a
     marker block that is not a number, and --parentswap without the
-    negshift flip mode (the JAX CLI's rule)."""
+    negshift flip mode (the JAX CLI's rule) are argparse errors; a flag of
+    another input set or --trace alone returns what the JAX CLI returns
+    for the same arguments (2), with its message, and writes nothing."""
+    monkeypatch.chdir(tmp_path)
+    if flag[0] in INCOMPLETE:
+        capsys.readouterr()
+        rc = port_main(["--device", "cpu"] + flag)
+        err = capsys.readouterr().err
+        assert rc == run_jax_cli(flag) == 2
+        assert err == capsys.readouterr().err
+        assert "--hapfiles without --samplefile" in err if \
+            flag[0] == "--hapfiles" else "need an input set" in err
+        assert not os.listdir(tmp_path)
+        return
     with pytest.raises(SystemExit) as ex:
         port_main(["--device", "cpu"] + flag)
     assert ex.value.code == 2

@@ -200,8 +200,12 @@ def run_pair(base, adaptive: bool, jax_resident: bool = False,
     preprocess and ``iters`` iterations (the first early): the port's
     Driver on its default iteration, the JAX Driver with
     ``resident=jax_resident``, and ``driver_attrs`` (flip_mode,
-    parent_swap, marker_block) set on both."""
+    parent_swap, marker_block) set on both.  Each Driver carries its
+    package's ``Tracer``; its metric records and span paths are kept."""
     from cnf2freq_tpu.driver import Driver as JaxDriver
+    from cnf2freq_tpu.utils.tracing import Tracer as JaxTracer
+
+    from cnf2freq_tpu_torch.utils.tracing import Tracer
 
     seen = {"anchors": [], "winners": [], "flat": [], "scored": [],
             "negshift_ties": []}
@@ -221,6 +225,7 @@ def run_pair(base, adaptive: bool, jax_resident: bool = False,
         dj.adaptive_relhaplo = adaptive
         dp = Driver(from_host(base), dtype=torch.float64, device="cpu",
                     adaptive_relhaplo=adaptive)
+        dj.tracer, dp.tracer = JaxTracer(), Tracer()
         for d in (dj, dp):
             for k, v in driver_attrs.items():
                 setattr(d, k, v)
@@ -232,7 +237,8 @@ def run_pair(base, adaptive: bool, jax_resident: bool = False,
                 pre=pre,
                 iters=[d.iterate(early=(i == 0)) for i in range(iters)],
                 post=state(d.ped), pairs=d.pair_tables,
-                export=d.export_state())
+                export=d.export_state(), metrics=d.tracer.metrics,
+                spans=set(d.tracer.spans))
     return out
 
 def check_iterations(runs, keys):
