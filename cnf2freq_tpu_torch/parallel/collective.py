@@ -1,6 +1,8 @@
 """Accumulator merging: per-family statistics folded onto per-individual
 rows with ``index_add_`` segment sums (port of the single-device part of
-``cnf2freq_tpu/parallel/collective.py``; no mesh).
+``cnf2freq_tpu/parallel/collective.py``; no mesh), added in index order
+on every device (``ordered_sums``), so that a rerun on the card
+reproduces every bit.
 
 Duplicate slots are folded with explicit broadcast sums over the 7x7
 same-individual mask, not a matrix product, so no TF32 rounding applies
@@ -11,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ..updates.scatter import _MOVEHAPLO_TINY, dup_masks
+from ..updates.scatter import _MOVEHAPLO_TINY, dup_masks, ordered_sums
 
 
 def _segment_sum(flat: torch.Tensor, rows: torch.Tensor, n: int):
@@ -19,7 +21,8 @@ def _segment_sum(flat: torch.Tensor, rows: torch.Tensor, n: int):
     (vacant-slot) bucket."""
     out = torch.zeros((n + 1,) + tuple(flat.shape[1:]), dtype=flat.dtype,
                       device=flat.device)
-    out.index_add_(0, rows.long(), flat)
+    with ordered_sums():
+        out.index_add_(0, rows.long(), flat)
     return out[:-1]
 
 
@@ -31,7 +34,8 @@ def merge_slot_stats(values: torch.Tensor, slot_ind: torch.Tensor,
     flat = values.movedim(2, 1).reshape((B * S, M) + tuple(values.shape[3:]))
     out = torch.zeros((num_individuals + 1, M) + tuple(values.shape[3:]),
                       dtype=values.dtype, device=values.device)
-    out.index_add_(0, slot_ind.reshape(B * S).long(), flat)
+    with ordered_sums():
+        out.index_add_(0, slot_ind.reshape(B * S).long(), flat)
     return out[1:]
 
 

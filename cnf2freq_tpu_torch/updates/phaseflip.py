@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..pedigree import Pedigree
+from .scatter import ordered_sums
 
 WEIGHT_CLAMP_LO = -1_000_000.0
 WEIGHT_CLAMP_HI = 25_000.0
@@ -126,12 +127,13 @@ def make_flip_scorer():
             w = _skew_terms(hw, rh, hb, hc, desc, M, halo)
             W = W - w[:, :, None] * tsel[None, None, :].to(W.dtype)
         # pattern sums: S[b, m, p] = sum_{t: pat[b,t]==p, allowed} W[b,m,t]
-        # (a scatter-add, exact and free of matrix-product rounding)
+        # (a scatter-add, free of matrix-product rounding, in turn order)
         Wa = W * allowed[:, None, :].to(W.dtype)
         idx_t = pat.long()[:, None, :].expand(B, M, T)
-        S = torch.zeros_like(W).scatter_add_(2, idx_t, Wa)
         reach = torch.zeros((B, T), dtype=W.dtype, device=W.device)
-        reach.scatter_add_(1, pat.long(), allowed.to(W.dtype))
+        with ordered_sums():
+            S = torch.zeros_like(W).scatter_add_(2, idx_t, Wa)
+            reach.scatter_add_(1, pat.long(), allowed.to(W.dtype))
         S = torch.where(reach[:, None, :] > 0, S, -torch.inf)
         gains = S.max(dim=2).values - S[:, :, 0]             # [B, M]
         mg = torch.where(gains > 1e-12, gains, 0.0).sum(dim=0)

@@ -512,3 +512,12 @@ def write_cohort_files(ped: Pedigree, dirpath, fmt: str, seed: int = 0):
     return {"samplefile": path("sample"), "bimfile": path("bim"),
             "hapfiles": haps, "famfile": path("fam"), "bedfile": path("bed"),
             "templatevcffile": path("vcf")}
+
+
+def argv_of(flags) -> list:
+    """The command-line arguments of ``write_cohort_files``' {flag:
+    path or paths}."""
+    out = []
+    for k, v in flags.items():
+        out += [f"--{k}"] + (list(v) if isinstance(v, list) else [v])
+    return out

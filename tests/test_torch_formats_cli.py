@@ -20,25 +20,17 @@ spare four JAX compiles):
 
 A departure the packages cannot avoid (ROADMAP Queue 3): the emission's
 phase factor collapses for a homozygous member whose two markersure
-values are exactly equal (``hmm.emission._collapse``, the reference's
-rule).  Each package's update computes the two sides in its own order, so
-at a homozygous marker they may come out equal in one package and apart
-by rounding in the other; the adjacent-phase coherence measured there,
-and so that unit's relhaplo and the haploweights that the relskew term
-pulls with it, then differ.  On the haps set one of the 38 units
-(F2_7) departs so in the third iteration, with every posterior,
-markerdata and markersure still equal.  The dump comparison allows exactly that: a dump
-block (individual, iteration) may differ in its haploweight and relhaplo
-columns alone, and only where the cause is shown: both CLIs' Drivers
-record, as each iteration starts, which (individual, marker) the
-collapse holds for, and a departed block's unit must have a member for
-which the two packages' records before that iteration differ.  The
-departed blocks are recorded.
+values are exactly equal, and each package's update order may decide the
+equality its own way (``utils.dumpcompare`` sets out the cause and the
+rules).  On the haps set one of the 38 units (F2_7) departs so in the
+third iteration, with every posterior, markerdata and markersure still
+equal.  Each departed dump block must meet those rules, and a set may
+hold at most ``MAX_DEPARTED`` of them.  Both CLIs' Drivers record the
+collapse flags as each iteration starts.
 """
 import json
 import os
 
-import numpy as np
 import pytest
 from torch_port_util import (CLI_ATOL, assert_same_numbers, numbers,
                              run_jax_cli)
@@ -46,39 +38,16 @@ from torch_port_util import (CLI_ATOL, assert_same_numbers, numbers,
 from cnf2freq_tpu.driver import Driver as JaxDriver
 from cnf2freq_tpu_torch.cli import main as port_main
 from cnf2freq_tpu_torch.driver import Driver
-from cnf2freq_tpu_torch.utils.simulate import (COHORT_FORMATS, simulate_f2,
+from cnf2freq_tpu_torch.utils.dumpcompare import (compare_dumps, dump_blocks,
+                                                  faults, recording_collapse)
+from cnf2freq_tpu_torch.utils.simulate import (COHORT_FORMATS, argv_of,
+                                               simulate_f2,
                                                write_cohort_files)
 
 RUNNERS = {"jax": (run_jax_cli, []), "port": (port_main, ["--device", "cpu"])}
 COUNT = 3
-# dump columns: haploweight, markerdata x 2, negshift, markersure x 2,
-# relhaplo, then the priors
-DEPARTING_COLUMNS = (0, 6)
-
-
-def argv_of(flags):
-    out = []
-    for k, v in flags.items():
-        out += [f"--{k}"] + (list(v) if isinstance(v, list) else [v])
-    return out
-
-
-def collapse_flags(ped):
-    """{id: [M] bool}: where the emission's phase factor collapses for
-    the individual (homozygous, the two markersure values equal)."""
-    return {i.n: (i.markerdata[:, 0] == i.markerdata[:, 1]) &
-            (i.markersure[:, 0] == i.markersure[:, 1]) for i in ped.inds[1:]}
-
-
-def recording(cls, seen):
-    """cls.iterate, recording (the pedigree's family slots, its collapse
-    flags) into ``seen`` as each iteration starts."""
-    real = cls.iterate
-
-    def iterate(self, *a, **kw):
-        seen.append((self.ped.family_slots, collapse_flags(self.ped)))
-        return real(self, *a, **kw)
-    return iterate
+# departed dump blocks a set may hold: one was seen (haps, F2_7)
+MAX_DEPARTED = 2
 
 
 @pytest.fixture(scope="module")
@@ -97,45 +66,9 @@ def runs(tmp_path_factory):
             if fmt == "haps":
                 argv += ["--outputvcffile", os.path.join(d, f"{tag}.vcf")]
             cls = JaxDriver if tag == "jax" else Driver
-            with pytest.MonkeyPatch.context() as mp:
-                mp.setattr(cls, "iterate", recording(cls, seen[tag]))
+            with recording_collapse(cls, seen[tag]):
                 assert run(argv) == 0
         out[fmt] = (d, flags, seen)
-    return out
-
-
-def dump_blocks(path):
-    """[(individual line, rows [M, columns])] of a dump, in order."""
-    blocks = []
-    with open(path) as f:
-        for line in f:
-            parts = line.split()
-            if len(parts) == 2:
-                blocks.append((line.strip(), []))
-            else:
-                blocks[-1][1].append([float(x) for x in parts])
-    return [(head, np.array(rows)) for head, rows in blocks]
-
-
-def departed_blocks(port_path, jax_path, seen):
-    """(iteration, individual line) of the dump blocks whose numbers differ
-    by more than CLI_ATOL, after checking that only the haploweight and
-    relhaplo columns do, and that the collapse flags of a member of the
-    block's unit differed between the two runs as that iteration
-    started."""
-    bp, bj = dump_blocks(port_path), dump_blocks(jax_path)
-    assert [h for h, _ in bp] == [h for h, _ in bj]
-    n_inds = len(bp) // COUNT
-    out = []
-    for i, ((head, a), (_, b)) in enumerate(zip(bp, bj)):
-        assert a.shape == b.shape
-        off = np.abs(a - b) > CLI_ATOL
-        if off.any():
-            assert set(np.nonzero(off)[1]) <= set(DEPARTING_COLUMNS), head
-            it, n = i // n_inds, int(head.split()[0])
-            (slots, fp), (_, fj) = seen["port"][it], seen["jax"][it]
-            assert any((fp[m] != fj[m]).any() for m in slots(n) if m), head
-            out.append((it, head))
     return out
 
 
@@ -145,9 +78,11 @@ def test_format_cli_parity(runs, fmt, record_property):
     assert_same_numbers(os.path.join(d, "port.output"),
                         os.path.join(d, "jax.output"))
     n_inds = len(dump_blocks(os.path.join(d, "port.dump"))) // COUNT
-    departed = departed_blocks(os.path.join(d, "port.dump"),
-                               os.path.join(d, "jax.dump"), seen)
-    record_property("departed_dump_blocks", departed)
+    _, departed = compare_dumps(
+        os.path.join(d, "port.dump"), os.path.join(d, "jax.dump"),
+        seen["port"], seen["jax"], COUNT, CLI_ATOL)
+    record_property("departed_dump_blocks", [tuple(d) for d in departed])
+    assert not faults(departed, MAX_DEPARTED)
     if fmt == "haps":
         with open(os.path.join(d, "port.vcf")) as fp, \
                 open(os.path.join(d, "jax.vcf")) as fj:

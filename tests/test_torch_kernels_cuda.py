@@ -442,3 +442,27 @@ def test_stats_rules_match_plain(card, case, layout, dtype):
             fbt, emptyslot=torch.ones_like(fbt.emptyslot))
         _close(pst.stats_bmns_rules(full, 0, *bmns, cfg),
                pst.stats_pallas(fbt, *bmns, cfg), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_merges_reproduce(card, dtype):
+    """The accumulator merges and the flip scorer's pattern sums add in
+    index order on the card (``ordered_sums``): two calls give the same
+    bits, and the same bits as the CPU's sums of the same terms."""
+    from cnf2freq_tpu_torch.parallel.collective import _segment_sum
+    from cnf2freq_tpu_torch.updates.scatter import ordered_sums
+    rng = np.random.default_rng(5)
+    rows = torch.as_tensor(rng.integers(0, 301, 7000))
+    vals = torch.as_tensor(rng.random((7000, 64, 2, 2)), dtype=dtype)
+    host = _segment_sum(vals, rows, 300)
+    got = [_segment_sum(vals.to(card), rows.to(card), 300).cpu()
+           for _ in range(2)]
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0], host)
+    idx = torch.as_tensor(rng.integers(0, 16, (50, 1, 128))).expand(
+        50, 64, 128)
+    w = torch.as_tensor(rng.random((50, 64, 128)), dtype=dtype)
+    host = torch.zeros_like(w).scatter_add_(2, idx, w)
+    with ordered_sums():
+        got = [torch.zeros_like(w.to(card)).scatter_add_(
+            2, idx.to(card), w.to(card)).cpu() for _ in range(2)]
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0], host)

@@ -229,3 +229,27 @@ def test_negshift_on_the_resident_iteration(base, parent_swap):
     assert not b["drv"]._use_resident()
     assert_same(a, b)
     assert any(i["inverted"] for i in a["infos"])
+
+
+@pytest.mark.parametrize("mode", [False, True], ids=["mode_off", "mode_on"])
+def test_ordered_sums_restore_the_mode(mode):
+    """``ordered_sums`` turns PyTorch's deterministic algorithms on within
+    its block and leaves the mode and its warn-only flag as it found them;
+    on the CPU the scatter sums are the same bits inside as outside."""
+    from cnf2freq_tpu_torch.updates.scatter import ordered_sums
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(mode, warn_only=True)
+    try:
+        rng = np.random.default_rng(0)
+        rows = torch.as_tensor(rng.integers(0, 5, 200))
+        vals = torch.as_tensor(rng.random((200, 3)))
+        plain = torch.zeros(5, 3, dtype=vals.dtype).index_add_(0, rows, vals)
+        with ordered_sums():
+            assert torch.are_deterministic_algorithms_enabled()
+            ordered = torch.zeros_like(plain).index_add_(0, rows, vals)
+        assert torch.are_deterministic_algorithms_enabled() is mode
+        assert torch.is_deterministic_algorithms_warn_only_enabled()
+        assert torch.equal(plain, ordered)
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
