@@ -21,7 +21,10 @@ Phases, in order, each printing its lines (any failure exits non-zero):
            statistics kernel's probe-rule entries (stats_rules,
            stats_bmns_rules: parity mode's form, one launch per dup-flip
            variant) on the same cohort gathered with 4 variants, every
-           variant against the plain twin, timed on variant 1
+           variant against the plain twin, timed on variant 1; the 4-state
+           sweep entry of the two-generation families (fb_small: NS = 2,
+           ng2; fb_small_nohaplo: NS = 1) at their 1000 x 192 inputs
+           (F1 parents typed, weights randomised) at the XLA scan's clip
   slice    simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20,
            seed=7) on cuda in float32 with adaptive_relhaplo=False (the
            v2 pipeline) on the host-gathered iteration (resident=False):
@@ -146,11 +149,38 @@ Phases, in order, each printing its lines (any failure exits non-zero):
            that a flip wins), unblocked and with marker_block=8: the same
            flip winners, haploweights, markersure and pair tables at rtol
            1e-10 / atol 1e-12
+  cli_models
+           (run with the CLI phases) the cli phase's 1000 x 192 files
+           through cli.main on the card in float32 with --model ng2 and
+           with --model nohaplo --lineorigin, --count 3 --output --dump:
+           stage seconds; fails on a nonzero return, a missing F2 block, a
+           non-finite number, a table row whose sum is more than 2e-5 from
+           1, the 4-state entry never launched or another kernel launched
+  slice_ng2, slice_nohaplo
+           family_ped's cohort (simulate_f2(n_f2=1000, n_markers=192,
+           n_founder_pairs=20, seed=7) under ModelConfig(numgen=2), and
+           under F2_NOHAPLO with founder flags cleared) in float32 through
+           the default Driver (resident) and once more with resident=False:
+           preprocess(), iterate(early=True), iterate() x 2; stage
+           seconds, synchronising calls per full iteration, peak memory;
+           fails on a non-finite output, a haploweight outside [0, 1], a
+           nohaplo pair-table row further from summing to 1 than float32's
+           rounding of the log-normalisers allows (family_row_tol), the
+           4-state entry (csrc/fb_small.cu) never launched or any 64-state
+           kernel launched
+  parity (families)
+           run_parity's 24 x 32 float64 cuda-vs-CPU check for ng2 (F1
+           parents typed from the simulated truth) and nohaplo, 3
+           iterations, resident and host-gathered, within its bounds
 The launch counters are set to 0 just before each slice, scan and CLI run
 and read just after it; the kernels line takes the launches of the v2
 kernels from slice, of the classic ones from slice_resident, of the
 sweep kernel's two blocked entries from slice_blocked, of stats_rules
-from slice_parity and of stats_bmns_rules from scan_parity.  The last
+from slice_parity, of stats_bmns_rules from scan_parity, and of the
+4-state entry (fb_small at NS = 2, fb_small_nohaplo at NS = 1) from the
+resident slice_ng2 and slice_nohaplo.  The kernels phase holds the
+4-state entry against its plain twin at both families' 1000 x 192 sweep
+inputs.  The last
 three lines are a JSON summary of the kernels, the card's name and power
 limit, and {"ok": true, "device":
 {...}}.  Imports nothing of JAX and nothing of the JAX package.
@@ -159,6 +189,7 @@ limit, and {"ok": true, "device":
 import collections
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -205,6 +236,15 @@ KERNELS = {
                     "cnf2freq_tpu/ops/stats_pallas.py:509", "parity"),
     "stats_bmns_rules": ("cnf2freq_tpu_torch/csrc/stats.cu",
                          "cnf2freq_tpu/ops/stats_pallas.py:612", "parity"),
+    # the 4-state sweeps of the two-generation families, a kernel for the
+    # JAX package's XLA lax.scan (no Pallas kernel lies on these paths):
+    # NS = 2 on the ng2 path, NS = 1 on the nohaplo path; one wrapper
+    # counts both (ops.fb.fb_sweeps_small)
+    "fb_small": ("cnf2freq_tpu_torch/csrc/fb_small.cu",
+                 "cnf2freq_tpu/hmm/forward_backward.py:97", "ng2"),
+    "fb_small_nohaplo": ("cnf2freq_tpu_torch/csrc/fb_small.cu",
+                         "cnf2freq_tpu/hmm/forward_backward.py:97",
+                         "nohaplo"),
 }
 # operations per unit of work, counted from each kernel's arithmetic (for
 # the bound; every kernel here is far below the card's compute balance):
@@ -218,7 +258,10 @@ KERNELS = {
 OPS = {"emission": 2880, "fb_sweep": 2 * 1152, "stats": 19800,
        "turn": 15872, "fb_classic": 2 * 1152, "stats_bmns": 19800,
        "fb_sweep_init": 2 * 1152, "fb_carry": 1152,
-       "stats_rules": 19800 + 576, "stats_bmns_rules": 19800 + 576}
+       "stats_rules": 19800 + 576, "stats_bmns_rules": 19800 + 576,
+       # per (unit, shift, marker) and direction: 4 x 4 (clip, emit, sum,
+       # divide) + two 4-point FWHTs (2 x 2 x 4) + 2 x 4 scalings + a log
+       "fb_small": 2 * 41, "fb_small_nohaplo": 2 * 41}
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12       # float32 outside the tensor cores
 # (rtol, atol) per dtype; f32 sweeps compound rounding over 192 markers
@@ -266,6 +309,9 @@ PARITY_RTOL, PARITY_ATOL = 1e-10, 1e-12
 # synchronising calls of slice_resident's two full iterations, which the
 # Tracer's spans (host clock only) must not raise
 RESIDENT_SYNCS = 4
+# float32's unit roundoff, for the nohaplo slice's row-sum bound
+# (family_row_tol)
+F32_U = 2.0 ** -24
 
 
 def fail(msg):
@@ -287,7 +333,9 @@ def wrappers():
             "fb_classic": pfb.fb_sweeps, "stats_bmns": pst.stats_pallas,
             "fb_sweep_init": ps.fb_sweeps, "fb_carry": ps.fb_carry,
             "stats_rules": pst.stats_rules,
-            "stats_bmns_rules": pst.stats_bmns_rules}
+            "stats_bmns_rules": pst.stats_bmns_rules,
+            "fb_small": pfb.fb_sweeps_small,
+            "fb_small_nohaplo": pfb.fb_sweeps_small}
 
 
 def cuda_rounds(fn, rounds, reps):
@@ -592,7 +640,90 @@ def check_kernels(dtype):
            cmp=as_accurate(ref64), launches_per_call=2)
     del e, got, ref64, e64
     torch.cuda.empty_cache()
+
+    # -- the 4-state sweeps of the two-generation families, at the
+    # emissions and eigenvalues their slices give them (1000 x 192)
+    for name, model in (("fb_small", "ng2"), ("fb_small_nohaplo",
+                                              "nohaplo")):
+        e, lam = family_sweep_inputs(model, dtype)
+        got = pfb.fb_sweeps_small(e, lam)
+        ref = pfb.fb_sweeps_reference(e, lam, pfb.XLA_CLIP)
+        torch.cuda.synchronize()
+        B, M, NS, _ = e.shape
+        record(name, got, ref, lambda: pfb.fb_sweeps_small(e, lam),
+               lambda: pfb.fb_sweeps_reference(e, lam, pfb.XLA_CLIP),
+               nbytes(e, lam, got), B * NS * M, cmp=compare_all,
+               NS=NS)
+        del e, got, ref
+    torch.cuda.empty_cache()
     return out
+
+
+def family_ped(model, n_f2=1000, n_markers=192, n_founder_pairs=20, seed=7,
+               typed_parents=False):
+    """The slice's cohort under a two-generation family's config (the
+    CLI's --model), founder flags cleared for the deep-walk family (the
+    reference's no-haplotyping fixtrees sets none), as the JAX package's
+    tests and its perf row for these families build it.  There the F1
+    parents carry no genotypes, so under ng2 fixtrees marks every F2 unit
+    a founder and its emission is the same in every state;
+    ``typed_parents`` gives the F1 parents their simulated genotypes
+    (error rate 0.02), so that the units are not founders."""
+    from cnf2freq_tpu_torch.cli import model_config
+    from cnf2freq_tpu_torch.utils.simulate import simulate_f2
+    ped = simulate_f2(n_f2=n_f2, n_markers=n_markers,
+                      n_founder_pairs=n_founder_pairs, seed=seed)
+    ped.config = model_config(model)
+    if ped.config.deep_walk:
+        for ind in ped.inds[1:]:
+            ind.founder = False
+    if typed_parents:
+        for ind in ped.inds[1:]:
+            if ind.empty and ind.n in ped.truths:
+                ind.markerdata[:] = ped.truths[ind.n]
+                ind.markersure[:] = 0.02
+                ind.empty = False
+    return ped
+
+
+def family_sweep_inputs(model, dtype):
+    """(e [1000, 192, NS, 4], lam [191, 4]) of a family's slice cohort on
+    the card (F1 parents typed, so that the ng2 emissions differ between
+    states), with randomised haploweights and error rates as
+    kernel_inputs makes them: its engine's emission (plain PyTorch, in
+    float64) and the transition eigenvalues, in ``dtype``."""
+    e, lam = _family_sweep_inputs64(model)
+    return e.to(dtype), lam.to(dtype)
+
+
+@functools.lru_cache(maxsize=2)
+def _family_sweep_inputs64(model):
+    from cnf2freq_tpu_torch.config import RuntimeParams
+    from cnf2freq_tpu_torch.hmm.family import gather_family
+    from cnf2freq_tpu_torch.hmm.transition import (interval_recomb,
+                                                   transition_eigenvalues)
+    dtype = torch.float64
+    ped = family_ped(model, typed_parents=True)
+    cfg = ped.config
+    for ind in ped.inds[1:]:
+        ped.fixtrees(ind.n)
+    ped.count_descendants()
+    fb = gather_family(ped, list(ped.dous), 0, ped.num_markers - 1)
+    rng = np.random.default_rng(7)
+    fb.hw = rng.uniform(0.05, 0.95, fb.hw.shape)
+    fb.ms = np.where(fb.md > 0, rng.uniform(0.0, 0.3, fb.ms.shape), fb.ms)
+    fbt = fb.to("cuda", dtype)
+    if cfg.deep_walk:
+        from cnf2freq_tpu_torch.engine_nohaplo import nohaplo_emission
+        e = nohaplo_emission(fbt, cfg, ci=True, dtype=dtype)
+    else:
+        from cnf2freq_tpu_torch.engine_ng2 import assemble_e_ng2, ng2_blocks
+        e = assemble_e_ng2(*ng2_blocks(fbt, cfg, dtype=dtype), fbt, cfg)
+    dists = torch.as_tensor(np.diff(ped.markerposes), dtype=dtype,
+                            device="cuda")
+    lam = transition_eigenvalues(cfg, interval_recomb(cfg, RuntimeParams(),
+                                                      dists)).to(dtype)
+    return e.contiguous(), lam
 
 
 @contextlib.contextmanager
@@ -834,12 +965,15 @@ def run_blocked_parity():
         fail("blocked and unblocked float64 runs disagree on the card")
 
 
-def run_parity(adaptive, iters=2, **driver_attrs):
+def run_parity(adaptive, iters=2, model="f2", **driver_attrs):
     """24 x 32 cohort, float64, ``iters`` iterations on cuda and on the
-    CPU, with ``driver_attrs`` set on both Drivers."""
+    CPU, with ``driver_attrs`` set on both Drivers; ``model`` a family of
+    the CLI's --model (family_ped's cohort; for ng2 the F1 parents carry
+    their simulated genotypes, so that their leaves, the updates and the
+    flips have information to work on)."""
     from cnf2freq_tpu_torch import Driver, copy_pedigree
-    from cnf2freq_tpu_torch.utils.simulate import simulate_f2
-    base = simulate_f2(n_f2=24, n_markers=32, n_founder_pairs=2, seed=11)
+    base = family_ped(model, n_f2=24, n_markers=32, n_founder_pairs=2,
+                      seed=11, typed_parents=model == "ng2")
     peds = {dev: copy_pedigree(base) for dev in ("cuda", "cpu")}
     drivers = {dev: Driver(p, dtype=torch.float64, device=dev,
                            adaptive_relhaplo=adaptive)
@@ -867,7 +1001,7 @@ def run_parity(adaptive, iters=2, **driver_attrs):
     moved = int((rh["cpu"] != 0.5).sum())
     ok = hw_err <= 1e-9 and rh_err <= 1e-9 and pair_err <= 1e-9 and \
         md_same and same_steps
-    say("parity", adaptive_relhaplo=adaptive,
+    say("parity", model=model, adaptive_relhaplo=adaptive,
         resident=drivers["cuda"]._use_resident(),
         marker_block=drivers["cuda"].marker_block,
         flip_mode=drivers["cuda"].flip_mode,
@@ -880,7 +1014,7 @@ def run_parity(adaptive, iters=2, **driver_attrs):
     if not ok:
         fail(f"cuda and CPU float64 runs disagree (adaptive={adaptive}, "
              f"{driver_attrs})")
-    if adaptive and not moved:
+    if adaptive and base.config.relskews and not moved:
         fail("parity: adaptive relhaplo left relhaplo at its loaded value")
 
 
@@ -1067,6 +1201,151 @@ def run_parity_mode(typed_parents=False, **driver_attrs):
              f"({driver_attrs})")
     if typed_parents and not any(winners["cpu"]):
         fail("parity mode: no flip won with typed parents")
+
+
+def family_row_tol(n_markers, loglik_per_unit):
+    """How far a float32 pair-table row of the nohaplo slice may sum from
+    1: the row is the state posterior, exp(fw_pre_f + bw_f - total) times
+    renormalised sweep rows, and the two log-normalisers are recursive
+    sums of n_markers float32 terms whose magnitudes add up to about the
+    unit's |log-likelihood| L; each carries at most n_markers * u * L of
+    rounding (the forward error bound of recursive summation), so the
+    row is off by at most 2 * n_markers * u * L to first order, plus the
+    share products' few ulps (1e-5).  On an NVIDIA H100 the slice's rows
+    were off by 1.28e-3 against 0.029 here (L = 1256 a unit, 192
+    markers)."""
+    return 2 * n_markers * F32_U * abs(loglik_per_unit) + 1e-5
+
+
+def run_family_slice(model, resident=None):
+    """A two-generation family's slice (family_ped at 1000 x 192) in
+    float32 through the Driver (its default, resident, iteration, or
+    ``resident``): preprocess(), iterate(early=True), iterate() x 2, with
+    each stage's seconds and synchronising calls, the peak memory, and
+    the 4-state entry's launches; fails on a non-finite output, a
+    haploweight outside [0, 1] (ng2), a pair-table row whose sum is
+    further from 1 than family_row_tol allows (nohaplo), the 4-state
+    entry never launched or any other kernel launched.  Returns its
+    launches."""
+    from cnf2freq_tpu_torch import Driver
+    phase = f"slice_{model}"
+    ped = family_ped(model)
+    drv = Driver(ped, dtype=torch.float32, device="cuda")
+    if resident is not None:
+        drv.resident = resident
+    w = wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in w.values():
+        fn.launches = 0
+    stages = [("preprocess", drv.preprocess),
+              ("iterate_early", lambda: drv.iterate(early=True)),
+              ("iterate_1", drv.iterate), ("iterate_2", drv.iterate)]
+    full_syncs, sites = 0, collections.Counter()
+    for name, fn in stages:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        here = collections.Counter()
+        with sync_counter(here):
+            out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        if name in ("iterate_1", "iterate_2"):
+            full_syncs += sum(here.values())
+            sites.update(here)
+        extra = {} if out is None else dict(
+            loglik=f"{out['loglik']:.6f}", hitnnn=out["hitnnn"],
+            inverted=out["inverted"])
+        say(phase, resident=drv._use_resident(), stage=name,
+            seconds=f"{sec:.3f}", syncs=sum(here.values()), **extra)
+        if out is not None and not math.isfinite(out["loglik"]):
+            fail(f"{phase}: non-finite log-likelihood after {name}")
+        if out is not None:
+            loglik = out["loglik"]
+    small = w["fb_small"].launches
+    others = {k: fn.launches for k, fn in w.items()
+              if fn is not w["fb_small"] and fn.launches}
+    peak = torch.cuda.max_memory_allocated()
+    hw = np.stack([ind.haploweight for ind in ped.inds[1:]])
+    tabs = np.stack(list(drv.pair_tables.values()))
+    finite = bool(np.isfinite(hw).all() and np.isfinite(tabs).all())
+    hw_ok = bool((hw >= 0).all() and (hw <= 1).all())
+    row_dev = float(np.abs(tabs.sum(axis=(-1, -2)) - 1).max())
+    row_tol = family_row_tol(ped.num_markers, loglik / len(ped.dous))
+    say(phase, resident=drv._use_resident(), fb_small_launches=small,
+        other_kernel_launches=json.dumps(others), finite=finite,
+        haploweights_in_range=hw_ok, pair_tables=len(drv.pair_tables),
+        pair_row_sum_max_dev=f"{row_dev:.3e}",
+        pair_row_sum_tol=f"{row_tol:.3e}",
+        peak_memory_gb=f"{peak / 1e9:.3f}",
+        full_iteration_syncs=full_syncs,
+        per_full_iteration=f"{full_syncs / 2:.1f}",
+        top_sites=json.dumps(sites.most_common(4)))
+    if not (finite and hw_ok):
+        fail(f"{phase}: non-finite or out-of-range outputs")
+    if ped.config.deep_walk and row_dev > row_tol:
+        fail(f"{phase}: a pair-table row sums {row_dev} away from 1")
+    if small <= 0:
+        fail(f"{phase}: the 4-state sweep entry never launched")
+    if others:
+        fail(f"{phase}: a 64-state kernel launched: {others}")
+    return small
+
+
+def run_cli_models(tmp, n_f2=1000):
+    """The cli phase's 1000 x 192 files through the CLI on the card
+    (float32) with --model ng2 and with --model nohaplo --lineorigin,
+    --count 3: every F2 block written, finite, table rows summing to 1
+    within CLI_ATOL, the 4-state entry launched and no other kernel."""
+    from cnf2freq_tpu_torch import cli
+    d = os.path.join(tmp, "cli")
+    io_args = ["--mapfile", os.path.join(d, "synth.map"), "--pedfile",
+               os.path.join(d, "synth.ped"), "--genfile",
+               os.path.join(d, "synth.gen"), "--count", "3"]
+    for model in ("ng2", "nohaplo"):
+        out = os.path.join(d, f"{model}.out")
+        argv = io_args + ["--model", model, "--output", out, "--dump",
+                          os.path.join(d, f"{model}.dump")]
+        tables = [(out, 4)]
+        if model == "nohaplo":
+            argv += ["--lineorigin", os.path.join(d, f"{model}.lo")]
+            tables.append((os.path.join(d, f"{model}.lo"), 3))
+        w = wrappers()
+        for fn in w.values():
+            fn.launches = 0
+        record, err = [], io.StringIO()
+        with timed_stages(record), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        small = w["fb_small"].launches
+        others = {k: fn.launches for k, fn in w.items()
+                  if fn is not w["fb_small"] and fn.launches}
+        secs = collections.defaultdict(float)
+        for stage, sec, _ in record:
+            secs[stage] += sec
+        say("cli_models", model=model, rc=rc, fb_small_launches=small,
+            other_kernel_launches=json.dumps(others),
+            seconds=json.dumps({k: round(v, 3) for k, v in secs.items()}))
+        if rc != 0:
+            fail(f"cli_models {model}: returned {rc}")
+        if small <= 0 or others:
+            fail(f"cli_models {model}: launches fb_small={small}, "
+                 f"others {others}")
+        for path, width in tables:
+            vals = numbers(path)
+            blocks = table_blocks(path, width)
+            f2 = [b for b in blocks if b.startswith("F2_")]
+            rows = np.concatenate(list(blocks.values()))
+            dev = float(np.abs(rows.sum(axis=1) - 1).max())
+            say("cli_models", model=model, output=os.path.basename(path),
+                f2_blocks=len(f2), rows=len(rows),
+                finite=bool(np.isfinite(vals).all()),
+                max_row_sum_dev=f"{dev:.2e}")
+            if len(f2) != n_f2 or not np.isfinite(vals).all() or \
+                    dev > CLI_ATOL:
+                fail(f"cli_models {model}: {path}: {len(f2)} F2 blocks, "
+                     f"a non-finite value or a row sum off by {dev}")
+        if not np.isfinite(numbers(os.path.join(d, f"{model}.dump"))).all():
+            fail(f"cli_models {model}: non-finite values in the dump")
 
 
 class Tee(io.TextIOBase):
@@ -1656,6 +1935,7 @@ def main():
         run_cli_parity(tmp)
         run_cli_formats(tmp, card)
         run_cli_formats_parity(tmp)
+        run_cli_models(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches.update(run_scan_parity())
@@ -1663,6 +1943,16 @@ def main():
     run_parity_mode()
     run_parity_mode(typed_parents=True)
     run_parity_mode(typed_parents=True, marker_block=8)
+    # the two-generation families: their slices on the default (resident)
+    # iteration, whose launches the summary reports, and host-gathered;
+    # then cuda against the CPU
+    launches["fb_small"] = run_family_slice("ng2")
+    run_family_slice("ng2", resident=False)
+    launches["fb_small_nohaplo"] = run_family_slice("nohaplo")
+    run_family_slice("nohaplo", resident=False)
+    for model in ("ng2", "nohaplo"):
+        for resident in (True, False):
+            run_parity(True, iters=3, model=model, resident=resident)
 
     f32 = checks[torch.float32]
     summary = [dict(name=k, route="cuda", source=src, replaces=rep,

@@ -47,6 +47,15 @@ flip stage of ``updates/refflips.py`` (host Python; under marker blocking
 over staged whole-chromosome weights), the host-gathered iteration, and a
 ``run()`` that skips iteration 0 as the reference main loop does.
 
+The two-generation families run through their engines
+(``engine.scan_merged`` dispatches by config): ng2 (``ModelConfig(
+numgen=2)``) with the 7-slot embedding for the correction inference and
+the variances, and the no-haplotyping deep walk (``F2_NOHAPLO``), whose
+iteration computes the posteriors and pair tables and updates nothing
+(no variances, anchors, turn weights, flips or parameter updates).
+Parity mode, marker blocking and the map re-estimation refuse them
+before any work (``_check_family_run``).
+
 The Driver runs on the card unless it is given ``device="cpu"``.
 
 Tracing: ``Driver.tracer`` (``utils/tracing.py``; a no-op ``NullTracer``
@@ -86,6 +95,7 @@ import torch
 from .config import (SEXMARKER, UNKNOWN, ZP_NO_EQUIVALENCE, ModelConfig,
                      RuntimeParams)
 from .engine import recomb_expectations, scan_merged
+from .engine_ng2 import embed7, ng3_equiv
 from .hmm.emission import build_blocks
 from .hmm.family import gather_family
 from .hmm.forward_backward import FBResult
@@ -181,12 +191,17 @@ class Driver:
                                "is available")
         self.ped = ped
         self.cfg: ModelConfig = ped.config
-        # (parity mode, like the JAX package's, needs numgen == 3 and the
-        # standard state space: the port carries no other model)
-        if self.cfg.numgen != 3 or not self.cfg.haplotyping \
-                or self.cfg.selfing or self.cfg.relskewstates:
+        if self.cfg.selfing or self.cfg.relskewstates:
             raise NotImplementedError(
-                "the port carries the default F2 haplotyping model only")
+                "the extended state spaces (selfing, relskew states) are not "
+                "ported yet (ROADMAP Queue 1, item 2.2)")
+        if self.cfg.numgen == 3 and not self.cfg.haplotyping:
+            raise NotImplementedError("a numgen == 3 model without "
+                                      "haplotyping has no engine")
+        if parity and self.cfg.numgen != 3:
+            raise NotImplementedError(
+                "parity mode emulates the reference's default build "
+                "(numgen==3, standard state space)")
         self.params = params or RuntimeParams()
         self.state = DriverState(scalefactor=self.params.scalefactor)
         self.dtype = _torch_dtype(dtype)
@@ -285,9 +300,10 @@ class Driver:
     def _chunk_size(self, n_units: int, m_markers: int,
                     with_coherence: bool = False) -> int:
         """Units per scan chunk.  "auto" on the card: half the free device
-        memory over the [M, 512] tensors a unit holds in the scan
-        (``UNIT_TENSORS``), in whole warps of units; on the CPU the whole
-        cohort."""
+        memory over the [M, NS * S] tensors a unit holds in the scan
+        (``UNIT_TENSORS``; NS * S = 512 in the 64-state space, 8 and 4 in
+        the two-generation families), in whole warps of units; on the
+        CPU the whole cohort."""
         if self.batch_size is None:
             return n_units
         if self.batch_size != "auto":
@@ -296,7 +312,8 @@ class Driver:
             return n_units
         free, _ = torch.cuda.mem_get_info(self.device)
         itemsize = torch.finfo(self.dtype).bits // 8
-        per_unit = UNIT_TENSORS[with_coherence] * m_markers * 512 * itemsize
+        per_unit = UNIT_TENSORS[with_coherence] * m_markers * \
+            self.cfg.numshifts * self.cfg.numtypes * itemsize
         bs = int(0.5 * free // per_unit)
         if bs >= n_units:
             return n_units
@@ -314,11 +331,14 @@ class Driver:
                 ped.count_descendants()
             for ind in ped.inds[1:]:
                 ped.fixtrees(ind.n)       # sets founder flags
-            with tr.span("variances"):
-                self._compute_variances()
+            if self.cfg.haplotyping:
+                # variances feed the phase-anchor choice (lockhaplos); the
+                # no-haplotyping family has no phases to anchor
+                with tr.span("variances"):
+                    self._compute_variances()
             with tr.span("lockhaplos"):
                 for ind in ped.inds[1:]:
-                    if ind.haploweight is not None:
+                    if self.cfg.haplotyping and ind.haploweight is not None:
                         for c in range(ped.num_chromosomes):
                             self._lockhaplos(ind, c)
 
@@ -363,11 +383,23 @@ class Driver:
     def _feasibility(self, chunk: int = 1024):
         """okvals[ind, m, r]: is any inheritance path with the focal's
         allele slot r as primary interpretation feasible (fixparents
-        check), at shift 0 over all paths."""
+        check), at shift 0 over all paths.  The deep-walk family pins the
+        focal interpretation (``engine_nohaplo.nohaplo_feasibility``); the
+        other two-generation family runs the block builders on its 7-slot
+        embedding."""
         ids = [ind.n for ind in self.ped.inds[1:]]
         parts = []
         for _, fb in self._family_chunks(ids, chunk):
-            blocks = build_blocks(fb, self.cfg, ci=True, dtype=self.dtype)
+            cfg = self.cfg
+            if cfg.deep_walk:
+                from .engine_nohaplo import nohaplo_feasibility
+                parts.append(nohaplo_feasibility(fb, cfg, ci=True,
+                                                 dtype=self.dtype).cpu()
+                             .numpy())
+                continue
+            if cfg.numgen == 2:
+                fb, cfg = embed7(fb), ng3_equiv(cfg)
+            blocks = build_blocks(fb, cfg, ci=True, dtype=self.dtype)
             pb0 = blocks.pb[0].sum(dim=-2)[..., 0]     # [B, M, r, fp]
             pb1 = blocks.pb[1].sum(dim=-2)[..., 0]
             e = blocks.froot[:, :, :, None, None, 0] * \
@@ -519,11 +551,15 @@ class Driver:
     def _compute_variances(self, chunk: int = 1024):
         """addvariance for every individual: per-marker informativeness
         from NO_EQUIVALENCE allele-difference probes, feeding the
-        phase-anchor choice."""
-        ped, cfg, dt = self.ped, self.cfg, self.dtype
+        phase-anchor choice (a two-generation family through its 7-slot
+        embedding)."""
+        ped, dt = self.ped, self.dtype
+        cfg = ng3_equiv(self.cfg) if self.cfg.numgen == 2 else self.cfg
         ids = [ind.n for ind in ped.inds[1:] if ind.haploweight is not None]
         p8 = torch.arange(8, device=self.device)
         for sub, fb in self._family_chunks(ids, chunk):
+            if self.cfg.numgen == 2:
+                fb = embed7(fb)
             V = [((((fb.flag2ignore[:, None] >> (1 + 3 * k)) & 7) & p8[None])
                   == 0).to(dt) for k in range(2)]               # [B, 8]
             sq = torch.zeros(fb.hw.shape[0::2], dtype=dt, device=self.device)
@@ -609,6 +645,7 @@ class Driver:
         if self.flip_mode not in ("native", "negshift"):
             raise ValueError(f"unknown flip_mode {self.flip_mode!r}")
         # (raises before any work on a combination it cannot run)
+        self._check_family_run()
         resident = self._use_resident()
         tr = self.tracer
         st = self.state
@@ -679,11 +716,11 @@ class Driver:
                 if self.remap_distances:
                     self._accumulate_recomb(fb, dists, res, rm, remap_acc)
                     self._count_recomb(remap_acc, len(chunk))
-                if not early:
+                if not early and cfg.haplotyping:
                     weight_parts.append(res.turn_weight)
                 del res
             winner = None
-            if not early:
+            if not early and cfg.haplotyping:
                 with tr.span("flips"):
                     winner = self._flips(dous, lo, hi, weight_parts, accum,
                                          ind_index, c, resident, swap_cands)
@@ -702,7 +739,12 @@ class Driver:
 
         any_inv = any(w is not None for w in winners)
         sf = 0.0 if any_inv else st.scalefactor
-        if resident:
+        if not cfg.haplotyping:
+            # every update hook of the reference sits behind
+            # `if (!full && HAPLOTYPING)` (cnF2freq.cpp:5554): without
+            # haplotyping an iteration is a posterior computation
+            hits = 0
+        elif resident:
             with tr.span("updates"):
                 hits, loglik = self._updates_resident(ids, accum, sf, loglik)
         else:
@@ -726,6 +768,34 @@ class Driver:
                   flips=sum(len(w.flips) for w in winners if w is not None))
         return dict(hitnnn=hits, inverted=any_inv,
                     scalefactor=st.scalefactor, loglik=float(loglik))
+
+    def _check_family_run(self):
+        """The runs a two-generation family cannot make, refused before
+        any work: marker blocking (the deep-walk engine is
+        whole-chromosome only, as in the JAX package; a blocked ng2
+        chromosome needs the family engines' blocked scan, ROADMAP Queue
+        1 item 2.3) and the genetic-map re-estimation (its expectations
+        come from the 7-slot blocks, in the JAX package too)."""
+        cfg, ped = self.cfg, self.ped
+        if cfg.numgen != 2:
+            return
+        if self.marker_block is not None:
+            if cfg.deep_walk:
+                raise NotImplementedError(
+                    "marker-blocked scans: the no-haplotyping deep-walk "
+                    "engine is whole-chromosome only")
+            for c in range(ped.num_chromosomes):
+                lo, hi = ped.chromosome_range(c)
+                if hi - lo > self.marker_block:
+                    raise NotImplementedError(
+                        f"marker-blocked scans of the numgen == 2 family "
+                        f"are not ported yet (ROADMAP Queue 1, item 2.3): "
+                        f"chromosome {c} has {hi - lo} markers, more than "
+                        f"marker_block={self.marker_block}")
+        if self.remap_distances:
+            raise NotImplementedError(
+                "genetic-map re-estimation needs numgen == 3 (its "
+                "recombination expectations come from the 7-slot blocks)")
 
     def _flips(self, dous, lo, hi, weight_parts, accum, ind_index, chrom,
                resident, swap_cands) -> Optional[FlipCandidate]:

@@ -1,15 +1,20 @@
 """Chromosome scan engine: one chromosome, one chunk of analysis units.
 
-Port of the standard-space branches of ``cnf2freq_tpu/engine.py``, with
-its rule: the feature-leading pipeline (ops/scan.py; emission, sweep,
-statistics and turn kernels) unless the scan carries adjacent-phase
-coherence, which runs the classic [B, M, NS, S] pipeline: emission
-blocks -> sweeps (csrc/fb_classic.cu) -> total log-likelihood ->
-statistics (the [B, M, NS, S] entry of csrc/stats.cu) -> turn weights ->
-phase coherence.  Two reporters run their own pass over a chunk: the
-line-origin classes (``line_origin``, a fresh forward/backward through
-csrc/fb_classic.cu) and the recombination expectations of the genetic-map
-re-estimation (``recomb_expectations``, from a scan's sweeps).
+Port of ``cnf2freq_tpu/engine.py`` for the standard state space and the
+two-generation families, with its rules.  A numgen == 2 config runs its
+dedicated engine: ``engine_ng2`` (4 states x 2 shift modes over 3 slots,
+with haplotyping) or ``engine_nohaplo`` (4 states, the deep 7-slot walk,
+no haplotyping); the extended state spaces (selfing, relskew states) are
+not carried.  The 64-state space runs the feature-leading pipeline
+(ops/scan.py; emission, sweep, statistics and turn kernels) unless the
+scan carries adjacent-phase coherence, which runs the classic
+[B, M, NS, S] pipeline: emission blocks -> sweeps (csrc/fb_classic.cu)
+-> total log-likelihood -> statistics (the [B, M, NS, S] entry of
+csrc/stats.cu) -> turn weights -> phase coherence.  Two reporters run
+their own pass over a chunk: the line-origin classes (``line_origin``, a
+fresh forward/backward through csrc/fb_classic.cu) and the recombination
+expectations of the genetic-map re-estimation (``recomb_expectations``,
+from a scan's sweeps).
 """
 
 from __future__ import annotations
@@ -22,14 +27,21 @@ from .config import ModelConfig, RuntimeParams
 from .hmm.family import FamilyBatch
 
 
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.selfing or cfg.relskewstates:
+        raise NotImplementedError(
+            "the extended state spaces (selfing, relskew states) are not "
+            "ported yet (ROADMAP Queue 1, item 2.2)")
+
+
 class ScanResult(NamedTuple):
     total: torch.Tensor        # [B] combined log-likelihoods
-    haplo_b12: torch.Tensor    # [B, M, 7, 2]
-    haplo_mask: torch.Tensor   # [B, M, 7] bool
-    inf_accum: torch.Tensor    # [B, M, 7, 2, 2]
+    haplo_b12: torch.Tensor    # [B, M, slots, 2]
+    haplo_mask: torch.Tensor   # [B, M, slots] bool
+    inf_accum: torch.Tensor    # [B, M, slots, 2, 2]
     pair: torch.Tensor         # [B, M, 2, 2]
     turn_weight: torch.Tensor  # [B, M, T]
-    coherence: torch.Tensor    # [B, M, 7] (neutral 0.5 unless measured)
+    coherence: torch.Tensor    # [B, M, slots] (0.5 unless measured)
     fw_pre: torch.Tensor       # [B, M, NS, S]
     bw: torch.Tensor
     fw_pre_f: torch.Tensor     # [B, M, NS]
@@ -47,10 +59,21 @@ def chromosome_scan(fb: FamilyBatch, dists: torch.Tensor, cfg: ModelConfig,
     it.  ``probe_rules`` (parity mode): the statistics with the
     ignoreflag2 rule 2-3 probe-dedup factors, averaged over the first
     ``n_variants`` dup-flip variants."""
-    if cfg.selfing or cfg.relskewstates or cfg.numgen != 3 \
-            or not cfg.haplotyping:
-        raise NotImplementedError(
-            "the port carries the default F2 haplotyping model only")
+    _check_family(cfg)
+    if cfg.numgen == 2:
+        if probe_rules:
+            raise NotImplementedError(
+                "probe dedup rules (parity mode) need numgen == 3")
+        if cfg.deep_walk:
+            from .engine_nohaplo import chromosome_scan_nohaplo
+            return chromosome_scan_nohaplo(fb, dists, cfg, params,
+                                           ratemat=ratemat)
+        from .engine_ng2 import chromosome_scan_ng2
+        return chromosome_scan_ng2(fb, dists, cfg, params, ratemat=ratemat,
+                                   with_coherence=with_coherence)
+    if not cfg.haplotyping:
+        raise NotImplementedError("a numgen == 3 model without haplotyping "
+                                  "has no engine")
     if not with_coherence:
         from .ops.scan import chromosome_scan_v2
         return chromosome_scan_v2(fb, dists, cfg, params, ratemat=ratemat,
@@ -93,8 +116,16 @@ def scan_merged(fb: FamilyBatch, dists: torch.Tensor, lut: torch.Tensor,
     onto per-individual rows (under ``probe_rules`` the infprob merge's
     duplicate-slot damping counts non-empty slots only, as the
     reference's reltreeordered holds only non-empty members).  Returns
-    (res, haplobase [NI, M], haplocount [NI, M], infacc [NI, M, 2, 2])."""
+    (res, haplobase [NI, M], haplocount [NI, M], infacc [NI, M, 2, 2]).
+    The numgen == 2 families take their engines' forms."""
     from .parallel.collective import merge_haplos, merge_infprobs
+    if cfg.numgen == 2 and not probe_rules:
+        if cfg.deep_walk:
+            from .engine_nohaplo import scan_merged_nohaplo as merged
+        else:
+            from .engine_ng2 import scan_merged_ng2 as merged
+        return merged(fb, dists, lut, ratemat, cfg, params, num_individuals,
+                      with_coherence=with_coherence)
     res = chromosome_scan(fb, dists, cfg, params,
                           with_coherence=with_coherence, ratemat=ratemat,
                           probe_rules=probe_rules, n_variants=n_variants)
@@ -110,8 +141,18 @@ def line_origin(fb: FamilyBatch, dists: torch.Tensor, cfg: ModelConfig,
                 params: RuntimeParams, ratemat=None) -> torch.Tensor:
     """Line-origin class posteriors [B, M, 3] of one chunk: the
     zeropropagate gstr reporter (``probes.line_origin_posterior``) on a
-    fresh forward/backward (port of the standard branch of
-    ``cnf2freq_tpu/engine.py::make_jitted_line_origin``)."""
+    fresh forward/backward (port of
+    ``cnf2freq_tpu/engine.py::make_jitted_line_origin``; the deep-walk
+    no-haplotyping family counts at its own depth,
+    ``engine_nohaplo.nohaplo_line_origin``)."""
+    _check_family(cfg)
+    if cfg.deep_walk:
+        from .engine_nohaplo import line_origin_nohaplo
+        return line_origin_nohaplo(fb, dists, cfg, params, ratemat=ratemat)
+    if cfg.numgen == 2:
+        raise NotImplementedError(
+            "no line-origin reporter for the numgen == 2 haplotyping family "
+            "(the JAX package's reporter builds 7-slot blocks only)")
     from .hmm.emission import assemble_e_all, build_blocks
     from .hmm.forward_backward import combined_loglik, forward_backward
     from .hmm.probes import line_origin_posterior, posterior_weight

@@ -2,11 +2,13 @@
 
 Port of ``cnf2freq_tpu/hmm/forward_backward.py`` (``FBResult``,
 ``forward_backward``, ``combined_loglik``).  The sweeps themselves are
-``ops.fb.fb_sweeps``: the plain twin of the TPU kernel for a CPU tensor,
-the CUDA kernel ``csrc/fb_classic.cu`` for a CUDA tensor.  The port has
-no XLA scan, so there is no ``use_pallas`` switch: the twin follows the
-TPU kernel (zero clip 1e-30, where the JAX package's XLA scan clips at
-1e-300).
+``ops.fb.fb_sweeps``: the plain twin for a CPU tensor, a CUDA kernel for
+a CUDA tensor (``csrc/fb_classic.cu`` for the 64-state space,
+``csrc/fb_small.cu`` for the 4-state families).  The port has no XLA
+scan, so there is no ``use_pallas`` switch; the clip follows the route
+the JAX package takes for the config: the TPU kernel's 1e-30 for the
+64-state space, the XLA scan's 1e-300 for the numgen == 2 families, which
+the JAX package always sweeps with that scan.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import MINFACTOR, ModelConfig, RuntimeParams
-from ..ops.fb import fb_sweeps
+from ..ops.fb import XLA_CLIP, ZERO_CLIP, fb_sweeps
 from .transition import interval_recomb, transition_eigenvalues
 
 
@@ -41,7 +43,8 @@ def forward_backward(e_all: torch.Tensor, dists: torch.Tensor,
     ratemat: optional [M-1, typebits] map rates."""
     r = interval_recomb(cfg, params, dists, ratemat=ratemat)
     lam = transition_eigenvalues(cfg, r).to(e_all.dtype)      # [M-1, S]
-    return FBResult(*fb_sweeps(e_all, lam))
+    clip = XLA_CLIP if cfg.numgen == 2 else ZERO_CLIP
+    return FBResult(*fb_sweeps(e_all, lam, clip))
 
 
 def combined_loglik(fb: FBResult, shiftignore: torch.Tensor) -> torch.Tensor:

@@ -269,6 +269,28 @@ def pair_chain(fbres: FBResult, e: torch.Tensor,
     return ((xt * y).sum(dim=-1) * w).sum(dim=-1)
 
 
+def pair_coherence_from_ej(fbres: FBResult, e_j: torch.Tensor,
+                           lam: torch.Tensor) -> torch.Tensor:
+    """C[b, m] from a phase-resolved emission tensor e_j
+    [B, M, j(2), NS, S]: the joint of the phase bit at markers m and m+1,
+    same / total; the last column is 0.5 padding.  Generic over the state
+    space (the 4-state engine's coherence)."""
+    B = fbres.fw_pre.shape[0]
+    logw = fbres.fw_pre_f[:, :-1, :] + fbres.bw_f[:, 1:, :]
+    logw = logw - logw.max(dim=-1, keepdim=True).values
+    w = torch.exp(logw)                                  # [B, M-1, NS]
+    x = fbres.fw_pre[:, :-1, None] * e_j[:, :-1]         # [B,M-1,j,NS,S]
+    xt = apply_transition(x, lam[:, None, None, :])
+    y = e_j[:, 1:] * fbres.bw[:, 1:, None]               # [B,M-1,j',NS,S]
+    jmat = torch.einsum("zmiag,zmjag,zma->zmij", xt, y, w)
+    tot = jmat.sum(dim=(-1, -2))
+    same = jmat[..., 0, 0] + jmat[..., 1, 1]
+    ok = tot > 0
+    c = torch.where(ok, same / torch.where(ok, tot, 1.0), 0.5)
+    pad = torch.full((B, 1), 0.5, dtype=e_j.dtype, device=e_j.device)
+    return torch.cat([c, pad], dim=1)
+
+
 def pair_coherence_from_parity(fbres: FBResult, e_par: torch.Tensor,
                                lam: torch.Tensor,
                                tot: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,7 @@
     python3 -m cnf2freq_tpu_torch.profile_slice [--out FILE.json]
         [--adaptive-relhaplo {on,off}] [--resident {auto,off}]
         [--flipmode {native,negshift}] [--markers M] [--spacing-cm CM]
-        [--markerblock N]
+        [--markerblock N] [--model {f2,ng2,nohaplo}]
 
 Runs a slice of ``chip_smoke.py``, simulate_f2(n_f2=1000, n_markers=192,
 n_founder_pairs=20, seed=7) in float32 on cuda, with adaptive relhaplo on
@@ -17,7 +17,10 @@ marker-blocked scan (``chip_smoke.py``'s ``slice_blocked`` is
 are timed as ``blocked.pass_a``, ``blocked.pass_b`` (the carry-only
 sweeps), ``blocked.pass_c`` (each block's sweeps, statistics, merges and
 turn weights) and ``blocked.followups`` (coherence and map
-re-estimation per block): preprocess(), the early
+re-estimation per block), and with ``--model ng2`` or ``nohaplo`` the
+two-generation families on the same cohort (``chip_smoke.py``'s
+``slice_ng2`` and ``slice_nohaplo``; their engines' sweeps and
+statistics timed as ``scan.*``): preprocess(), the early
 iteration, then two full iterations.  For each it prints the wall seconds
 of the whole call and of each driver stage (on the classic pipeline also
 the scan's own stages, ``scan.*``), timed on the host around calls
@@ -67,7 +70,14 @@ SCAN_STAGES = (("hmm.emission", "build_blocks"),
                ("hmm.emission", "assemble_e_all"),
                ("hmm.forward_backward", "forward_backward"),
                ("hmm.probes", "turn_weights_fast"),
-               ("hmm.probes", "phase_coherence"))
+               ("hmm.probes", "phase_coherence"),
+               # the two-generation engines' own references
+               ("engine_ng2", "forward_backward"),
+               ("engine_ng2", "haplo_stats_ng2"),
+               ("engine_ng2", "infprob_stats_ng2"),
+               ("engine_ng2", "turn_weights_fast"),
+               ("engine_nohaplo", "forward_backward"),
+               ("engine_nohaplo", "nohaplo_pair"))
 # the passes of the marker-blocked scan: (module, function, stage)
 BLOCKED_STAGES = (("ops.scan", "blocked_pass_a", "blocked.pass_a"),
                   ("ops.scan", "blocked_pass_b", "blocked.pass_b"),
@@ -138,6 +148,8 @@ def main(argv=None):
     ap.add_argument("--spacing-cm", type=float, default=1.0)
     ap.add_argument("--markerblock", type=int, default=None,
                     help="run chromosomes longer than this marker-blocked")
+    ap.add_argument("--model", choices=("f2", "ng2", "nohaplo"),
+                    default="f2", help="model family (the CLI's --model)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
@@ -145,10 +157,16 @@ def main(argv=None):
     from .utils.simulate import simulate_f2
     from torch.profiler import ProfilerActivity, profile
 
+    from .cli import model_config
     from .driver import Driver
     ped = simulate_f2(n_f2=1000, n_markers=args.markers,
                       marker_spacing_cm=args.spacing_cm, n_founder_pairs=20,
                       seed=7)
+    ped.config = model_config(args.model)
+    if ped.config.deep_walk:
+        # the reference's no-haplotyping fixtrees sets no founder flags
+        for ind in ped.inds[1:]:
+            ind.founder = False
     adaptive = args.adaptive_relhaplo == "on"
     drv = Driver(ped, dtype=torch.float32, device="cuda",
                  adaptive_relhaplo=adaptive)
@@ -167,6 +185,7 @@ def main(argv=None):
               if smi.returncode == 0 else "not read",
               "adaptive_relhaplo": adaptive, "flip_mode": drv.flip_mode,
               "resident": drv._use_resident(), "markers": args.markers,
+              "model": args.model,
               "marker_block": args.markerblock, "stages": {}}
     with stage_timers() as acc:
         for name, fn in calls:

@@ -1,6 +1,8 @@
 """Device-resident iteration state: accumulate, flip and update on the
-device (port of ``cnf2freq_tpu/resident.py``, the pieces the unmeshed F2
-haplotyping Driver uses).
+device (port of ``cnf2freq_tpu/resident.py``, the pieces the unmeshed
+Driver uses: the F2 model and the two-generation families, whose units
+hold 3 slots (ng2) or 7 (the deep-walk nohaplo family); every gather
+here takes the slot count from the batch).
 
 Per iteration the per-individual state (markerdata, markersure,
 haploweight, relhaplo) stays on the device as mirrors of the host
@@ -17,9 +19,12 @@ Not carried over, and why:
 * ``make_coherence_all`` serialises the per-slot coherence programs so
   that XLA's temporaries fit 16 GiB of TPU memory.  The port computes the
   coherence inside the classic scan (``engine.chromosome_scan(
-  with_coherence=True)``), and ``updates/scatter.scatter_coherence`` is
-  already the device form of ``scatter_coh``, so ``ResidentAccum.add_coh``
-  calls it;
+  with_coherence=True)``; the ng2 engine's per-slot coherence there is
+  ``coherence_slot_ng2``'s math, with no shared pair total), and
+  ``updates/scatter.scatter_coherence`` is already the device form of
+  ``scatter_coh``, so ``ResidentAccum.add_coh`` calls it.  The
+  no-haplotyping family measures no coherence and runs no update: its
+  resident iteration only accumulates (zeros) and reports;
 * ``make_scatter_coh_ext`` and ``make_scatter_coh_sharded`` wait for the
   extended model families and the mesh;
 * the padded marker layout (``_layout_prog``, ``_layout_prog_2d``, the
@@ -67,7 +72,7 @@ class ResidentAccum:
         self.inf[:, lo:hi] += inf_p
 
     def add_coh(self, lo: int, coh, slot_ind, descendants, lut):
-        """Scatter one chunk's coherence [B, Mc, 7] onto cnum/cden; the
+        """Scatter one chunk's coherence [B, Mc, slots] onto cnum/cden; the
         last marker has no right neighbour, so its interval coherence
         stays neutral."""
         coh = coh.clone()
@@ -217,7 +222,7 @@ class ScanCohort:
     md [NI+1, M, 2], ms [NI+1, M, 2], hw [NI+1, M] from the device
     mirrors, with row NI the vacant-slot sentinel (md 0, ms 0, hw 0.5).
     One cohort replaces the per-chunk host stacking and upload of
-    [B, 7, Mc]-shaped md/ms/hw."""
+    [B, slots, Mc]-shaped md/ms/hw."""
 
     def __init__(self, md, ms, hw):
         def with_sentinel(x, fill):
@@ -230,7 +235,8 @@ class ScanCohort:
 
 
 def gather_dev(cohort: ScanCohort, rows, lo: int, hi: int):
-    """md [B, 7, Mc, 2], ms [B, 7, Mc, 2], hw [B, 7, Mc] of one chunk:
-    rows [B, 7] (the sentinel row for a vacant slot), markers [lo, hi)."""
+    """md [B, S, Mc, 2], ms [B, S, Mc, 2], hw [B, S, Mc] of one chunk:
+    rows [B, S] (S slots a unit; the sentinel row for a vacant slot),
+    markers [lo, hi)."""
     return (cohort.md[rows, lo:hi], cohort.ms[rows, lo:hi],
             cohort.hw[rows, lo:hi])

@@ -53,7 +53,7 @@ def dup_masks(slot_ind: torch.Tensor):
 def scatter_coherence(slot_ind: torch.Tensor, descendants: torch.Tensor,
                       lo: int, coh: torch.Tensor, coh_num: torch.Tensor,
                       coh_den: torch.Tensor, lut: torch.Tensor) -> None:
-    """coh [B, M, 7] adjacent-phase coherence -> descendant-weighted sums
+    """coh [B, M, S] adjacent-phase coherence -> descendant-weighted sums
     on the individuals' rows of coh_num / coh_den [NI, M_total] (in place,
     columns lo..lo+M); every occupied slot contributes, so a duplicate
     member adds twice.  lut maps an individual id to its row."""

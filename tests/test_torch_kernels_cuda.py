@@ -466,3 +466,60 @@ def test_merges_reproduce(card, dtype):
         got = [torch.zeros_like(w.to(card)).scatter_add_(
             2, idx.to(card), w.to(card)).cpu() for _ in range(2)]
     assert torch.equal(got[0], got[1]) and torch.equal(got[0], host)
+
+
+def _small_inputs(card, dtype, NS, M, zero_rows=False, seed=13):
+    """e [B, M, NS, 4] and lam [M-1, 4] of a 4-state family, made with
+    numpy; ``zero_rows`` zeroes whole emission rows (every state of a
+    (unit, marker, shift)), so that a sweep meets a zero sum
+    (MINFACTOR) and restarts from zeros."""
+    rng = np.random.default_rng(seed)
+    B = 37
+    e = rng.uniform(0.0, 1.0, (B, M, NS, 4))
+    e[rng.random((B, M, NS, 4)) < 0.2] = 0.0
+    if zero_rows:
+        e[rng.random((B, M, NS)) < 0.15] = 0.0
+        e[0, :, 0] = 0.0
+    lam = np.prod(np.where(((np.arange(4)[:, None] >> np.arange(2)) & 1)
+                           == 1, 1.0 - 2.0 * rng.uniform(
+                               0.0, 0.4, (max(M - 1, 0), 1, 2)), 1.0),
+                  axis=-1)
+    return (torch.as_tensor(e, dtype=dtype, device=card),
+            torch.as_tensor(lam, dtype=dtype, device=card))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("NS", [1, 2])
+@pytest.mark.parametrize("case", ["M1", "M2", "zero_rows"])
+def test_fb_small_matches_plain(card, case, NS, dtype):
+    """The 4-state entry (csrc/fb_small.cu) against its plain twin at the
+    XLA scan's clip, at one and two markers and with zeroed emission rows
+    (MINFACTOR), NS = 1 (nohaplo) and NS = 2 (ng2)."""
+    M = {"M1": 1, "M2": 2, "zero_rows": 23}[case]
+    e, lam = _small_inputs(card, dtype, NS, M, zero_rows=case == "zero_rows")
+    before = pfb.fb_sweeps_small.launches
+    got = pfb.fb_sweeps(e, lam, pfb.XLA_CLIP)
+    assert pfb.fb_sweeps_small.launches == before + 1
+    ref = pfb.fb_sweeps_reference(e, lam, pfb.XLA_CLIP)
+    _close(got, ref, dtype)
+    if case == "zero_rows":
+        assert (got[4] == -1e15).any()
+
+
+def test_fb_small_wrapper_checks(card):
+    """An unsupported (NS, S) on the card raises; the 64-state entry keeps
+    its own clip."""
+    e, lam = _small_inputs(card, torch.float64, 2, 5)
+    for bad in (torch.zeros((3, 5, 4, 4), dtype=torch.float64, device=card),
+                torch.zeros((3, 5, 2, 8), dtype=torch.float64, device=card)):
+        with pytest.raises(ValueError):
+            pfb.fb_sweeps(bad, lam)
+    with pytest.raises(ValueError):
+        pfb.fb_sweeps_small(torch.zeros((3, 5, 8, 64), dtype=torch.float64,
+                                        device=card),
+                            torch.zeros((4, 64), dtype=torch.float64,
+                                        device=card))
+    before = (pfb.fb_sweeps.launches, pfb.fb_sweeps_small.launches)
+    with pytest.raises(ValueError):
+        pfb.fb_sweeps(e.transpose(0, 1), lam)
+    assert (pfb.fb_sweeps.launches, pfb.fb_sweeps_small.launches) == before
