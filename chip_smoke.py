@@ -24,7 +24,10 @@ Phases, in order, each printing its lines (any failure exits non-zero):
            variant against the plain twin, timed on variant 1; the 4-state
            sweep entry of the two-generation families (fb_small: NS = 2,
            ng2; fb_small_nohaplo: NS = 1) at their 1000 x 192 inputs
-           (F1 parents typed, weights randomised) at the XLA scan's clip
+           (F1 parents typed, weights randomised) at the XLA scan's clip;
+           the extended sweeps (fb_ext: V = 3 at the selfing slice's
+           inputs; fb_ext_relskewstates: V = 2 at the relskewstates
+           slice's, relhaplo drawn from U(0.2, 0.95)) at 1000 x 192
   slice    simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20,
            seed=7) on cuda in float32 with adaptive_relhaplo=False (the
            v2 pipeline) on the host-gathered iteration (resident=False):
@@ -151,11 +154,13 @@ Phases, in order, each printing its lines (any failure exits non-zero):
            1e-10 / atol 1e-12
   cli_models
            (run with the CLI phases) the cli phase's 1000 x 192 files
-           through cli.main on the card in float32 with --model ng2 and
-           with --model nohaplo --lineorigin, --count 3 --output --dump:
-           stage seconds; fails on a nonzero return, a missing F2 block, a
-           non-finite number, a table row whose sum is more than 2e-5 from
-           1, the 4-state entry never launched or another kernel launched
+           through cli.main on the card in float32 with --model ng2, with
+           --model nohaplo --lineorigin and with --model relskewstates,
+           and 1000 x 192 selfed-line files with --model selfing, --count
+           3 --output --dump: stage seconds; fails on a nonzero return, a
+           missing unit block, a non-finite number, a table row whose sum
+           is more than 2e-5 from 1, the family's sweep entry (fb_small or
+           fb_ext) never launched or another kernel launched
   slice_ng2, slice_nohaplo
            family_ped's cohort (simulate_f2(n_f2=1000, n_markers=192,
            n_founder_pairs=20, seed=7) under ModelConfig(numgen=2), and
@@ -172,13 +177,34 @@ Phases, in order, each printing its lines (any failure exits non-zero):
            run_parity's 24 x 32 float64 cuda-vs-CPU check for ng2 (F1
            parents typed from the simulated truth) and nohaplo, 3
            iterations, resident and host-gathered, within its bounds
+  slice_selfing, slice_relskewstates
+           the extended state spaces' cohorts (simulate_selfed(
+           n_lines=1000, n_markers=192, generations=4,
+           marker_spacing_cm=1.0, seed=3) under ModelConfig(selfing=True),
+           16 probe-dedup variants; simulate_f2(n_f2=1000, n_markers=192,
+           n_founder_pairs=20, seed=7) under ModelConfig(
+           relskewstates=True)) in float32 through the default Driver
+           (resident, adaptive relhaplo) and once more with
+           resident=False: preprocess(), iterate(early=True), iterate() x
+           2, then one more full iteration split by stage (synchronised;
+           the engine's stages as ext.*); stage seconds, synchronising
+           calls, chunk size, peak memory; fails on a non-finite output, a
+           haploweight outside [0, 1], a relhaplo outside [1e-4, 1 - 1e-4]
+           or none moved, fb_ext never launched or any other kernel
+           launched
+  parity (extended)
+           run_parity's 24 x 32 float64 cuda-vs-CPU check for selfing
+           (simulate_selfed(24, 32, seed=11)) and relskewstates, 3
+           iterations, resident and host-gathered
 The launch counters are set to 0 just before each slice, scan and CLI run
 and read just after it; the kernels line takes the launches of the v2
 kernels from slice, of the classic ones from slice_resident, of the
 sweep kernel's two blocked entries from slice_blocked, of stats_rules
 from slice_parity, of stats_bmns_rules from scan_parity, and of the
 4-state entry (fb_small at NS = 2, fb_small_nohaplo at NS = 1) from the
-resident slice_ng2 and slice_nohaplo.  The kernels phase holds the
+resident slice_ng2 and slice_nohaplo, and of the extended sweeps (fb_ext
+at V = 3, fb_ext_relskewstates at V = 2) from the resident slice_selfing
+and slice_relskewstates.  The kernels phase holds the
 4-state entry against its plain twin at both families' 1000 x 192 sweep
 inputs.  The last
 three lines are a JSON summary of the kernels, the card's name and power
@@ -245,6 +271,15 @@ KERNELS = {
     "fb_small_nohaplo": ("cnf2freq_tpu_torch/csrc/fb_small.cu",
                          "cnf2freq_tpu/hmm/forward_backward.py:97",
                          "nohaplo"),
+    # the extended state spaces' sweeps, a kernel for the JAX package's
+    # two XLA lax.scans of engine_ext.extended_forward_backward (forward
+    # at :191, backward at :210): V = 3 on the selfing path, V = 2 on the
+    # relskewstates path; one wrapper counts both (ops.fb.fb_ext)
+    "fb_ext": ("cnf2freq_tpu_torch/csrc/fb_ext.cu",
+               "cnf2freq_tpu/engine_ext.py:191", "selfing"),
+    "fb_ext_relskewstates": ("cnf2freq_tpu_torch/csrc/fb_ext.cu",
+                             "cnf2freq_tpu/engine_ext.py:191",
+                             "relskewstates"),
 }
 # operations per unit of work, counted from each kernel's arithmetic (for
 # the bound; every kernel here is far below the card's compute balance):
@@ -261,7 +296,12 @@ OPS = {"emission": 2880, "fb_sweep": 2 * 1152, "stats": 19800,
        "stats_rules": 19800 + 576, "stats_bmns_rules": 19800 + 576,
        # per (unit, shift, marker) and direction: 4 x 4 (clip, emit, sum,
        # divide) + two 4-point FWHTs (2 x 2 x 4) + 2 x 4 scalings + a log
-       "fb_small": 2 * 41, "fb_small_nohaplo": 2 * 41}
+       "fb_small": 2 * 41, "fb_small_nohaplo": 2 * 41,
+       # per (unit, shift, marker) and direction, V rows of 64: 4 (clip,
+       # emit, sum, divide) + two 6-stage FWHTs (12) + 2 scalings + the
+       # [V, V] mix (2V) per state, and a log
+       "fb_ext": 2 * (3 * 64 * (18 + 2 * 3) + 1),
+       "fb_ext_relskewstates": 2 * (2 * 64 * (18 + 2 * 2) + 1)}
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12       # float32 outside the tensor cores
 # (rtol, atol) per dtype; f32 sweeps compound rounding over 192 markers
@@ -335,7 +375,8 @@ def wrappers():
             "stats_rules": pst.stats_rules,
             "stats_bmns_rules": pst.stats_bmns_rules,
             "fb_small": pfb.fb_sweeps_small,
-            "fb_small_nohaplo": pfb.fb_sweeps_small}
+            "fb_small_nohaplo": pfb.fb_sweeps_small,
+            "fb_ext": pfb.fb_ext, "fb_ext_relskewstates": pfb.fb_ext}
 
 
 def cuda_rounds(fn, rounds, reps):
@@ -656,6 +697,21 @@ def check_kernels(dtype):
                NS=NS)
         del e, got, ref
     torch.cuda.empty_cache()
+
+    # -- the extended sweeps at the selfing (V = 3) and relskewstates
+    # (V = 2) slices' inputs (1000 x 192)
+    for name, model in (("fb_ext", "selfing"),
+                        ("fb_ext_relskewstates", "relskewstates")):
+        args = ext_sweep_inputs(model, dtype)
+        got = pfb.fb_ext(*args)
+        ref = pfb.fb_ext_reference(*args)
+        torch.cuda.synchronize()
+        B, M, V, NS, _ = args[0].shape
+        record(name, got, ref, lambda: pfb.fb_ext(*args),
+               lambda: pfb.fb_ext_reference(*args),
+               nbytes(args, got), B * NS * M, cmp=compare_all, V=V)
+        del args, got, ref
+        torch.cuda.empty_cache()
     return out
 
 
@@ -668,9 +724,16 @@ def family_ped(model, n_f2=1000, n_markers=192, n_founder_pairs=20, seed=7,
     parents carry no genotypes, so under ng2 fixtrees marks every F2 unit
     a founder and its emission is the same in every state;
     ``typed_parents`` gives the F1 parents their simulated genotypes
-    (error rate 0.02), so that the units are not founders."""
+    (error rate 0.02), so that the units are not founders.  ``selfing``
+    is simulate_selfed(n_lines=n_f2, n_markers, generations=4,
+    marker_spacing_cm=1.0, seed), the selfed cohort of the JAX package's
+    extended perf row (bench/ext_perf.py)."""
     from cnf2freq_tpu_torch.cli import model_config
-    from cnf2freq_tpu_torch.utils.simulate import simulate_f2
+    from cnf2freq_tpu_torch.utils.simulate import simulate_f2, simulate_selfed
+    if model == "selfing":
+        return simulate_selfed(n_lines=n_f2, n_markers=n_markers,
+                               generations=4, marker_spacing_cm=1.0,
+                               seed=seed)
     ped = simulate_f2(n_f2=n_f2, n_markers=n_markers,
                       n_founder_pairs=n_founder_pairs, seed=seed)
     ped.config = model_config(model)
@@ -724,6 +787,56 @@ def _family_sweep_inputs64(model):
     lam = transition_eigenvalues(cfg, interval_recomb(cfg, RuntimeParams(),
                                                       dists)).to(dtype)
     return e.contiguous(), lam
+
+
+def ext_sweep_inputs(model, dtype):
+    """(e [1000, 192, V, 8, 64], lam [191, 64], C [1000, 191, V, V],
+    prior [1000, V]) of an extended slice's cohort (ext_ped) on the card,
+    with randomised haploweights and error rates as kernel_inputs makes
+    them and, under relskewstates, relhaplo drawn from U(0.2, 0.95) so
+    that the coupling is not flat: the engine's emissions (plain PyTorch,
+    in float64), eigenvalues, coupling and prior, in ``dtype``."""
+    return tuple(x.to(dtype) for x in _ext_sweep_inputs64(model))
+
+
+@functools.lru_cache(maxsize=2)
+def _ext_sweep_inputs64(model):
+    from cnf2freq_tpu_torch import engine_ext as E
+    from cnf2freq_tpu_torch.config import RuntimeParams
+    from cnf2freq_tpu_torch.hmm.family import gather_family
+    dtype = torch.float64
+    ped = ext_ped(model)
+    cfg, params = ped.config, RuntimeParams()
+    rng = np.random.default_rng(7)
+    if cfg.relskewstates:
+        for ind in ped.inds[1:]:
+            if ind.relhaplo is not None:
+                ind.relhaplo[:] = rng.uniform(0.2, 0.95, ind.relhaplo.shape)
+    for ind in ped.inds[1:]:
+        ped.fixtrees(ind.n)
+    ped.count_descendants()
+    fb = gather_family(ped, list(ped.dous), 0, ped.num_markers - 1,
+                       n_variants=1)
+    fb.hw = rng.uniform(0.05, 0.95, fb.hw.shape)
+    fb.ms = np.where(fb.md > 0, rng.uniform(0.0, 0.3, fb.ms.shape), fb.ms)
+    fbt = fb.to("cuda", dtype)
+    _, e, _, _ = E.ext_blocks(fbt, cfg, dtype=dtype)
+    dists = torch.as_tensor(np.diff(ped.markerposes), dtype=dtype,
+                            device="cuda")
+    return (e.contiguous(), E._lam(cfg, params, dists, dtype),
+            E._vcoupling(fbt, cfg, params, dists, dtype).contiguous(),
+            E._prior(fbt, cfg, dtype))
+
+
+def ext_ped(model, n_units=1000, n_markers=192, seed=None):
+    """An extended slice's cohort: simulate_selfed(n_lines=1000,
+    n_markers=192, generations=4, marker_spacing_cm=1.0, seed=3) under
+    SELFING, or simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20,
+    seed=7) under RELSKEWSTATES (the JAX package's extended perf rows,
+    bench/ext_perf.py:54-62)."""
+    if seed is None:
+        seed = 3 if model == "selfing" else 7
+    return family_ped(model, n_f2=n_units, n_markers=n_markers, seed=seed)
 
 
 @contextlib.contextmanager
@@ -1292,17 +1405,121 @@ def run_family_slice(model, resident=None):
     return small
 
 
+def run_ext_slice(model, resident=None):
+    """An extended slice (ext_ped at 1000 x 192) in float32 through the
+    Driver (its default, resident, iteration, or ``resident``):
+    preprocess(), iterate(early=True), iterate() x 2, with each stage's
+    seconds and synchronising calls, then one more full iteration under
+    profile_slice's stage timers (synchronised: the engine's stages as
+    ``ext.*``), the peak memory and fb_ext's launches; fails on a
+    non-finite output, a haploweight outside [0, 1], a relhaplo outside
+    [1e-4, 1 - 1e-4] or none moved, fb_ext never launched or any other
+    kernel launched.  Returns fb_ext's launches in the first four
+    stages."""
+    from cnf2freq_tpu_torch import Driver
+    from cnf2freq_tpu_torch.profile_slice import stage_timers
+    phase = f"slice_{model}"
+    ped = ext_ped(model)
+    rh0 = np.stack([ind.relhaplo for ind in ped.inds[1:]]).copy()
+    drv = Driver(ped, dtype=torch.float32, device="cuda")
+    if resident is not None:
+        drv.resident = resident
+    w = wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in w.values():
+        fn.launches = 0
+    stages = [("preprocess", drv.preprocess),
+              ("iterate_early", lambda: drv.iterate(early=True)),
+              ("iterate_1", drv.iterate), ("iterate_2", drv.iterate)]
+    full_syncs, sites = 0, collections.Counter()
+    for name, fn in stages:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        here = collections.Counter()
+        with sync_counter(here):
+            out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        if name in ("iterate_1", "iterate_2"):
+            full_syncs += sum(here.values())
+            sites.update(here)
+        extra = {} if out is None else dict(
+            loglik=f"{out['loglik']:.6f}", hitnnn=out["hitnnn"],
+            inverted=out["inverted"])
+        say(phase, resident=drv._use_resident(), stage=name,
+            seconds=f"{sec:.3f}", syncs=sum(here.values()), **extra)
+        if out is not None and not math.isfinite(out["loglik"]):
+            fail(f"{phase}: non-finite log-likelihood after {name}")
+    launches = w["fb_ext"].launches
+    others = {k: fn.launches for k, fn in w.items()
+              if fn is not w["fb_ext"] and fn.launches}
+    chunk = drv._chunk_size(len(ped.dous), ped.num_markers, True)
+    with stage_timers() as acc:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drv.iterate()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    split = {k: round(v, 3) for k, v in sorted(acc.items(),
+                                                key=lambda kv: -kv[1])}
+    say(phase, resident=drv._use_resident(), stage="iterate_3_split",
+        seconds=f"{total:.3f}", split="synchronised",
+        stages=json.dumps(split))
+    peak = torch.cuda.max_memory_allocated()
+    hw = np.stack([ind.haploweight for ind in ped.inds[1:]])
+    rh = np.stack([ind.relhaplo for ind in ped.inds[1:]])
+    tabs = np.stack(list(drv.pair_tables.values()))
+    finite = bool(np.isfinite(hw).all() and np.isfinite(tabs).all()
+                  and np.isfinite(rh).all())
+    hw_ok = bool((hw >= 0).all() and (hw <= 1).all())
+    moved = int((rh != rh0).sum())
+    say(phase, resident=drv._use_resident(), fb_ext_launches=launches,
+        other_kernel_launches=json.dumps(others), chunk_units=chunk,
+        n_variants=drv._n_variants(), finite=finite,
+        haploweights_in_range=hw_ok, pair_tables=len(drv.pair_tables),
+        relhaplo_moved=moved, relhaplo_min=f"{rh.min():.6g}",
+        relhaplo_max=f"{rh.max():.6g}",
+        peak_memory_gb=f"{peak / 1e9:.3f}",
+        full_iteration_syncs=full_syncs,
+        per_full_iteration=f"{full_syncs / 2:.1f}",
+        top_sites=json.dumps(sites.most_common(4)))
+    if not (finite and hw_ok):
+        fail(f"{phase}: non-finite or out-of-range outputs")
+    if moved == 0:
+        fail(f"{phase}: no relhaplo moved from its loaded value")
+    if rh.min() < RELHAPLO_CLIP or rh.max() > 1 - RELHAPLO_CLIP:
+        fail(f"{phase}: relhaplo outside [1e-4, 1 - 1e-4]")
+    if launches <= 0:
+        fail(f"{phase}: fb_ext never launched")
+    if others:
+        fail(f"{phase}: another kernel launched: {others}")
+    return launches
+
+
 def run_cli_models(tmp, n_f2=1000):
     """The cli phase's 1000 x 192 files through the CLI on the card
-    (float32) with --model ng2 and with --model nohaplo --lineorigin,
-    --count 3: every F2 block written, finite, table rows summing to 1
-    within CLI_ATOL, the 4-state entry launched and no other kernel."""
+    (float32) with --model ng2, with --model nohaplo --lineorigin and
+    with --model relskewstates, and simulate_plantimpute_selfed_files(
+    n_lines=1000, n_markers=192, generations=4, spacing_cm=1.0, seed=3)
+    with --model selfing, --count 3: every F2 (or line) block written,
+    finite, table rows summing to 1 within CLI_ATOL, the family's sweep
+    entry launched (fb_small for the two-generation families, fb_ext for
+    the extended ones) and no other kernel."""
     from cnf2freq_tpu_torch import cli
+    from cnf2freq_tpu_torch.utils.simulate import \
+        simulate_plantimpute_selfed_files
     d = os.path.join(tmp, "cli")
-    io_args = ["--mapfile", os.path.join(d, "synth.map"), "--pedfile",
-               os.path.join(d, "synth.ped"), "--genfile",
-               os.path.join(d, "synth.gen"), "--count", "3"]
-    for model in ("ng2", "nohaplo"):
+    selfed = simulate_plantimpute_selfed_files(
+        os.path.join(tmp, "cli_selfed"), n_lines=n_f2, n_markers=192,
+        generations=4, spacing_cm=1.0, seed=3)[:3]
+    for model in ("ng2", "nohaplo", "selfing", "relskewstates"):
+        files = selfed if model == "selfing" else [
+            os.path.join(d, f"synth.{x}") for x in ("map", "ped", "gen")]
+        io_args = ["--mapfile", files[0], "--pedfile", files[1],
+                   "--genfile", files[2], "--count", "3"]
+        kernel = "fb_ext" if model in ("selfing", "relskewstates") \
+            else "fb_small"
         out = os.path.join(d, f"{model}.out")
         argv = io_args + ["--model", model, "--output", out, "--dump",
                           os.path.join(d, f"{model}.dump")]
@@ -1316,33 +1533,34 @@ def run_cli_models(tmp, n_f2=1000):
         record, err = [], io.StringIO()
         with timed_stages(record), contextlib.redirect_stderr(err):
             rc = cli.main(argv)
-        small = w["fb_small"].launches
+        small = w[kernel].launches
         others = {k: fn.launches for k, fn in w.items()
-                  if fn is not w["fb_small"] and fn.launches}
+                  if fn is not w[kernel] and fn.launches}
         secs = collections.defaultdict(float)
         for stage, sec, _ in record:
             secs[stage] += sec
-        say("cli_models", model=model, rc=rc, fb_small_launches=small,
-            other_kernel_launches=json.dumps(others),
+        say("cli_models", model=model, rc=rc, kernel=kernel,
+            launches=small, other_kernel_launches=json.dumps(others),
             seconds=json.dumps({k: round(v, 3) for k, v in secs.items()}))
         if rc != 0:
             fail(f"cli_models {model}: returned {rc}")
         if small <= 0 or others:
-            fail(f"cli_models {model}: launches fb_small={small}, "
+            fail(f"cli_models {model}: launches {kernel}={small}, "
                  f"others {others}")
         for path, width in tables:
             vals = numbers(path)
             blocks = table_blocks(path, width)
-            f2 = [b for b in blocks if b.startswith("F2_")]
+            unit = "L_" if model == "selfing" else "F2_"
+            f2 = [b for b in blocks if b.startswith(unit)]
             rows = np.concatenate(list(blocks.values()))
             dev = float(np.abs(rows.sum(axis=1) - 1).max())
             say("cli_models", model=model, output=os.path.basename(path),
-                f2_blocks=len(f2), rows=len(rows),
+                unit_blocks=len(f2), rows=len(rows),
                 finite=bool(np.isfinite(vals).all()),
                 max_row_sum_dev=f"{dev:.2e}")
             if len(f2) != n_f2 or not np.isfinite(vals).all() or \
                     dev > CLI_ATOL:
-                fail(f"cli_models {model}: {path}: {len(f2)} F2 blocks, "
+                fail(f"cli_models {model}: {path}: {len(f2)} unit blocks, "
                      f"a non-finite value or a row sum off by {dev}")
         if not np.isfinite(numbers(os.path.join(d, f"{model}.dump"))).all():
             fail(f"cli_models {model}: non-finite values in the dump")
@@ -1895,6 +2113,8 @@ def main():
             spill_loads=sp.group(2) if sp else None)
 
     checks = {dt: check_kernels(dt) for dt in (torch.float64, torch.float32)}
+    _ext_sweep_inputs64.cache_clear()
+    torch.cuda.empty_cache()
     bad = [(str(dt), k) for dt, c in checks.items()
            for k, v in c.items() if not v["ok"]]
     if bad:
@@ -1951,6 +2171,14 @@ def main():
     launches["fb_small_nohaplo"] = run_family_slice("nohaplo")
     run_family_slice("nohaplo", resident=False)
     for model in ("ng2", "nohaplo"):
+        for resident in (True, False):
+            run_parity(True, iters=3, model=model, resident=resident)
+    # the extended state spaces, the same way
+    launches["fb_ext"] = run_ext_slice("selfing")
+    run_ext_slice("selfing", resident=False)
+    launches["fb_ext_relskewstates"] = run_ext_slice("relskewstates")
+    run_ext_slice("relskewstates", resident=False)
+    for model in ("selfing", "relskewstates"):
         for resident in (True, False):
             run_parity(True, iters=3, model=model, resident=resident)
 

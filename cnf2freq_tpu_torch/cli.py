@@ -5,8 +5,8 @@ boost::program_options surface, cnF2freq.cpp:7946-7988), with the same
 names, defaults, help and semantics: every input set (PlantImpute,
 ShapeIT haps with PLINK fam/bed, MERLIN, ccoeff, Gigi),
 ``--createhapfile``, the VCF rewrite, ``--trace`` and ``--model`` (f2,
-ng2 and nohaplo run; selfing and relskewstates, the extended state
-spaces, are refused before anything is read or written); plus
+ng2, nohaplo, and the extended state spaces selfing and relskewstates);
+plus
 ``--device``: the port runs on the card unless it is asked for the CPU,
 and never falls back from one to the other.
 """
@@ -126,12 +126,13 @@ def _write_checkpoint(path, driver, ped, iterations_done):
     os.replace(tmp, path)
 
 
-# the model families the port runs, as the JAX CLI builds them; the
-# extended state spaces (selfing, relskewstates) are not ported yet
+# the model families, as the JAX CLI builds them
 MODELS = {"f2": {},
           "ng2": dict(numgen=2),
           "nohaplo": dict(numgen=2, haplotyping=False, relskews=False,
-                          do_infprobs=False)}
+                          do_infprobs=False),
+          "selfing": dict(selfing=True),
+          "relskewstates": dict(relskewstates=True)}
 
 
 def model_config(name: str):
@@ -193,9 +194,6 @@ def main(argv=None) -> int:
         # swap moves only exist on the legacy path; silently ignoring
         # the flag would surprise the user
         parser.error("--parentswap requires --flipmode negshift")
-    if args.model not in MODELS:
-        parser.error(f"--model {args.model}: the extended state spaces are "
-                     "not ported yet (ROADMAP Queue 1, item 2.2)")
     if args.x64 is None:
         # default dtype by device: f32 on the card, f64 on the CPU, where
         # it matches the reference's precision

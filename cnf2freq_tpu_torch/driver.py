@@ -56,6 +56,18 @@ iteration computes the posteriors and pair tables and updates nothing
 Parity mode, marker blocking and the map re-estimation refuse them
 before any work (``_check_family_run``).
 
+The extended state spaces (``ModelConfig(selfing=True)``, V = 3 HBD
+statuses; ``ModelConfig(relskewstates=True)``, V = 2 coherence-bit
+values) run ``engine_ext`` through the same scan: the ignoreflag2 rule 2
+stays on over ``_n_variants()`` sign variants (16 on selfed cohorts,
+whose units hold their parent in both parent slots), the infprob merge
+counts non-empty slots only, and with adaptive relhaplo the scan
+delivers the coherence (RELSKEWSTATES: the coherence bit's xor-marginal,
+slot 0 only; SELFING: every slot), which is scattered as the standard
+space's; a RELSKEWSTATES scan reads the focal's relhaplo (the resident
+cohort's ``rh`` column).  Parity mode refuses them at construction, and
+a marker-blocked chromosome before any work (``_check_family_run``).
+
 The Driver runs on the card unless it is given ``device="cpu"``.
 
 Tracing: ``Driver.tracer`` (``utils/tracing.py``; a no-op ``NullTracer``
@@ -107,7 +119,8 @@ from .ops.scan import R_QUANTUM
 from .parallel.mesh import pad_markers
 from .pedigree import Pedigree
 from .resident import (RELHAPLO_CLIP, ResidentAccum, ScanCohort,
-                       gather_cohort_static, gather_dev, resident_updates)
+                       coherence_slots, gather_cohort_static, gather_dev,
+                       resident_updates)
 from .updates.negshift import (apply_parent_swaps, negshift_flips,
                                parent_swap_candidates)
 from .updates.parameter_updates import update_haploweights, update_infprobs
@@ -144,6 +157,15 @@ MAX_FLIP_MARKERS = 16
 # coherence (e, three sweep stores, the turn transforms, one slot's
 # coherence temporaries)
 UNIT_TENSORS = {False: 8, True: 16}
+# [M, 512] tensors per unit and extension row that an extended-space scan
+# chunk holds at its peak: e, the three sweep stores, the posterior
+# weight, the turn transforms and one probe variant's statistics
+# temporaries (the port evaluates the variants one after another, so they
+# do not stack).  On an H100 the 1000 x 192 selfing slice (V = 3) peaked
+# at 4.09 GB in 192-unit chunks, 54 such tensors a unit
+EXT_UNIT_TENSORS = 18
+# the extended spaces' chunk quantum (units), as the JAX Driver's
+EXT_QUANTUM = 32
 # values per (marker, unit) of a chunk's slot tensors (md, ms: 7 x 2; hw:
 # 7), which the marker-blocked scan keeps for the whole chromosome
 SLOT_VALUES = 35
@@ -191,14 +213,12 @@ class Driver:
                                "is available")
         self.ped = ped
         self.cfg: ModelConfig = ped.config
-        if self.cfg.selfing or self.cfg.relskewstates:
-            raise NotImplementedError(
-                "the extended state spaces (selfing, relskew states) are not "
-                "ported yet (ROADMAP Queue 1, item 2.2)")
+        # the extended state spaces (SELFING, RELSKEWSTATES: engine_ext)
+        self.ext = self.cfg.selfing or self.cfg.relskewstates
         if self.cfg.numgen == 3 and not self.cfg.haplotyping:
             raise NotImplementedError("a numgen == 3 model without "
                                       "haplotyping has no engine")
-        if parity and self.cfg.numgen != 3:
+        if parity and (self.ext or self.cfg.numgen != 3):
             raise NotImplementedError(
                 "parity mode emulates the reference's default build "
                 "(numgen==3, standard state space)")
@@ -275,8 +295,9 @@ class Driver:
     def _n_variants(self) -> int:
         """Probe-dedup sign variants: 2**(pair constraints) of the deepest
         duplicate-member family in the cohort (a member in k non-empty
-        slots needs k-1 constraints); 1 outside parity mode."""
-        if not self.parity:
+        slots needs k-1 constraints), in parity mode and on the extended
+        spaces (rule 2 stays on there); 1 otherwise."""
+        if not (self.parity or self.ext):
             return 1
         if "n_variants" not in self._cache:
             ped, n = self.ped, 1
@@ -300,10 +321,13 @@ class Driver:
     def _chunk_size(self, n_units: int, m_markers: int,
                     with_coherence: bool = False) -> int:
         """Units per scan chunk.  "auto" on the card: half the free device
-        memory over the [M, NS * S] tensors a unit holds in the scan
-        (``UNIT_TENSORS``; NS * S = 512 in the 64-state space, 8 and 4 in
-        the two-generation families), in whole warps of units; on the
-        CPU the whole cohort."""
+        memory (the caching allocator's unused reserve counted as free, so
+        that earlier work does not shrink the chunks) over the
+        [M, NS * S] tensors a unit holds in the scan (``UNIT_TENSORS``;
+        NS * S = 512 in the 64-state space, 8 and 4 in the two-generation
+        families), in whole warps of units; on the CPU the whole cohort.
+        The extended spaces hold ``EXT_UNIT_TENSORS`` a unit on each of
+        the V rows, in quanta of 32 units."""
         if self.batch_size is None:
             return n_units
         if self.batch_size != "auto":
@@ -311,13 +335,19 @@ class Driver:
         if self.device.type != "cuda":
             return n_units
         free, _ = torch.cuda.mem_get_info(self.device)
+        free += torch.cuda.memory_reserved(self.device) - \
+            torch.cuda.memory_allocated(self.device)
         itemsize = torch.finfo(self.dtype).bits // 8
-        per_unit = UNIT_TENSORS[with_coherence] * m_markers * \
-            self.cfg.numshifts * self.cfg.numtypes * itemsize
+        tensors, q = UNIT_TENSORS[with_coherence], R_QUANTUM
+        if self.ext:
+            V = self.cfg.numselfstates * self.cfg.numrelstates
+            tensors, q = EXT_UNIT_TENSORS * V, EXT_QUANTUM
+        per_unit = tensors * m_markers * self.cfg.numshifts * \
+            self.cfg.numtypes * itemsize
         bs = int(0.5 * free // per_unit)
         if bs >= n_units:
             return n_units
-        return max(R_QUANTUM, bs // R_QUANTUM * R_QUANTUM)
+        return max(q, bs // q * q)
 
     # ------------------------------------------------------------------
     # Preprocessing (postmarkerdata)
@@ -657,7 +687,8 @@ class Driver:
         ind_index = {n: i for i, n in enumerate(ids)}
         M = ped.num_markers
         NI = len(ids)
-        need_coh = self.adaptive_relhaplo and bool(cfg.relskews)
+        need_coh = self.adaptive_relhaplo and bool(cfg.relskews or
+                                                    cfg.relskewstates)
         accum = ResidentAccum(NI, M, dt, dev, with_coh=need_coh)
         winners: List[Optional[FlipCandidate]] = []
         swap_cands: list = []     # parent-pair swap hypotheses, all chroms
@@ -711,8 +742,9 @@ class Driver:
                     accum.add(lo, hb_p, hc_p, inf_p)
                 if need_coh:
                     with tr.span("coherence"):
-                        accum.add_coh(lo, res.coherence, fb.slot_ind,
-                                      fb.descendants, lut)
+                        accum.add_coh(
+                            lo, res.coherence[..., :coherence_slots(cfg)],
+                            fb.slot_ind, fb.descendants, lut)
                 if self.remap_distances:
                     self._accumulate_recomb(fb, dists, res, rm, remap_acc)
                     self._count_recomb(remap_acc, len(chunk))
@@ -770,13 +802,24 @@ class Driver:
                     scalefactor=st.scalefactor, loglik=float(loglik))
 
     def _check_family_run(self):
-        """The runs a two-generation family cannot make, refused before
-        any work: marker blocking (the deep-walk engine is
-        whole-chromosome only, as in the JAX package; a blocked ng2
-        chromosome needs the family engines' blocked scan, ROADMAP Queue
-        1 item 2.3) and the genetic-map re-estimation (its expectations
-        come from the 7-slot blocks, in the JAX package too)."""
+        """The runs a model family cannot make, refused before any work:
+        marker blocking of the two-generation families and the extended
+        spaces (the deep-walk engine is whole-chromosome only, as in the
+        JAX package; a blocked ng2 or extended chromosome needs the
+        family engines' blocked scan, ROADMAP Queue 1 item 2.3) and the
+        genetic-map re-estimation of the numgen == 2 families (its
+        expectations come from the 7-slot blocks, in the JAX package
+        too)."""
         cfg, ped = self.cfg, self.ped
+        if self.ext and self.marker_block is not None:
+            for c in range(ped.num_chromosomes):
+                lo, hi = ped.chromosome_range(c)
+                if hi - lo > self.marker_block:
+                    raise NotImplementedError(
+                        f"marker-blocked scans of the extended state spaces "
+                        f"are not ported yet (ROADMAP Queue 1, item 2.3): "
+                        f"chromosome {c} has {hi - lo} markers, more than "
+                        f"marker_block={self.marker_block}")
         if cfg.numgen != 2:
             return
         if self.marker_block is not None:
@@ -901,16 +944,19 @@ class Driver:
         cur = self._cache.get("cohort")
         if cur is not None and cur[0] == self.state.iter:
             return cur[1]
-        mdms = self._md_ms_dev(ids)
-        cohort = ScanCohort(mdms["md"], mdms["ms"], self._param_dev(ids)["hw"])
+        mdms, param = self._md_ms_dev(ids), self._param_dev(ids)
+        cohort = ScanCohort(mdms["md"], mdms["ms"], param["hw"],
+                            rh=param["rh"] if self.cfg.relskewstates
+                            else None)
         self._cache["cohort"] = (self.state.iter, cohort)
         return cohort
 
     def _fill_family_dev(self, chunk, c, b0, ids, lut_h):
         """A chunk's family batch: the skeleton (slot indices, flags,
         masks, descendants) is pedigree structure, gathered on the host
-        and uploaded once per (chromosome, chunk); md/ms/hw are gathered
-        on the device from the iteration's cohort."""
+        and uploaded once per (chromosome, chunk); md/ms/hw (and, under
+        RELSKEWSTATES, the focal's relhaplo) are gathered on the device
+        from the iteration's cohort."""
         lo, hi = self.ped.chromosome_range(c)
         key = ("fb_light", c, b0)
         cached = self._cache.get(key)
@@ -921,8 +967,8 @@ class Driver:
                       upload(rows, self.device))
             self._cache[key] = cached
         _, skel, rows = cached
-        md, ms, hw = gather_dev(self._scan_cohort(ids), rows, lo, hi)
-        return dataclasses.replace(skel, md=md, ms=ms, hw=hw)
+        md, ms, hw, relh = gather_dev(self._scan_cohort(ids), rows, lo, hi)
+        return dataclasses.replace(skel, md=md, ms=ms, hw=hw, relh=relh)
 
     def _cohort_static(self, ids):
         key = ("cohort_static", len(ids))

@@ -1,11 +1,12 @@
 """Chromosome scan engine: one chromosome, one chunk of analysis units.
 
-Port of ``cnf2freq_tpu/engine.py`` for the standard state space and the
-two-generation families, with its rules.  A numgen == 2 config runs its
-dedicated engine: ``engine_ng2`` (4 states x 2 shift modes over 3 slots,
-with haplotyping) or ``engine_nohaplo`` (4 states, the deep 7-slot walk,
-no haplotyping); the extended state spaces (selfing, relskew states) are
-not carried.  The 64-state space runs the feature-leading pipeline
+Port of ``cnf2freq_tpu/engine.py``, with its rules.  The extended state
+spaces (``ModelConfig(selfing=True)``, ``ModelConfig(relskewstates=
+True)``) run ``engine_ext`` (sweeps in csrc/fb_ext.cu, plain statistics);
+a numgen == 2 config runs its dedicated engine: ``engine_ng2`` (4 states
+x 2 shift modes over 3 slots, with haplotyping) or ``engine_nohaplo`` (4
+states, the deep 7-slot walk, no haplotyping).  The 64-state space runs
+the feature-leading pipeline
 (ops/scan.py; emission, sweep, statistics and turn kernels) unless the
 scan carries adjacent-phase coherence, which runs the classic
 [B, M, NS, S] pipeline: emission blocks -> sweeps (csrc/fb_classic.cu)
@@ -25,13 +26,6 @@ import torch
 
 from .config import ModelConfig, RuntimeParams
 from .hmm.family import FamilyBatch
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.selfing or cfg.relskewstates:
-        raise NotImplementedError(
-            "the extended state spaces (selfing, relskew states) are not "
-            "ported yet (ROADMAP Queue 1, item 2.2)")
 
 
 class ScanResult(NamedTuple):
@@ -58,8 +52,16 @@ def chromosome_scan(fb: FamilyBatch, dists: torch.Tensor, cfg: ModelConfig,
     ``with_coherence`` picks the pipeline: v2 without it, classic with
     it.  ``probe_rules`` (parity mode): the statistics with the
     ignoreflag2 rule 2-3 probe-dedup factors, averaged over the first
-    ``n_variants`` dup-flip variants."""
-    _check_family(cfg)
+    ``n_variants`` dup-flip variants (on the extended spaces the
+    ignoreflag2 rule 2 applies always, over ``n_variants``)."""
+    if cfg.selfing or cfg.relskewstates:
+        if probe_rules:
+            raise NotImplementedError(
+                "probe dedup rules are standard-space only")
+        from .engine_ext import chromosome_scan_ext
+        return chromosome_scan_ext(fb, dists, cfg, params, ratemat=ratemat,
+                                   n_variants=n_variants,
+                                   with_coherence=with_coherence)
     if cfg.numgen == 2:
         if probe_rules:
             raise NotImplementedError(
@@ -115,7 +117,8 @@ def scan_merged(fb: FamilyBatch, dists: torch.Tensor, lut: torch.Tensor,
     """Scan plus accumulator merge: per-family statistics segment-summed
     onto per-individual rows (under ``probe_rules`` the infprob merge's
     duplicate-slot damping counts non-empty slots only, as the
-    reference's reltreeordered holds only non-empty members).  Returns
+    reference's reltreeordered holds only non-empty members; so it does
+    on the extended spaces, whose dedup rule 2 is always on).  Returns
     (res, haplobase [NI, M], haplocount [NI, M], infacc [NI, M, 2, 2]).
     The numgen == 2 families take their engines' forms."""
     from .parallel.collective import merge_haplos, merge_infprobs
@@ -133,7 +136,9 @@ def scan_merged(fb: FamilyBatch, dists: torch.Tensor, lut: torch.Tensor,
                           fb.descendants, lut, num_individuals)
     inf = merge_infprobs(res.inf_accum, fb.slot_ind, fb.descendants, lut,
                          num_individuals,
-                         emptyslot=fb.emptyslot if probe_rules else None)
+                         emptyslot=fb.emptyslot if (
+                             probe_rules or cfg.selfing or
+                             cfg.relskewstates) else None)
     return res, hb, hc, inf
 
 
@@ -145,7 +150,9 @@ def line_origin(fb: FamilyBatch, dists: torch.Tensor, cfg: ModelConfig,
     ``cnf2freq_tpu/engine.py::make_jitted_line_origin``; the deep-walk
     no-haplotyping family counts at its own depth,
     ``engine_nohaplo.nohaplo_line_origin``)."""
-    _check_family(cfg)
+    if cfg.selfing or cfg.relskewstates:
+        raise ValueError("line-origin reporter supports the standard "
+                         "state space only")
     if cfg.deep_walk:
         from .engine_nohaplo import line_origin_nohaplo
         return line_origin_nohaplo(fb, dists, cfg, params, ratemat=ratemat)
@@ -170,7 +177,12 @@ def recomb_expectations(fb: FamilyBatch, dists: torch.Tensor,
                         params: RuntimeParams, ratemat=None) -> torch.Tensor:
     """Posterior per-interval, per-meiosis-bit recombination expectations
     [B, M-1, typebits] from a scan's sweeps (port of
-    ``cnf2freq_tpu/engine.py::make_jitted_recomb``)."""
+    ``cnf2freq_tpu/engine.py::make_jitted_recomb``; the extended spaces
+    take ``engine_ext.recomb_expectations_ext``)."""
+    if cfg.selfing or cfg.relskewstates:
+        from .engine_ext import recomb_expectations_ext
+        return recomb_expectations_ext(fb, dists, res, cfg, params,
+                                       ratemat=ratemat)
     from .hmm.emission import assemble_e_all, build_blocks
     from .hmm.forward_backward import FBResult
     from .hmm.probes import recombination_expectations

@@ -8,9 +8,12 @@ the family slots, evaluated for all (state, path, shift) combinations:
 
 ``F`` is the focal term and ``PB_k`` the block of parent k (the parent
 and its two ancestors), tiny tensors over [r0(2), fp(8), fpath(8), sk(2)]
-per (unit, marker).  Port of ``cnf2freq_tpu/hmm/emission.py`` for the
-standard update mode (probes with ``update == 0``), with the ``ci``,
-``zp``, ``inval``/``insv`` and ``side`` options that preprocessing uses.
+per (unit, marker).  Port of ``cnf2freq_tpu/hmm/emission.py``: the
+``ci``, ``zp``, ``inval``/``insv`` and ``side`` options that
+preprocessing uses, the GENOS ``update`` mode, and the extended state
+spaces' root options (``root_override``: the selfing
+HBD-collapsed focal pair; ``no_root_collapse``: RELSKEWSTATES keeps both
+root interpretations at a duplicate-allele marker).
 """
 
 from __future__ import annotations
@@ -18,11 +21,13 @@ from __future__ import annotations
 from functools import lru_cache
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
-from ..config import (SEXMARKER, UNKNOWN, ZP_NONE, ZP_PROPAGATE,
+from ..config import (GENOS, SEXMARKER, UNKNOWN, ZP_NONE, ZP_PROPAGATE,
                       ModelConfig)
 
+from ..utils.transfer import constant
 from .family import FamilyBatch
 
 # trailing enum axes of a fully expanded parent block, each of size 2;
@@ -121,10 +126,13 @@ def _gp_term(gp: SlotData, w, sw, gb, rg, zp: int, ci: bool,
 
 def parent_block(par: SlotData, gp0: SlotData, gp1: SlotData, v, sv,
                  zp: int = ZP_NONE, ci: bool = False,
-                 haplotyping: bool = True, pathful: bool = False):
+                 haplotyping: bool = True, trace_second: bool = True,
+                 pathful: bool = False):
     """One parent branch of the emission product.
 
     v, sv: [..., 2] value/second-channel per focal interpretation r0.
+    trace_second: the walk continues past the parent into its second
+    branch (off for a GENOS update's traced parent).
     Returns [..., r0(2), fp(8), fpath(8), sk(2)] if pathful, else summed
     over fpath."""
     dev = str(v.device)
@@ -147,7 +155,7 @@ def parent_block(par: SlotData, gp0: SlotData, gp1: SlotData, v, sv,
     secsec = torch.where(ms_o != 0, _safe_div(ms_o, 1.0 - ms_o),
                          torch.zeros_like(ms_o))
 
-    trace2 = zp == ZP_NONE
+    trace2 = trace_second and zp == ZP_NONE
     g0_first = _gp_term(gp0, bound, ms_nab, GB0, RG0, zp, ci, haplotyping)
     g1_first = _gp_term(gp1, bound, ms_nab, GB1, RG1, zp, ci, haplotyping)
     if trace2:
@@ -190,12 +198,18 @@ class RootBlock(NamedTuple):
     top: torch.Tensor     # [..., r0(2), s0(2)] focal-as-top term
 
 
-def root_block(focal: SlotData, zp: int = ZP_NONE, ci: bool = False,
-               haplotyping: bool = True, inval=None, insv=None,
-               side: int = 0, dtype=torch.float64) -> RootBlock:
+def root_block(focal: SlotData, update: int = 0, zp: int = ZP_NONE,
+               ci: bool = False, haplotyping: bool = True, inval=None,
+               insv=None, side: int = 0, dtype=torch.float64,
+               root_override=None,
+               no_root_collapse: bool = False) -> RootBlock:
     """Focal-individual factor plus the per-branch values it feeds up.
     side: the root's firstpar bit (side=1 swaps which parent receives
-    the continuing branch)."""
+    the continuing branch).  update: 0 or the GENOS probe mode.
+    root_override: (md_r, ms_r, md_o, ms_o, collapse) [B, M] tensors
+    replacing the focal's own marker pair, independent of r0 (the
+    selfing HBD-collapsed pair).  no_root_collapse: no
+    duplicate-allele collapse at the root (RELSKEWSTATES)."""
     dev = focal.hw.device
     R0 = torch.arange(2, device=dev).reshape(2, 1)
     S0 = torch.arange(2, device=dev).reshape(1, 2)
@@ -212,8 +226,13 @@ def root_block(focal: SlotData, zp: int = ZP_NONE, ci: bool = False,
         insv = torch.zeros(focal.hw.shape, dtype=dtype, device=dev)
     iv, sv = ex2(inval), ex2(insv)
 
-    md_r, ms_r = pick2(focal.md, R0), pick2(focal.ms, R0)
-    md_o, ms_o = pick2(focal.md, 1 - R0), pick2(focal.ms, 1 - R0)
+    if root_override is None:
+        md_r, ms_r = pick2(focal.md, R0), pick2(focal.ms, R0)
+        md_o, ms_o = pick2(focal.md, 1 - R0), pick2(focal.ms, 1 - R0)
+    else:
+        # r0-independent overrides, broadcast over the (r0, s0) enum axes
+        md_r, ms_r, md_o, ms_o = (ex2(x).expand(x.shape + (2, 1))
+                                  for x in root_override[:4])
 
     unknown_v = iv == UNKNOWN
     bound = torch.where(unknown_v, md_r, iv) if zp == ZP_NONE \
@@ -236,7 +255,12 @@ def root_block(focal: SlotData, zp: int = ZP_NONE, ci: bool = False,
     bv_abs = bv_raw + pre
     ms_nab = _safe_div(pre, bv_raw)
 
-    collapse = ex2(_collapse(focal.md, focal.ms, ci))
+    if root_override is None:
+        collapse = ex2(_collapse(focal.md, focal.ms, ci))
+    else:
+        collapse = ex2(root_override[4])
+    if no_root_collapse:
+        collapse = torch.zeros_like(collapse)
     f2n = R0 ^ side ^ S0
     if zp != ZP_NONE:
         ph = torch.full(torch.broadcast_shapes(collapse.shape, f2n.shape,
@@ -248,13 +272,19 @@ def root_block(focal: SlotData, zp: int = ZP_NONE, ci: bool = False,
             else torch.full_like(f2nf - ex2(focal.hw), 0.5)
         ph = torch.where(collapse, f2nf, w)
 
+    if update not in (0, GENOS):
+        raise NotImplementedError("the port's blocks carry the standard "
+                                  "and GENOS update modes only")
     attop = ex2(focal.attop)
     bv = torch.where(attop, bv_abs, bv_raw)
     msA = torch.where(attop, torch.zeros_like(ms_nab), ms_nab)
 
-    secfac = torch.where(ms_o != 0, 1.0 - ms_o, torch.ones_like(ms_o))
-    svB = torch.where(ms_o != 0, _safe_div(ms_o, 1.0 - ms_o),
-                      torch.zeros_like(ms_o))
+    # the second branch at the root (GENOS keeps only its base value)
+    secfac = torch.ones_like(ms_o)
+    svB = torch.zeros_like(ms_o)
+    if update != GENOS:
+        secfac = torch.where(ms_o != 0, 1.0 - ms_o, secfac)
+        svB = torch.where(ms_o != 0, _safe_div(ms_o, 1.0 - ms_o), svB)
 
     froot = torch.where(attop, bv_abs * ph, bv * ph * secfac)
     top = bv_abs * ph
@@ -271,25 +301,49 @@ class EmissionBlocks(NamedTuple):
 
 
 def build_blocks(fb: FamilyBatch, cfg: ModelConfig, ci: bool = False,
-                 zp: int = ZP_NONE, inval=None, insv=None, side: int = 0,
-                 dtype=torch.float64) -> EmissionBlocks:
-    """The factored emission blocks for one probe variant."""
-    if cfg.numgen != 3 or cfg.selfing or cfg.relskewstates:
-        raise NotImplementedError("the port carries the numgen==3 "
-                                  "standard state space only")
+                 update: int = 0, zp: int = ZP_NONE, inval=None, insv=None,
+                 side: int = 0, dtype=torch.float64, root_override=None,
+                 no_root_collapse: bool = None) -> EmissionBlocks:
+    """The factored emission blocks for one probe variant.
+    no_root_collapse defaults to ``cfg.relskewstates``."""
+    if cfg.numgen != 3:
+        raise NotImplementedError("the 7-slot blocks need numgen == 3")
+    if no_root_collapse is None:
+        no_root_collapse = cfg.relskewstates
     focal = slot_data(fb, 0)
-    rb = root_block(focal, zp=zp, ci=ci, haplotyping=cfg.haplotyping,
-                    inval=inval, insv=insv, side=side, dtype=dtype)
+    rb = root_block(focal, update=update, zp=zp, ci=ci,
+                    haplotyping=cfg.haplotyping, inval=inval, insv=insv,
+                    side=side, dtype=dtype, root_override=root_override,
+                    no_root_collapse=no_root_collapse)
+    genos = update == GENOS
     pbs = []
     for k in range(2):
         par = slot_data(fb, cfg.parent_slot(k))
         gps = [slot_data(fb, cfg.grandparent_slot(k, j)) for j in range(2)]
         # the continuing branch feeds parent `side`, the second the other
-        vk, svk = (rb.vA, rb.svA) if k == side else (rb.vB, rb.svB)
+        first = k == side
+        vk, svk = (rb.vA, rb.svA) if first else (rb.vB, rb.svB)
+        if genos and not first:
+            # GENOS updates never trace the second branch at the root:
+            # that parent contributes factor 1 on its canonical path
+            B, M = fb.md.shape[0], fb.md.shape[2]
+            pbs.append(torch.ones((B, M, 2, 8, 8, 2), dtype=dtype,
+                                  device=fb.md.device) *
+                       _canonical_only(dtype, fb.md.device))
+            continue
         pbs.append(parent_block(par, gps[0], gps[1], vk, svk, zp=zp, ci=ci,
-                                haplotyping=cfg.haplotyping, pathful=True))
+                                haplotyping=cfg.haplotyping,
+                                trace_second=not genos, pathful=True))
     return EmissionBlocks(froot=rb.froot, top=rb.top, pb=tuple(pbs),
                           focal_attop=fb.attop[:, 0], side=side)
+
+
+def _canonical_only(dtype, device="cpu") -> torch.Tensor:
+    """[8] -> broadcastable fpath weight keeping only the all-zero path,
+    for a branch the recursion never enters."""
+    w = np.zeros(8)
+    w[0] = 1.0
+    return constant(w, device, dtype)[None, None, None, None, :, None]
 
 
 def assemble_e_all(blocks: EmissionBlocks, cfg: ModelConfig) -> torch.Tensor:

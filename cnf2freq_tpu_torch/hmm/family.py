@@ -23,15 +23,14 @@ from ..config import ModelConfig
 from ..pedigree import Pedigree
 
 _INT_FIELDS = ("md", "flag2ignore", "shiftignore", "descendants",
-               "slot_ind")
+               "slot_ind", "selfgen")
 _BOOL_FIELDS = ("exists", "attop", "emptyslot", "dup_flip")
 
 
 @dataclasses.dataclass
 class FamilyBatch:
     """Arrays (numpy, or torch tensors after ``to``) describing B analysis
-    units over M markers (the standard state space: no selfing or
-    relskew-state fields)."""
+    units over M markers."""
 
     md: np.ndarray          # [B, 7, M, 2] int32 marker values
     ms: np.ndarray          # [B, 7, M, 2] float error probabilities
@@ -44,6 +43,12 @@ class FamilyBatch:
     slot_ind: np.ndarray    # [B, 7] int32 global individual ids (0 = none)
     emptyslot: np.ndarray = None   # [B, 7] bool
     dup_flip: np.ndarray = None    # [B, NV, 7] bool
+    # the extended state spaces (engine_ext.py): selfgen [B] int32, the
+    # focal's selfing generations (gen - 2, at least 0), filled under
+    # cfg.selfing; relh [B, M], the focal's relhaplo (the coherence bit's
+    # transition weights), filled under cfg.relskewstates
+    selfgen: np.ndarray = None
+    relh: np.ndarray = None
 
     def to(self, device, dtype=torch.float64) -> "FamilyBatch":
         """Torch tensors on ``device``: integer fields as int32, flags as
@@ -79,8 +84,12 @@ def gather_family(ped: Pedigree, focal_ids: Sequence[int],
     a focal of generation < 2 keeps only shift modes {0, 1}, as the
     reference truncates it.  n_variants: the probe-dedup variant count of
     the dup_flip axis.  light: the skeleton only (slot indices, flags,
-    masks, descendants) with md/ms/hw None, for a caller that gathers
-    those on the device (``resident.gather_dev``)."""
+    masks, descendants, selfgen) with md/ms/hw and relh None, for a
+    caller that gathers those on the device (``resident.gather_dev``).
+    A member occupying k slots needs 2**(k-1) sign variants, multiplied
+    across duplicate groups (a selfed unit holds its parent in both
+    parent slots: 16 variants); units with fewer repeat theirs
+    cyclically."""
     cfg: ModelConfig = ped.config
     B = len(focal_ids)
     S = cfg.numslots
@@ -100,6 +109,9 @@ def gather_family(ped: Pedigree, focal_ids: Sequence[int],
     slot_ind = np.zeros((B, S), dtype=np.int32)
     emptyslot = np.zeros((B, S), dtype=bool)
     unit_cons: List[List] = []
+    selfgen = np.zeros(B, dtype=np.int32) if cfg.selfing else None
+    relh = np.full((B, M), 0.5, dtype=dtype) \
+        if (cfg.relskewstates and not light) else None
 
     sl = slice(startmark, endmark + 1)
     for b, n in enumerate(focal_ids):
@@ -109,6 +121,10 @@ def gather_family(ped: Pedigree, focal_ids: Sequence[int],
         slots = ped.family_slots(n)
         focal = ped.by_id(n)
         desc[b] = focal.descendants
+        if selfgen is not None:
+            selfgen[b] = max(focal.gen - 2, 0)
+        if relh is not None and focal.relhaplo is not None:
+            relh[b] = focal.relhaplo[sl]
         if parity and focal.gen < 2:
             shig[b] |= (cfg.numshifts - 1) & ~1
         for s, sid in enumerate(slots):
@@ -155,4 +171,4 @@ def gather_family(ped: Pedigree, focal_ids: Sequence[int],
     return FamilyBatch(md=md, ms=ms, hw=hw, exists=exists, attop=attop,
                        flag2ignore=f2ig, shiftignore=shig, descendants=desc,
                        slot_ind=slot_ind, emptyslot=emptyslot,
-                       dup_flip=dup_flip)
+                       dup_flip=dup_flip, selfgen=selfgen, relh=relh)

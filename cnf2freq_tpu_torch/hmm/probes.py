@@ -1,9 +1,13 @@
 """Posterior probes: update masks, turn weights, adjacent-marker phase
-coherence, the line-origin reporter and recombination expectations.
+coherence, the line-origin reporter, recombination expectations, and the
+extended state spaces' update statistics.
 
 Port of the parts of ``cnf2freq_tpu/hmm/probes.py`` that the scans, the
-line-origin reporter and the genetic-map re-estimation run.
-The update statistics themselves come from ``ops.stats``.  These are
+line-origin reporter and the genetic-map re-estimation run.  The
+standard space's update statistics come from ``ops.stats`` (kernel #3);
+the extended spaces (``engine_ext.ext_statistics``) use the plain
+contractions here (``haplo_stats``, ``infprob_stats``), which take
+blocks with a root override or an interpretation pin.  These are
 plain XLA in the JAX package, so they are plain PyTorch here: the
 Walsh-Hadamard products are butterflies (``transition.fwht``), and each
 multi-operand einsum of the coherence emissions is written as pairwise
@@ -19,6 +23,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from typing import NamedTuple
 
 from ..config import MINFACTOR, ModelConfig
 from ..ops.scan import turn_offsets
@@ -102,7 +108,7 @@ def _valid_paths(flag2ignore: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def probe_rule_factors(fb: FamilyBatch, cfg: ModelConfig, dtype,
-                       variant: int = 0):
+                       variant: int = 0, tied_rule=True):
     """Multiplicative probe-survival factors of the ignoreflag2 rules 2-3
     (cnF2freq.cpp:3462-3496), for the statistics contractions.
 
@@ -113,9 +119,11 @@ def probe_rule_factors(fb: FamilyBatch, cfg: ModelConfig, dtype,
     (duplicate-member consistency): an individual in two slots needs equal
     phase bits there; the indicator is the average over the sign variants
     of ``fb.dup_flip`` of prod (-1)^(phase bit of a flipped slot), so
-    callers average the statistics of variants 0..NV-1.  (The JAX
-    package's ``tied_rule`` switch serves the extended state spaces,
-    which the port does not carry: rule 3 always applies here.)
+    callers average the statistics of variants 0..NV-1.
+
+    tied_rule=False applies rule 2 only (the SELFING build disables rule
+    3); tied_rule="nonfocal" keeps rule 3 for every member but the focal
+    (the RELSKEWSTATES gate).
 
     Returns (F0 [b, m, r0, s0], [FPk [b, m, 1, fp, fpath, sk] for k])."""
     dev = fb.md.device
@@ -123,9 +131,14 @@ def probe_rule_factors(fb: FamilyBatch, cfg: ModelConfig, dtype,
     tied = fb.exists[:, :, None] & ~fb.emptyslot[:, :, None] & \
         (md[..., 0] == md[..., 1]) & (ms[..., 0] == ms[..., 1])
     tied = tied.transpose(1, 2)                        # [b, m, slot]
+    if tied_rule == "nonfocal":
+        tied = torch.cat([torch.zeros_like(tied[..., :1]), tied[..., 1:]],
+                         dim=-1)
+    elif not tied_rule:
+        tied = torch.zeros_like(tied)
 
     def tab(x):
-        return torch.as_tensor(x, dtype=dtype, device=dev)
+        return constant(x, dev, dtype)
 
     r0 = np.arange(2)[:, None]
     s0 = np.arange(2)[None, :]
@@ -161,6 +174,184 @@ def probe_rule_factors(fb: FamilyBatch, cfg: ModelConfig, dtype,
                     tab((-1.0) ** xg), one)
         FPs.append(f[:, :, None])                      # add r0 axis
     return F0, FPs
+
+
+class HaploStats(NamedTuple):
+    """b1/b2 accumulations per family slot plus the per-slot mask of the
+    slots that receive updates."""
+
+    b12: torch.Tensor    # [b, m, slot(7), 2]
+    mask: torch.Tensor   # [b, m, slot(7)] bool
+
+
+def side_collapse(PB, Wr):
+    """(T1, T0): the posterior tensor with one parent branch absorbed —
+    T1[z,m,r,a,u,t] folds branch 1 (and Wr) away for probes resolved on
+    branch 0, T0[z,m,r,b,v,t] vice versa; Wr is read once for each."""
+    T1 = torch.einsum("zmrbqv,zmvutba->zmraut", PB[1], Wr)
+    T0 = torch.einsum("zmrapu,zmvutba->zmrbvt", PB[0], Wr)
+    return T1, T0
+
+
+def _masked_pb(blocks: EmissionBlocks, fb: FamilyBatch, dtype):
+    V = [_valid_paths(fb.flag2ignore, k).to(dtype) for k in range(2)]
+    return [blocks.pb[k] * V[k][:, None, None, None, :, None]
+            for k in range(2)]
+
+
+def haplo_stats(W: torch.Tensor, blocks: EmissionBlocks, fb: FamilyBatch,
+                cfg: ModelConfig, ci: bool = False, t01=None, froot=None,
+                PB=None) -> HaploStats:
+    """Posterior-weighted phase-interpretation counts per slot (the sum
+    of updatehaplo over every (g, flag2, shift) probe) from W
+    [B, M, NS, S].  t01: a precomputed side_collapse; froot / PB:
+    pre-decorated tensors (canonical-path masks and probe-rule factors
+    applied)."""
+    dtype, dev = W.dtype, W.device
+    Wr = _w_bits(W)
+    if froot is None:
+        froot = blocks.froot
+    if PB is None:
+        PB = _masked_pb(blocks, fb, dtype)
+    IND_P = constant(_IND_PARENT, dev, dtype)
+    IND_G = [constant(x, dev, dtype) for x in _IND_GP]
+    pbs = [PB[k].sum(dim=-2) for k in range(2)]
+    if t01 is None:
+        t01 = side_collapse(PB, Wr)
+    T1, T0 = t01
+    stats = []
+    F = torch.einsum("zmrau,zmraut->zmrt", pbs[0], T1)
+    stats.append(torch.einsum("zmrt,rtj->zmj", froot * F,
+                              constant(_IND_FOCAL, dev, dtype)))
+    for k in range(2):
+        # one moment tensor per side; each slot stat is a projection of it
+        if k == 0:
+            Y = torch.einsum("zmrapu,zmraut,zmrt->zmapu", PB[0], T1, froot)
+        else:
+            Y = torch.einsum("zmrbqv,zmrbvt,zmrt->zmbqv", PB[1], T0, froot)
+        stats.append(torch.einsum("zmfps,fpsj->zmj", Y, IND_P))
+        for j in range(2):
+            stats.append(torch.einsum("zmfps,fpsj->zmj", Y, IND_G[j]))
+    b12 = torch.stack(stats, dim=2)                     # [b, m, 7, 2]
+    return HaploStats(b12=b12, mask=haplo_update_mask(fb, cfg, ci))
+
+
+class InfprobStats(NamedTuple):
+    """Posterior-weighted candidate-allele statistics (GENOSPROBE sideval
+    probes plus the GENOS accumulation along the traced branch)."""
+
+    accum: torch.Tensor   # [b, m, slot(7), allele-slot(2), mv(2)]
+    pair: torch.Tensor    # [b, m, 2, 2] joint P(slot0=mv0, slot1=mv1)
+
+
+def _share_blocks(fb: FamilyBatch, cfg: ModelConfig, side: int, mv: int,
+                  ci: bool, dtype, root_override=None) -> torch.Tensor:
+    """U[b, m, r', fp, fpath, s0, sk] for the side branch of a GENOSPROBE
+    with root value mv (factors common to both mv cancel in the share
+    ratio).  root_override: the selfing HBD-collapsed focal pair."""
+    from .emission import parent_block, root_block, slot_data
+    focal = slot_data(fb, 0)
+    B, M = fb.md.shape[0], fb.md.shape[2]
+    inval = torch.full((B, M), mv, dtype=torch.int32, device=fb.md.device)
+    rb = root_block(focal, ci=ci, haplotyping=cfg.haplotyping, inval=inval,
+                    side=side, dtype=dtype, root_override=root_override,
+                    no_root_collapse=cfg.relskewstates)
+    par = slot_data(fb, cfg.parent_slot(side))
+    gps = [slot_data(fb, cfg.grandparent_slot(side, j)) for j in range(2)]
+    pbp = parent_block(par, gps[0], gps[1], rb.vA, rb.svA, ci=ci,
+                       haplotyping=cfg.haplotyping, pathful=True)
+    return rb.froot[:, :, :, None, None, :, None] * \
+        pbp[:, :, :, :, :, None, :]
+
+
+def infprob_shares(fb: FamilyBatch, cfg: ModelConfig, dtype,
+                   ci: bool = False, root_override=None):
+    """{(side, mv): share tensor [b, m, r, fp, fpath, s0, sk]} aligned to
+    the standard probe's r axis: U_mv / sum_mv U_mv.  It depends on the
+    blocks' root only, so a caller may compute it once for every
+    probe-rule variant (``infprob_stats(shares=)``)."""
+    shares = {}
+    for side in range(2):
+        us = [_share_blocks(fb, cfg, side, mv, ci, dtype,
+                            root_override=root_override) for mv in (1, 2)]
+        den = us[0] + us[1]
+        ok = den > 0
+        for i, mv in enumerate((1, 2)):
+            sh = torch.where(ok, us[i] / torch.where(ok, den, 1.0), 0.0)
+            if side == 1:
+                sh = sh.flip(2)          # align r' = 1 - r to the r axis
+            shares[(side, mv)] = sh
+    return shares
+
+
+def infprob_stats(W: torch.Tensor, blocks: EmissionBlocks, fb: FamilyBatch,
+                  cfg: ModelConfig, ci: bool = False, t01=None, froot=None,
+                  PB=None, root_override=None, drop_side1: bool = False,
+                  shares=None) -> InfprobStats:
+    """The GENOS accumulator additions per family slot, allele slot and
+    candidate allele, plus the joint ordered-genotype posterior, from W
+    [B, M, NS, S].  drop_side1: the side-1 probes are structurally dead
+    (RELSKEWSTATES).  shares: a precomputed ``infprob_shares``."""
+    dtype, dev = W.dtype, W.device
+    Wr = _w_bits(W)
+    if froot is None:
+        froot = blocks.froot
+    if PB is None:
+        PB = _masked_pb(blocks, fb, dtype)
+    if shares is None:
+        shares = infprob_shares(fb, cfg, dtype, ci, root_override)
+
+    bits = np.arange(8)
+    w2 = np.arange(2)
+    RP = constant(((bits[:, None] & 1) == w2[None, :]).astype(np.float64),
+                  dev, dtype)                                  # [p, w]
+    RGSEL = []
+    for j in range(2):
+        psel = ((bits[:, None, None] & 1) == j)
+        tgt = (((bits[None, :, None] >> (1 + j)) & 1) == w2[None, None, :])
+        RGSEL.append(constant((psel & tgt).astype(np.float64), dev, dtype))
+    if t01 is None:
+        t01 = side_collapse(PB, Wr)
+    T1, T0 = t01
+
+    out = {s: torch.zeros(W.shape[:2] + (2, 2), dtype=dtype, device=dev)
+           for s in range(cfg.numslots)}
+    for mvi, mv in enumerate((1, 2)):
+        # side 0: the traced branch is parent 0
+        X0 = torch.einsum("zmrapu,zmraptu->zmraptu", PB[0],
+                          shares[(0, mv)])
+        X0 = torch.einsum("zmraptu,zmraut,zmrt->zmrap", X0, T1, froot)
+        nf0 = X0.sum(dim=(-1, -2))                        # [z, m, r]
+        out[0][..., :, mvi] += nf0
+        out[cfg.parent_slot(0)][..., :, mvi] += \
+            torch.einsum("zmrap,pw->zmw", X0, RP)
+        for j in range(2):
+            out[cfg.grandparent_slot(0, j)][..., :, mvi] += \
+                torch.einsum("zmrap,apw->zmw", X0, RGSEL[j])
+        if drop_side1:
+            continue
+        X1 = torch.einsum("zmrbqv,zmrbqtv->zmrbqtv", PB[1],
+                          shares[(1, mv)])
+        X1 = torch.einsum("zmrbqtv,zmrbvt,zmrt->zmrbq", X1, T0, froot)
+        nf1 = X1.sum(dim=(-1, -2))
+        # the focal allele slot of side 1 is 1 - r
+        out[0][..., :, mvi] += nf1.flip(-1)
+        out[cfg.parent_slot(1)][..., :, mvi] += \
+            torch.einsum("zmrbq,qw->zmw", X1, RP)
+        for j in range(2):
+            out[cfg.grandparent_slot(1, j)][..., :, mvi] += \
+                torch.einsum("zmrbq,bqw->zmw", X1, RGSEL[j])
+    accum = torch.stack([out[s] for s in range(cfg.numslots)], dim=2)
+
+    # joint ordered-genotype posterior: both sides' shares on the same
+    # posterior mass; branch 1 folds against Wr once
+    P0 = torch.stack([torch.einsum("zmrapu,zmraptu->zmraut", PB[0],
+                                   shares[(0, mv)]) for mv in (1, 2)], dim=2)
+    P1 = torch.stack([torch.einsum("zmrbqv,zmrbqtv->zmrbvt", PB[1],
+                                   shares[(1, mv)]) for mv in (1, 2)], dim=2)
+    T1mv = torch.einsum("zmjrbvt,zmvutba->zmjraut", P1, Wr)
+    pair = torch.einsum("zmiraut,zmjraut,zmrt->zmij", P0, T1mv, froot)
+    return InfprobStats(accum=accum, pair=pair)
 
 
 def turn_weights_fast(fbres: FBResult, fb: FamilyBatch,
@@ -253,6 +444,34 @@ def _phase_parity_emission(blocks: EmissionBlocks, fb: FamilyBatch,
     if k == 0:
         return _branch_emission(froot, ph, _path_summed(blocks, fb, 1))
     return _branch_emission(froot, _path_summed(blocks, fb, 0), ph)
+
+
+def _phase_resolved_emission(blocks: EmissionBlocks, fb: FamilyBatch,
+                             cfg: ModelConfig, slot: int) -> torch.Tensor:
+    """E_j[b, m, j(2), s, g]: the emission restricted to the slot's
+    phase-interpretation bit == j, summed over all other path freedom."""
+    dtype, dev = blocks.froot.dtype, blocks.froot.device
+    froot = blocks.froot
+    pbs = [_path_summed(blocks, fb, k) for k in range(2)]
+    if slot == 0:
+        fj = torch.einsum("zmrt,rtj->zmjrt", froot,
+                          constant(_IND_FOCAL, dev, dtype))
+        e = torch.stack([_branch_emission(fj[:, :, j], pbs[0], pbs[1])
+                         for j in range(2)], dim=2)
+    else:
+        k = 0 if slot < cfg.parent_slot(1) else 1
+        local = slot - cfg.parent_slot(k)
+        ind = constant(_IND_PARENT if local == 0 else _IND_GP[local - 1],
+                       dev, dtype)
+        V = _valid_paths(fb.flag2ignore, k).to(dtype)
+        ph = torch.einsum("zmrfps,zp,fpsj->zmjrfs", blocks.pb[k], V, ind)
+        if k == 0:
+            e = torch.stack([_branch_emission(froot, ph[:, :, j], pbs[1])
+                             for j in range(2)], dim=2)
+        else:
+            e = torch.stack([_branch_emission(froot, pbs[0], ph[:, :, j])
+                             for j in range(2)], dim=2)
+    return e
 
 
 def pair_chain(fbres: FBResult, e: torch.Tensor,

@@ -97,6 +97,15 @@ def apply_transition(probs: torch.Tensor, what: torch.Tensor) -> torch.Tensor:
     return fwht(fwht(probs, -1) * what, -1) / S
 
 
+def apply_transition_sn(probs: torch.Tensor,
+                        what: torch.Tensor) -> torch.Tensor:
+    """probs [..., S, NS] with a trailing shift axis (the model-family
+    sweeps that keep the state second-minor) convolved with the kernel
+    whose WHT is what [..., S], broadcast over the shift axis."""
+    S = probs.shape[-2]
+    return fwht(fwht(probs, -2) * what[..., :, None], -2) / S
+
+
 def transition_matrix(cfg: ModelConfig, r_row: torch.Tensor) -> torch.Tensor:
     """Dense S x S matrix for one interval (reference-layout check path)."""
     S = cfg.numtypes

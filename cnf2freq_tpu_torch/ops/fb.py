@@ -14,6 +14,12 @@ wrapper: a CPU tensor runs the twin; a CUDA tensor launches, by its
 (NS, S), ``csrc/fb_classic.cu`` for (8, 64) (which replaces
 ``fb_pallas._fwd_kernel`` and ``_bwd_kernel``) or ``csrc/fb_small.cu``
 for (1, 4) and (2, 4) (which replaces the XLA scan), or raises.
+
+The extended state spaces (SELFING, RELSKEWSTATES) sweep [B, M, V, NS, S]
+with a [V, V] coupling per unit and interval: ``fb_ext_reference`` is the
+plain twin of the two XLA scans of
+``cnf2freq_tpu/engine_ext.py::extended_forward_backward`` and ``fb_ext``
+its wrapper, which launches ``csrc/fb_ext.cu`` on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -130,3 +136,107 @@ def fb_sweeps_small(e: torch.Tensor, lam: torch.Tensor,
 
 fb_sweeps.launches = 0
 fb_sweeps_small.launches = 0
+
+
+def emit_normalise_ext(p, e, f, clip: float = XLA_CLIP):
+    """adjustprobs of the extended spaces: values below ``clip`` (in p's
+    dtype) zeroed, times the emission, renormalised over the (V, state)
+    axes jointly per shift, the log of the sum added to f (MINFACTOR on a
+    zero sum).  p, e [..., V, NS, S]; f [..., NS].  Returns (p, f)."""
+    p = torch.where(p < clip, 0.0, p)
+    pe = p * e
+    s = pe.sum(dim=(-3, -1), keepdim=True)               # [..., 1, NS, 1]
+    ok = s > 0
+    pn = torch.where(ok, pe / torch.where(ok, s, 1.0), 0.0)
+    ok0, s0 = ok[..., 0, :, 0], s[..., 0, :, 0]
+    f = torch.where(ok0, f + torch.log(torch.where(ok0, s0, 1.0)),
+                    MINFACTOR)
+    return pn, f
+
+
+def _ext_step(p, f, e, lam_row, cm, clip):
+    """One extended step: ``emit_normalise_ext``, the transition of every
+    row, then the coupling mix out[g] = sum_f cm[f, g] in[f].
+    p, e [B, V, NS, S]; f [B, NS]; cm [B, V, V].  Returns (post-emission
+    p, f, next p)."""
+    S = p.shape[-1]
+    V = p.shape[1]
+    pn, f = emit_normalise_ext(p, e, f, clip)
+    pc = fwht(fwht(pn, -1) * lam_row, -1) / S
+    pnext = sum(cm[:, fr, :, None, None] * pc[:, fr, None]
+                for fr in range(V))
+    return pn, f, pnext
+
+
+def fb_ext_reference(e: torch.Tensor, lam: torch.Tensor, C: torch.Tensor,
+                     prior: torch.Tensor, clip: float = XLA_CLIP):
+    """Plain extended sweeps over e [B, M, V, NS, S] with lam [M-1, S],
+    the coupling C [B, M-1, V, V] (row = from, column = to) and the
+    forward carry's start prior [B, V] (uniform over shifts and states);
+    values below ``clip`` (in e's dtype) are zeroed.  The backward step
+    applies C in the forward sweep's from -> to orientation.  Returns
+    (fw_pre, fw_post, bw [B, M, V, NS, S], fw_pre_f, fw_post_f, bw_f
+    [B, M, NS])."""
+    B, M, V, NS, S = e.shape
+    kw = dict(dtype=e.dtype, device=e.device)
+    lam = lam.to(e.dtype)
+    p = prior.to(e.dtype)[:, :, None, None].expand(B, V, NS, S)
+    f = torch.zeros((B, NS), **kw)
+    eye = torch.eye(V, **kw).expand(B, V, V)
+    fw_pre, fw_pre_f, fw_post, fw_post_f = [], [], [], []
+    for m in range(M):
+        fw_pre.append(p)
+        fw_pre_f.append(f)
+        if m + 1 < M:
+            pn, f, p = _ext_step(p, f, e[:, m], lam[m], C[:, m], clip)
+        else:
+            pn, f, p = _ext_step(p, f, e[:, m], torch.ones(S, **kw), eye,
+                                 clip)
+        fw_post.append(pn)
+        fw_post_f.append(f)
+    p = torch.ones((B, V, NS, S), **kw)
+    f = torch.zeros((B, NS), **kw)
+    bw, bw_f = [None] * M, [None] * M
+    for m in range(M - 1, -1, -1):
+        bw[m], bw_f[m] = p, f
+        if m > 0:
+            _, f, p = _ext_step(p, f, e[:, m], lam[m - 1], C[:, m - 1], clip)
+
+    def st(xs):
+        return torch.stack(xs, dim=1)
+
+    return (st(fw_pre), st(fw_post), st(bw), st(fw_pre_f), st(fw_post_f),
+            st(bw_f))
+
+
+def fb_ext(e: torch.Tensor, lam: torch.Tensor, C: torch.Tensor,
+           prior: torch.Tensor, clip: float = XLA_CLIP):
+    """Both extended sweeps: ``fb_ext_reference`` on the CPU; on the card
+    csrc/fb_ext.cu for S = 64 and V in {2, 3} (any other shape raises),
+    with lam padded by a row of ones and C by the identity."""
+    if e.device.type == "cpu":
+        return fb_ext_reference(e, lam, C, prior, clip)
+    B, M, V, NS, S = e.shape
+    if S != 64 or V not in (2, 3):
+        raise ValueError(f"fb_ext runs S = 64 and V in (2, 3), not "
+                         f"V = {V}, S = {S}")
+    dt, dev = e.dtype, e.device
+    lam_pad = torch.cat([lam.to(dt), torch.ones((1, S), dtype=dt,
+                                                 device=dev)]).contiguous()
+    C_pad = torch.cat([C.to(dt), torch.eye(V, dtype=dt, device=dev).expand(
+        B, 1, V, V)], dim=1).contiguous()
+    prior = prior.to(dt).contiguous()
+    _build.check(e, dt, (B, M, V, NS, S), "e")
+    _build.check(lam_pad, dt, (M, S), "lam_pad")
+    _build.check(C_pad, dt, (B, M, V, V), "C_pad")
+    _build.check(prior, dt, (B, V), "prior")
+    kw = dict(dtype=dt, device=dev)
+    out = tuple(torch.empty((B, M, V, NS, S), **kw) for _ in range(3)) + \
+        tuple(torch.empty((B, M, NS), **kw) for _ in range(3))
+    _build.launch("fb_ext", dt, e, lam_pad, C_pad, prior, *out, B, M, V, NS,
+                  float(clip))
+    fb_ext.launches += 1
+    return out
+
+
+fb_ext.launches = 0

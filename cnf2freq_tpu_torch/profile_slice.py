@@ -3,7 +3,8 @@
     python3 -m cnf2freq_tpu_torch.profile_slice [--out FILE.json]
         [--adaptive-relhaplo {on,off}] [--resident {auto,off}]
         [--flipmode {native,negshift}] [--markers M] [--spacing-cm CM]
-        [--markerblock N] [--model {f2,ng2,nohaplo}]
+        [--markerblock N]
+        [--model {f2,ng2,nohaplo,selfing,relskewstates}]
 
 Runs a slice of ``chip_smoke.py``, simulate_f2(n_f2=1000, n_markers=192,
 n_founder_pairs=20, seed=7) in float32 on cuda, with adaptive relhaplo on
@@ -20,7 +21,12 @@ turn weights) and ``blocked.followups`` (coherence and map
 re-estimation per block), and with ``--model ng2`` or ``nohaplo`` the
 two-generation families on the same cohort (``chip_smoke.py``'s
 ``slice_ng2`` and ``slice_nohaplo``; their engines' sweeps and
-statistics timed as ``scan.*``): preprocess(), the early
+statistics timed as ``scan.*``), with ``--model selfing`` the selfed
+cohort simulate_selfed(n_lines=1000, n_markers=192, generations=4,
+marker_spacing_cm=1.0, seed=3) and with ``--model relskewstates`` the F2
+cohort, both through the extended engine (``chip_smoke.py``'s
+``slice_selfing`` and ``slice_relskewstates``; the engine's stages
+timed as ``ext.*``): preprocess(), the early
 iteration, then two full iterations.  For each it prints the wall seconds
 of the whole call and of each driver stage (on the classic pipeline also
 the scan's own stages, ``scan.*``), timed on the host around calls
@@ -78,6 +84,10 @@ SCAN_STAGES = (("hmm.emission", "build_blocks"),
                ("engine_ng2", "turn_weights_fast"),
                ("engine_nohaplo", "forward_backward"),
                ("engine_nohaplo", "nohaplo_pair"))
+# stages of the extended engine (engine_ext looks them up at each call)
+EXT_STAGES = ("ext_blocks", "extended_forward_backward", "ext_statistics",
+              "turn_weights_ext", "relskew_coherence_ext",
+              "coherence_slot_ext")
 # the passes of the marker-blocked scan: (module, function, stage)
 BLOCKED_STAGES = (("ops.scan", "blocked_pass_a", "blocked.pass_a"),
                   ("ops.scan", "blocked_pass_b", "blocked.pass_b"),
@@ -109,6 +119,8 @@ def stage_timers():
     add_coh = dm.ResidentAccum.add_coh
     saved_scan = [(importlib.import_module(f"{__package__}.{mod}"), name,
                    "scan." + name) for mod, name in SCAN_STAGES]
+    saved_scan += [(importlib.import_module(f"{__package__}.engine_ext"),
+                    name, "ext." + name) for name in EXT_STAGES]
     for mod, name, stage in BLOCKED_STAGES:
         obj = importlib.import_module(f"{__package__}.{mod}")
         if "." in name:
@@ -148,20 +160,26 @@ def main(argv=None):
     ap.add_argument("--spacing-cm", type=float, default=1.0)
     ap.add_argument("--markerblock", type=int, default=None,
                     help="run chromosomes longer than this marker-blocked")
-    ap.add_argument("--model", choices=("f2", "ng2", "nohaplo"),
+    ap.add_argument("--model", choices=("f2", "ng2", "nohaplo", "selfing",
+                                        "relskewstates"),
                     default="f2", help="model family (the CLI's --model)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
 
-    from .utils.simulate import simulate_f2
+    from .utils.simulate import simulate_f2, simulate_selfed
     from torch.profiler import ProfilerActivity, profile
 
     from .cli import model_config
     from .driver import Driver
-    ped = simulate_f2(n_f2=1000, n_markers=args.markers,
-                      marker_spacing_cm=args.spacing_cm, n_founder_pairs=20,
-                      seed=7)
+    if args.model == "selfing":
+        ped = simulate_selfed(n_lines=1000, n_markers=args.markers,
+                              generations=4,
+                              marker_spacing_cm=args.spacing_cm, seed=3)
+    else:
+        ped = simulate_f2(n_f2=1000, n_markers=args.markers,
+                          marker_spacing_cm=args.spacing_cm,
+                          n_founder_pairs=20, seed=7)
     ped.config = model_config(args.model)
     if ped.config.deep_walk:
         # the reference's no-haplotyping fixtrees sets no founder flags

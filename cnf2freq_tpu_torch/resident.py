@@ -1,8 +1,10 @@
 """Device-resident iteration state: accumulate, flip and update on the
 device (port of ``cnf2freq_tpu/resident.py``, the pieces the unmeshed
-Driver uses: the F2 model and the two-generation families, whose units
-hold 3 slots (ng2) or 7 (the deep-walk nohaplo family); every gather
-here takes the slot count from the batch).
+Driver uses: the F2 model, the two-generation families, whose units
+hold 3 slots (ng2) or 7 (the deep-walk nohaplo family), and the extended
+state spaces, whose RELSKEWSTATES scans read the focal's relhaplo (the
+cohort's ``rh`` column, ``ScanCohort(rh=)``); every gather here takes the
+slot count from the batch).
 
 Per iteration the per-individual state (markerdata, markersure,
 haploweight, relhaplo) stays on the device as mirrors of the host
@@ -22,11 +24,12 @@ Not carried over, and why:
   with_coherence=True)``; the ng2 engine's per-slot coherence there is
   ``coherence_slot_ng2``'s math, with no shared pair total), and
   ``updates/scatter.scatter_coherence`` is already the device form of
-  ``scatter_coh``, so ``ResidentAccum.add_coh`` calls it.  The
+  ``scatter_coh``, so ``ResidentAccum.add_coh`` calls it.  The extended
+  spaces' scan delivers its coherence too, so ``make_scatter_coh_ext``
+  reduces to its slot rule (``coherence_slots``).  The
   no-haplotyping family measures no coherence and runs no update: its
   resident iteration only accumulates (zeros) and reports;
-* ``make_scatter_coh_ext`` and ``make_scatter_coh_sharded`` wait for the
-  extended model families and the mesh;
+* ``make_scatter_coh_sharded`` waits for the mesh;
 * the padded marker layout (``_layout_prog``, ``_layout_prog_2d``, the
   Driver's ``marker_bucket``) exists so that XLA compiles one program per
   bucket of chromosome lengths; the port compiles no shapes, so a
@@ -72,9 +75,11 @@ class ResidentAccum:
         self.inf[:, lo:hi] += inf_p
 
     def add_coh(self, lo: int, coh, slot_ind, descendants, lut):
-        """Scatter one chunk's coherence [B, Mc, slots] onto cnum/cden; the
-        last marker has no right neighbour, so its interval coherence
-        stays neutral."""
+        """Scatter one chunk's coherence [B, Mc, slots] onto cnum/cden
+        (the first ``coh.shape[-1]`` slots of ``slot_ind``); the last
+        marker has no right neighbour, so its interval coherence stays
+        neutral."""
+        slot_ind = slot_ind[:, :coh.shape[-1]]
         coh = coh.clone()
         coh[:, -1] = 0.5
         scatter_coherence(slot_ind, descendants, lo, coh, self.cnum,
@@ -217,14 +222,23 @@ def resident_updates(cfg: ModelConfig, params: RuntimeParams,
         take_e=take if e is None else take[e])
 
 
+def coherence_slots(cfg: ModelConfig) -> int:
+    """The slots whose scan coherence feeds relhaplo (the slot rule of
+    ``make_scatter_coh_ext``): under RELSKEWSTATES the coherence bit's
+    xor-marginal in slot 0 only (the others are neutral and must not be
+    scattered), else every slot."""
+    return 1 if cfg.relskewstates else cfg.numslots
+
+
 class ScanCohort:
     """The iteration's cohort tensors for the device family gather:
     md [NI+1, M, 2], ms [NI+1, M, 2], hw [NI+1, M] from the device
-    mirrors, with row NI the vacant-slot sentinel (md 0, ms 0, hw 0.5).
-    One cohort replaces the per-chunk host stacking and upload of
-    [B, slots, Mc]-shaped md/ms/hw."""
+    mirrors, with row NI the vacant-slot sentinel (md 0, ms 0, hw 0.5),
+    and with ``rh`` (RELSKEWSTATES) the relhaplo column [NI+1, M]
+    (sentinel 0.5).  One cohort replaces the per-chunk host stacking and
+    upload of [B, slots, Mc]-shaped md/ms/hw."""
 
-    def __init__(self, md, ms, hw):
+    def __init__(self, md, ms, hw, rh=None):
         def with_sentinel(x, fill):
             pad = torch.full((1,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
                              device=x.device)
@@ -232,11 +246,14 @@ class ScanCohort:
         self.md = with_sentinel(md, 0)
         self.ms = with_sentinel(ms, 0.0)
         self.hw = with_sentinel(hw, 0.5)
+        self.rh = None if rh is None else with_sentinel(rh, 0.5)
 
 
 def gather_dev(cohort: ScanCohort, rows, lo: int, hi: int):
-    """md [B, S, Mc, 2], ms [B, S, Mc, 2], hw [B, S, Mc] of one chunk:
-    rows [B, S] (S slots a unit; the sentinel row for a vacant slot),
-    markers [lo, hi)."""
+    """md [B, S, Mc, 2], ms [B, S, Mc, 2], hw [B, S, Mc] and relh [B, Mc]
+    (the focal rows' relhaplo; None without the cohort's rh) of one
+    chunk: rows [B, S] (S slots a unit; the sentinel row for a vacant
+    slot), markers [lo, hi)."""
+    relh = None if cohort.rh is None else cohort.rh[rows[:, 0], lo:hi]
     return (cohort.md[rows, lo:hi], cohort.ms[rows, lo:hi],
-            cohort.hw[rows, lo:hi])
+            cohort.hw[rows, lo:hi], relh)

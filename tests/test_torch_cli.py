@@ -23,7 +23,7 @@ JAX package's, and the reporters it runs.
   the re-estimated rates.  (A whole JAX Driver run with remapping costs
   more JAX tracing and compilation than this file's budget allows.)
 * No fallback: ``--device cuda`` without a card raises the Driver's error
-  and writes nothing; ``--model selfing`` (not ported) is refused, and
+  and writes nothing; a ``--model`` that names no family is refused, and
   each flag of another input set or ``--trace`` alone is an incomplete
   input set, on which the port returns what the JAX CLI returns, with its
   message.
@@ -132,7 +132,7 @@ def test_cuda_cli_fails_without_card(files, tmp_path):
 # the port carries the flip modes native and negshift, --parentswap with
 # negshift only (the JAX CLI's rule) and a numeric --markerblock; argparse
 # refuses the others, and --model selfing / relskewstates (not ported)
-ERRORS = {"--model": "the extended state spaces are not ported yet",
+ERRORS = {"--model": "invalid choice: 'selfed'",
           "--flipmode": "invalid choice: 'toulbar'",
           "--parentswap": "--parentswap requires --flipmode negshift",
           "--markerblock": "invalid int value: 'x'"}
@@ -146,7 +146,7 @@ INCOMPLETE = {"--trace", "--samplefile", "--bimfile", "--hapfiles",
 
 
 @pytest.mark.parametrize("flag", [
-    ["--model", "selfing"], ["--flipmode", "toulbar"], ["--parentswap"],
+    ["--model", "selfed"], ["--flipmode", "toulbar"], ["--parentswap"],
     ["--markerblock", "x"], ["--trace", "t.jsonl"], ["--samplefile", "s"],
     ["--bimfile", "b"], ["--hapfiles", "h"], ["--famfile", "f"],
     ["--bedfile", "b"], ["--createhapfile", "h"], ["--merlinmap", "m"],
@@ -156,8 +156,8 @@ INCOMPLETE = {"--trace", "--samplefile", "--bimfile", "--hapfiles",
     ids=lambda f: f[0].lstrip("-"))
 def test_cli_refuses_flags_it_does_not_carry(flag, capsys, tmp_path,
                                              monkeypatch):
-    """--model selfing (not ported), a flip mode the port does not carry, a
-    marker block that is not a number, and --parentswap without the
+    """A model family that does not exist, a flip mode the port does not
+    carry, a marker block that is not a number, and --parentswap without the
     negshift flip mode (the JAX CLI's rule) are argparse errors; a flag of
     another input set or --trace alone returns what the JAX CLI returns
     for the same arguments (2), with its message, and writes nothing."""

@@ -271,9 +271,10 @@ def test_port_imports_nothing_of_jax():
              for f in fs if f.endswith(".py")]
     files.append(os.path.join(REPO, "chip_smoke.py"))
     assert len(files) > 20
-    # parity mode's copied flip stage among them
-    assert os.path.join(REPO, "cnf2freq_tpu_torch", "updates",
-                        "refflips.py") in files
+    # parity mode's copied flip stage and the extended engine among them
+    for part in (("updates", "refflips.py"), ("engine_ext.py",),
+                 ("models", "selfing.py"), ("models", "relskew_states.py")):
+        assert os.path.join(REPO, "cnf2freq_tpu_torch", *part) in files
     bad = {f: sorted(_imported_modules(f) & {"jax", "jaxlib",
                                              "cnf2freq_tpu"})
            for f in files}

@@ -10,7 +10,9 @@ zero emission blocks; a single allowed shift, D <= 0).
 ``test_fb_sweep_blocked`` holds the sweep kernel's entries of the
 marker-blocked scan (seeded boundary carries; carry-only, both
 directions) against their plain twins, and the blocked chunk scan on the
-card against the same scan on the CPU.
+card against the same scan on the CPU.  ``test_fb_ext_matches_plain``
+holds the extended sweeps (V = 2 and 3, a non-symmetric coupling) at
+their edges (one or two markers, a zeroed emission row).
 
 Run on a machine with the card (tests/conftest.py imports JAX):
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
@@ -523,3 +525,61 @@ def test_fb_small_wrapper_checks(card):
     with pytest.raises(ValueError):
         pfb.fb_sweeps(e.transpose(0, 1), lam)
     assert (pfb.fb_sweeps.launches, pfb.fb_sweeps_small.launches) == before
+
+
+def _ext_inputs(card, dtype, V, M, zero_rows=False, seed=13):
+    """Random extended sweep inputs: e [5, M, V, 8, 64] with zeros, lam
+    from random recombination rates, a random row-stochastic (so not
+    symmetric) coupling [5, M-1, V, V] and a prior [5, V]."""
+    rng = np.random.default_rng(seed)
+    B = 5
+    e = rng.uniform(0.0, 1.0, (B, M, V, 8, 64))
+    e[rng.random(e.shape) < 0.2] = 0.0
+    if zero_rows:
+        e[:, M // 2, :, 3] = 0.0
+    r = rng.uniform(0.0, 0.3, (max(M - 1, 0), 6))
+    bits = (np.arange(64)[:, None] >> np.arange(6)[None, :]) & 1
+    lam = np.where(bits[None] == 1, 1 - 2 * r[:, None, :], 1.0).prod(-1)
+    C = rng.uniform(0.05, 1.0, (B, max(M - 1, 0), V, V))
+    C /= C.sum(-1, keepdims=True)
+    prior = rng.uniform(0.1, 1.0, (B, V)) / (64 * V)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=card)
+    return t(e), t(lam), t(C), t(prior)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("V", [2, 3])
+@pytest.mark.parametrize("case", ["M1", "M2", "zero_rows", "M40"])
+def test_fb_ext_matches_plain(card, case, V, dtype):
+    """The extended sweeps (csrc/fb_ext.cu) against their plain twin at
+    the XLA scan's clip: one and two markers, an emission row of zeros
+    (MINFACTOR) and 40 markers, V = 2 (RELSKEWSTATES) and 3 (SELFING),
+    with a non-symmetric coupling (the backward sweep's orientation)."""
+    M = {"M1": 1, "M2": 2, "zero_rows": 23, "M40": 40}[case]
+    e, lam, C, prior = _ext_inputs(card, dtype, V, M,
+                                   zero_rows=case == "zero_rows")
+    before = pfb.fb_ext.launches
+    got = pfb.fb_ext(e, lam, C, prior)
+    assert pfb.fb_ext.launches == before + 1
+    ref = pfb.fb_ext_reference(e, lam, C, prior)
+    _close(got, ref, dtype)
+    if case == "zero_rows":
+        assert (got[4] == -1e15).any()
+
+
+def test_fb_ext_wrapper_checks(card):
+    """V outside {2, 3}, a state axis other than 64 and a non-contiguous
+    e raise on the card without a launch."""
+    e, lam, C, prior = _ext_inputs(card, torch.float64, 3, 5)
+    before = pfb.fb_ext.launches
+    with pytest.raises(ValueError):
+        pfb.fb_ext(e[:, :, :1].expand(-1, -1, 4, -1, -1), lam,
+                   C[:, :, :1, :1].expand(-1, -1, 4, 4), prior[:, :1].expand(
+                       -1, 4))
+    with pytest.raises(ValueError):
+        pfb.fb_ext(e[..., :32], lam[:, :32], C, prior)
+    with pytest.raises(ValueError):
+        pfb.fb_ext(e.transpose(0, 1), lam, C, prior)
+    assert pfb.fb_ext.launches == before

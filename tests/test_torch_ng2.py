@@ -18,8 +18,8 @@ JAX package's, and the 4-state sweeps against the JAX XLA scans.
   simulate_f2(12, 16) cohort with numgen=2 and the F1 parents typed from
   the simulated truth, on the resident iteration and with resident=False;
   state, pair tables and iteration records at rtol 1e-8.
-* Refusals: parity mode, a marker-blocked ng2 chromosome and the
-  extended state spaces raise before any work.
+* Refusals: parity mode and a marker-blocked ng2 or extended-space
+  chromosome raise before any work; the extended spaces construct.
 """
 import numpy as np
 import pytest
@@ -339,8 +339,10 @@ def test_driver_matches_jax(resident, record_property):
 
 
 def test_refusals():
-    """Parity mode, a marker-blocked ng2 chromosome and the extended state
-    spaces are refused before any work; an unblocked marker_block runs."""
+    """Parity mode and a marker-blocked ng2 chromosome are refused before
+    any work, and so are parity mode and a marker-blocked chromosome of
+    the extended state spaces, which now construct; an unblocked
+    marker_block runs."""
     ped = from_host(f2_ped())
     with pytest.raises(NotImplementedError, match="parity"):
         Driver(ped, device="cpu", parity=True)
@@ -348,8 +350,14 @@ def test_refusals():
                 pconfig.ModelConfig(relskewstates=True)):
         p2 = from_host(f2_ped())
         p2.config = cfg
-        with pytest.raises(NotImplementedError, match="2.2"):
-            Driver(p2, device="cpu")
+        with pytest.raises(NotImplementedError, match="parity"):
+            Driver(p2, device="cpu", parity=True)
+        d2 = Driver(p2, device="cpu")
+        assert d2.ext
+        d2.marker_block = 8
+        with pytest.raises(NotImplementedError, match="2.3"):
+            d2.iterate(early=True)
+        assert d2.state.iter == 0
     d = Driver(ped, device="cpu")
     d.marker_block = 8
     d.preprocess()
