@@ -27,7 +27,12 @@ Phases, in order, each printing its lines (any failure exits non-zero):
            (F1 parents typed, weights randomised) at the XLA scan's clip;
            the extended sweeps (fb_ext: V = 3 at the selfing slice's
            inputs; fb_ext_relskewstates: V = 2 at the relskewstates
-           slice's, relhaplo drawn from U(0.2, 0.95)) at 1000 x 192
+           slice's, relhaplo drawn from U(0.2, 0.95)) at 1000 x 192; the
+           families' marker-blocked entries at one block (K=256) of the
+           blocked family slices' cohorts, random boundary carries,
+           float32 held to the plain twin's accuracy against float64:
+           fb_small_init / fb_small_carry (ng2, NS = 2) and fb_ext_init /
+           fb_ext_carry (selfing, V = 3), each carry row timed per launch
   slice    simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20,
            seed=7) on cuda in float32 with adaptive_relhaplo=False (the
            v2 pipeline) on the host-gathered iteration (resident=False):
@@ -156,11 +161,13 @@ Phases, in order, each printing its lines (any failure exits non-zero):
            (run with the CLI phases) the cli phase's 1000 x 192 files
            through cli.main on the card in float32 with --model ng2, with
            --model nohaplo --lineorigin and with --model relskewstates,
-           and 1000 x 192 selfed-line files with --model selfing, --count
-           3 --output --dump: stage seconds; fails on a nonzero return, a
-           missing unit block, a non-finite number, a table row whose sum
-           is more than 2e-5 from 1, the family's sweep entry (fb_small or
-           fb_ext) never launched or another kernel launched
+           and 1000 x 192 selfed-line files with --model selfing and again
+           with --markerblock 64, --count 3 --output --dump: stage
+           seconds; fails on a nonzero return, a missing unit block, a
+           non-finite number, a table row whose sum is more than 2e-5 from
+           1, the family's sweep entries (fb_small, fb_ext, or the blocked
+           fb_ext_init and fb_ext_carry) never launched or another kernel
+           launched
   slice_ng2, slice_nohaplo
            family_ped's cohort (simulate_f2(n_f2=1000, n_markers=192,
            n_founder_pairs=20, seed=7) under ModelConfig(numgen=2), and
@@ -175,7 +182,7 @@ Phases, in order, each printing its lines (any failure exits non-zero):
            kernel launched
   parity (families)
            run_parity's 24 x 32 float64 cuda-vs-CPU check for ng2 (F1
-           parents typed from the simulated truth) and nohaplo, 3
+           parents typed from the simulated truth) and nohaplo, 2
            iterations, resident and host-gathered, within its bounds
   slice_selfing, slice_relskewstates
            the extended state spaces' cohorts (simulate_selfed(
@@ -186,25 +193,46 @@ Phases, in order, each printing its lines (any failure exits non-zero):
            relskewstates=True)) in float32 through the default Driver
            (resident, adaptive relhaplo) and once more with
            resident=False: preprocess(), iterate(early=True), iterate() x
-           2, then one more full iteration split by stage (synchronised;
-           the engine's stages as ext.*); stage seconds, synchronising
+           2, then (the resident run only) one more full iteration split
+           by stage (synchronised; the engine's stages as ext.*); stage
+           seconds, synchronising
            calls, chunk size, peak memory; fails on a non-finite output, a
            haploweight outside [0, 1], a relhaplo outside [1e-4, 1 - 1e-4]
            or none moved, fb_ext never launched or any other kernel
            launched
   parity (extended)
            run_parity's 24 x 32 float64 cuda-vs-CPU check for selfing
-           (simulate_selfed(24, 32, seed=11)) and relskewstates, 3
+           (simulate_selfed(24, 32, seed=11)) and relskewstates, 2
            iterations, resident and host-gathered
+  slice_blocked_selfing, slice_blocked_ng2
+           the families' marker-blocked scan (blocked_families.py):
+           simulate_selfed(n_lines=1000, n_markers=1024, generations=4,
+           marker_spacing_cm=0.1, seed=3) under SELFING (16 variants), and
+           simulate_f2(n_f2=1000, n_markers=1024, marker_spacing_cm=0.1,
+           n_founder_pairs=20, seed=7) under ModelConfig(numgen=2) with
+           the F1 parents typed, float32, marker_block=256 (4 blocks):
+           preprocess(), iterate(early=True), iterate(), each stage's
+           blocked_fam.* split (profile_slice.stage_timers, synchronised),
+           the peak memory of preprocess and of the iterations; fails on
+           more than one batch chunk, a blocked entry at 0 launches, any
+           other kernel launched, a non-finite output, a haploweight
+           outside [0, 1] or a peak of 40 GB or more
+  parity, blocked_parity (blocked families)
+           run_parity's 24 x 32 check with marker_block=8 for ng2,
+           selfing and relskewstates (3 iterations; relhaplo keeps its
+           values there), then each family at 200 x 192 in float64 on the
+           card with marker_block=32 against its unblocked Driver, one
+           full iteration, at the CPU tests' tolerances
 The launch counters are set to 0 just before each slice, scan and CLI run
 and read just after it; the kernels line takes the launches of the v2
 kernels from slice, of the classic ones from slice_resident, of the
 sweep kernel's two blocked entries from slice_blocked, of stats_rules
 from slice_parity, of stats_bmns_rules from scan_parity, and of the
 4-state entry (fb_small at NS = 2, fb_small_nohaplo at NS = 1) from the
-resident slice_ng2 and slice_nohaplo, and of the extended sweeps (fb_ext
+resident slice_ng2 and slice_nohaplo, of the extended sweeps (fb_ext
 at V = 3, fb_ext_relskewstates at V = 2) from the resident slice_selfing
-and slice_relskewstates.  The kernels phase holds the
+and slice_relskewstates, and of the families' blocked entries from
+slice_blocked_ng2 and slice_blocked_selfing.  The kernels phase holds the
 4-state entry against its plain twin at both families' 1000 x 192 sweep
 inputs.  The last
 three lines are a JSON summary of the kernels, the card's name and power
@@ -280,6 +308,22 @@ KERNELS = {
     "fb_ext_relskewstates": ("cnf2freq_tpu_torch/csrc/fb_ext.cu",
                              "cnf2freq_tpu/engine_ext.py:191",
                              "relskewstates"),
+    # the families' marker-blocked scan (blocked_families.py), kernels for
+    # the JAX module's lax.scans: both sweeps from boundary carries (pass
+    # C, block_pass at :210) and one carry-only direction (passes A and B,
+    # carry_f at :143), on the 4-state rows (ng2) and the extended ones
+    # (selfing, V = 3)
+    "fb_small_init": ("cnf2freq_tpu_torch/csrc/fb_small.cu",
+                      "cnf2freq_tpu/blocked_families.py:210", "blocked_ng2"),
+    "fb_small_carry": ("cnf2freq_tpu_torch/csrc/fb_small.cu",
+                       "cnf2freq_tpu/blocked_families.py:143",
+                       "blocked_ng2"),
+    "fb_ext_init": ("cnf2freq_tpu_torch/csrc/fb_ext.cu",
+                    "cnf2freq_tpu/blocked_families.py:210",
+                    "blocked_selfing"),
+    "fb_ext_carry": ("cnf2freq_tpu_torch/csrc/fb_ext.cu",
+                     "cnf2freq_tpu/blocked_families.py:143",
+                     "blocked_selfing"),
 }
 # operations per unit of work, counted from each kernel's arithmetic (for
 # the bound; every kernel here is far below the card's compute balance):
@@ -301,7 +345,11 @@ OPS = {"emission": 2880, "fb_sweep": 2 * 1152, "stats": 19800,
        # emit, sum, divide) + two 6-stage FWHTs (12) + 2 scalings + the
        # [V, V] mix (2V) per state, and a log
        "fb_ext": 2 * (3 * 64 * (18 + 2 * 3) + 1),
-       "fb_ext_relskewstates": 2 * (2 * 64 * (18 + 2 * 2) + 1)}
+       "fb_ext_relskewstates": 2 * (2 * 64 * (18 + 2 * 2) + 1),
+       # the blocked entries: both directions, or one (carry-only)
+       "fb_small_init": 2 * 41, "fb_small_carry": 41,
+       "fb_ext_init": 2 * (3 * 64 * (18 + 2 * 3) + 1),
+       "fb_ext_carry": 3 * 64 * (18 + 2 * 3) + 1}
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12       # float32 outside the tensor cores
 # (rtol, atol) per dtype; f32 sweeps compound rounding over 192 markers
@@ -338,6 +386,12 @@ MIN_MASKED_ACCURACY = 0.95
 # iterations may hold (the unblocked working set at this size is ~67 GB)
 BLOCK = 256
 BLOCKED_PEAK_LIMIT = 20e9
+# the families' blocked slices: markers, spacing (cM), and the most device
+# memory a run may hold (unblocked, the selfed cohort's one chunk would
+# need ~108 GB; one block's tensors ~27 GB)
+FAMILY_BLOCKED_MARKERS = 1024
+FAMILY_BLOCKED_SPACING = 0.1
+FAMILY_BLOCKED_PEAK_LIMIT = 40e9
 # parity mode: its probe-dedup variants on simulate_f2 cohorts, and the
 # units of slice_parity, cut for the host flip stage (updates/refflips.py,
 # Python whose cost grows faster than the units: the call of the second
@@ -376,7 +430,10 @@ def wrappers():
             "stats_bmns_rules": pst.stats_bmns_rules,
             "fb_small": pfb.fb_sweeps_small,
             "fb_small_nohaplo": pfb.fb_sweeps_small,
-            "fb_ext": pfb.fb_ext, "fb_ext_relskewstates": pfb.fb_ext}
+            "fb_ext": pfb.fb_ext, "fb_ext_relskewstates": pfb.fb_ext,
+            "fb_small_init": pfb.fb_small_block,
+            "fb_small_carry": pfb.fb_small_carry,
+            "fb_ext_init": pfb.fb_ext_block, "fb_ext_carry": pfb.fb_ext_carry}
 
 
 def cuda_rounds(fn, rounds, reps):
@@ -712,11 +769,93 @@ def check_kernels(dtype):
                nbytes(args, got), B * NS * M, cmp=compare_all, V=V)
         del args, got, ref
         torch.cuda.empty_cache()
+
+    # -- the families' marker-blocked entries: one block (K = BLOCK) of the
+    # blocked slices' cohorts, random boundary carries; in float32 held to
+    # the plain twin's accuracy against float64 (0.1 cM: as_accurate)
+    for model, kinit, kcarry in (("ng2", "fb_small_init", "fb_small_carry"),
+                                 ("selfing", "fb_ext_init",
+                                  "fb_ext_carry")):
+        x64 = _blocked_family_inputs64(model)
+        x = {k: v.to(dtype) for k, v in x64.items()}
+        e, lam, below = x["e"], x["lam"], x["lam_below"]
+        B, K, NS = e.shape[0], e.shape[1], e.shape[-2]
+        gen = torch.Generator(device="cuda").manual_seed(9)
+
+        def carry():
+            return (torch.rand(e[:, 0].shape, generator=gen, device="cuda",
+                               dtype=dtype),
+                    torch.randn((B, NS), generator=gen, device="cuda",
+                                dtype=dtype) * 3)
+        fwd, bwd = carry(), carry()
+        fwd64, bwd64 = (tuple(t.double() for t in c) for c in (fwd, bwd))
+        clip = pfb.XLA_CLIP
+        if model == "ng2":
+            def init(fwd=fwd, bwd=bwd):
+                return pfb.fb_small_block(e, lam, fwd, bwd)
+
+            def plain_init(x=x, fwd=fwd, bwd=bwd):
+                return pfb.fb_block_reference(x["e"], x["lam"], *fwd, *bwd,
+                                              clip)
+
+            def carries(fwd=fwd, bwd=bwd):
+                return (pfb.fb_small_carry(e, lam, fwd) +
+                        pfb.fb_small_carry(e, lam, bwd, backward=True,
+                                           lam_below=below))
+
+            def plain_carries(x=x, fwd=fwd, bwd=bwd):
+                return (pfb.fb_carry_reference(x["e"], x["lam"], *fwd, clip)
+                        + pfb.fb_carry_reference(
+                            x["e"], x["lam"], *bwd, clip, backward=True,
+                            lam_below=x["lam_below"]))
+            ref64_init = plain_init(x64, fwd64, bwd64)
+            ref64_carry = plain_carries(x64, fwd64, bwd64)
+            extra = dict(NS=NS)
+        else:
+            C, C_below = x["C"], x["C_below"]
+
+            def init(fwd=fwd, bwd=bwd):
+                return pfb.fb_ext_block(e, lam, C, fwd, bwd)
+
+            def plain_init(x=x, fwd=fwd, bwd=bwd):
+                return pfb.fb_ext_block_reference(x["e"], x["lam"], x["C"],
+                                                  *fwd, *bwd, clip)
+
+            def carries(fwd=fwd, bwd=bwd):
+                return (pfb.fb_ext_carry(e, lam, C, fwd) +
+                        pfb.fb_ext_carry(e, lam, C, bwd, backward=True,
+                                         lam_below=below, C_below=C_below))
+
+            def plain_carries(x=x, fwd=fwd, bwd=bwd):
+                return (pfb.fb_ext_carry_reference(x["e"], x["lam"], x["C"],
+                                                   *fwd, clip) +
+                        pfb.fb_ext_carry_reference(
+                            x["e"], x["lam"], x["C"], *bwd, clip,
+                            backward=True, lam_below=x["lam_below"],
+                            C_below=x["C_below"]))
+            ref64_init = plain_init(x64, fwd64, bwd64)
+            ref64_carry = plain_carries(x64, fwd64, bwd64)
+            extra = dict(V=e.shape[2])
+        got = init()
+        torch.cuda.synchronize()
+        record(kinit, got, plain_init(), init, plain_init,
+               nbytes(e, lam, x.get("C"), fwd, bwd, got), B * NS * K,
+               cmp=as_accurate(ref64_init), K=K, **extra)
+        del got, ref64_init
+        got = carries()
+        # one launch reads e, the interval rows and one carry, and writes
+        # the outgoing carry
+        record(kcarry, got, plain_carries(), carries, plain_carries,
+               nbytes(e, lam, x.get("C"), fwd, got[:2]), B * NS * K,
+               cmp=as_accurate(ref64_carry), launches_per_call=2, K=K,
+               **extra)
+        del got, ref64_carry, x, e
+        torch.cuda.empty_cache()
     return out
 
 
 def family_ped(model, n_f2=1000, n_markers=192, n_founder_pairs=20, seed=7,
-               typed_parents=False):
+               typed_parents=False, spacing_cm=1.0):
     """The slice's cohort under a two-generation family's config (the
     CLI's --model), founder flags cleared for the deep-walk family (the
     reference's no-haplotyping fixtrees sets none), as the JAX package's
@@ -726,15 +865,17 @@ def family_ped(model, n_f2=1000, n_markers=192, n_founder_pairs=20, seed=7,
     ``typed_parents`` gives the F1 parents their simulated genotypes
     (error rate 0.02), so that the units are not founders.  ``selfing``
     is simulate_selfed(n_lines=n_f2, n_markers, generations=4,
-    marker_spacing_cm=1.0, seed), the selfed cohort of the JAX package's
-    extended perf row (bench/ext_perf.py)."""
+    marker_spacing_cm=spacing_cm, seed), the selfed cohort of the JAX
+    package's extended perf row (bench/ext_perf.py) at the default 1 cM
+    (``spacing_cm`` spaces the markers of either)."""
     from cnf2freq_tpu_torch.cli import model_config
     from cnf2freq_tpu_torch.utils.simulate import simulate_f2, simulate_selfed
     if model == "selfing":
         return simulate_selfed(n_lines=n_f2, n_markers=n_markers,
-                               generations=4, marker_spacing_cm=1.0,
+                               generations=4, marker_spacing_cm=spacing_cm,
                                seed=seed)
     ped = simulate_f2(n_f2=n_f2, n_markers=n_markers,
+                      marker_spacing_cm=spacing_cm,
                       n_founder_pairs=n_founder_pairs, seed=seed)
     ped.config = model_config(model)
     if ped.config.deep_walk:
@@ -837,6 +978,51 @@ def ext_ped(model, n_units=1000, n_markers=192, seed=None):
     if seed is None:
         seed = 3 if model == "selfing" else 7
     return family_ped(model, n_f2=n_units, n_markers=n_markers, seed=seed)
+
+
+@functools.lru_cache(maxsize=2)
+def _blocked_family_inputs64(model):
+    """One block of a family's blocked slice cohort on the card, in
+    float64: {e [1000, BLOCK, ...], lam [BLOCK, S], lam_below [S] and, on
+    the extended spaces, C [1000, BLOCK, V, V], C_below [1000, V, V]}, from
+    family_blocked_ped's cohort cut to BLOCK + 1 markers (weights
+    randomised as kernel_inputs makes them); the interval below is the
+    block's middle one."""
+    from cnf2freq_tpu_torch import blocked_families as PB
+    from cnf2freq_tpu_torch.config import RuntimeParams
+    from cnf2freq_tpu_torch.hmm.family import gather_family
+    ped = family_blocked_ped(model, n_markers=BLOCK + 1)
+    cfg = ped.config
+    for ind in ped.inds[1:]:
+        ped.fixtrees(ind.n)
+    ped.count_descendants()
+    fb = gather_family(ped, list(ped.dous), 0, ped.num_markers - 1,
+                       n_variants=1)
+    rng = np.random.default_rng(7)
+    fb.hw = rng.uniform(0.05, 0.95, fb.hw.shape)
+    fb.ms = np.where(fb.md > 0, rng.uniform(0.0, 0.3, fb.ms.shape), fb.ms)
+    fbt = fb.to("cuda", torch.float64)
+    dists = torch.as_tensor(np.diff(ped.markerposes), dtype=torch.float64,
+                            device="cuda")
+    lam_pad, C_pad = PB.prep_intervals(fbt, dists, None, cfg,
+                                       RuntimeParams())
+    _, e = PB.block_emission(fbt, cfg, BLOCK + 1)
+    mid = BLOCK // 2
+    out = dict(e=e[:, :BLOCK].contiguous(), lam=lam_pad[:BLOCK].contiguous(),
+               lam_below=lam_pad[mid].contiguous())
+    if C_pad is not None:
+        out.update(C=C_pad[:, :BLOCK].contiguous(),
+                   C_below=C_pad[:, mid].contiguous())
+    return out
+
+
+def family_blocked_ped(model, n_markers=FAMILY_BLOCKED_MARKERS):
+    """A family's blocked slice cohort: family_ped at 1000 units (lines)
+    and FAMILY_BLOCKED_SPACING cM (the ng2 F1 parents typed)."""
+    return family_ped(model, n_markers=n_markers,
+                      spacing_cm=FAMILY_BLOCKED_SPACING,
+                      seed=3 if model == "selfing" else 7,
+                      typed_parents=model == "ng2")
 
 
 @contextlib.contextmanager
@@ -1039,16 +1225,99 @@ def run_slice_blocked():
     return launches
 
 
-def run_blocked_parity():
-    """1000 x 192 on the card in float64: marker_block=32 against the
-    unblocked Driver, one full iteration, at the CPU tests' tolerances."""
+def run_slice_blocked_family(model):
+    """A family's marker-blocked slice (family_blocked_ped: 1000 x 1024 at
+    0.1 cM) in float32 through the default Driver with marker_block=BLOCK:
+    preprocess(), iterate(early=True), iterate(), with the blocked_fam.*
+    split (synchronised) and the peak memory of preprocess and of the
+    iterations; fails on more than one batch chunk, a blocked entry of
+    the family at 0 launches, any other kernel launched, a non-finite
+    output, a haploweight outside [0, 1] or a peak at or above
+    FAMILY_BLOCKED_PEAK_LIMIT.  Returns the blocked entries' launches."""
+    from cnf2freq_tpu_torch import Driver
+    from cnf2freq_tpu_torch.profile_slice import stage_timers
+    phase = f"slice_blocked_{model}"
+    names = ("fb_small_init", "fb_small_carry") if model == "ng2" else \
+        ("fb_ext_init", "fb_ext_carry")
+    ped = family_blocked_ped(model)
+    M = ped.num_markers
+    nblk = -(-M // BLOCK)
+    drv = Driver(ped, dtype=torch.float32, device="cuda")
+    drv.marker_block = BLOCK
+    w = wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in w.values():
+        fn.launches = 0
+    peaks = {}
+    with stage_timers() as acc:
+        for name, fn in (("preprocess", drv.preprocess),
+                         ("iterate_early", lambda: drv.iterate(early=True)),
+                         ("iterate_1", drv.iterate)):
+            acc.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            split = {k: round(v, 3) for k, v in sorted(
+                acc.items(), key=lambda kv: -kv[1])}
+            extra = {} if out is None else dict(
+                loglik=f"{out['loglik']:.6f}", hitnnn=out["hitnnn"],
+                inverted=out["inverted"])
+            say(phase, stage=name, seconds=f"{sec:.3f}",
+                split=json.dumps(split), **extra)
+            if out is not None and not math.isfinite(out["loglik"]):
+                fail(f"{phase}: non-finite log-likelihood after {name}")
+            if name == "preprocess":
+                peaks["preprocess"] = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+    peaks["iterations"] = torch.cuda.max_memory_allocated()
+    launches = {k: w[k].launches for k in names}
+    others = {k: fn.launches for k, fn in w.items()
+              if k not in names and fn.launches}
+    hw = np.stack([ind.haploweight for ind in ped.inds[1:]])
+    tabs = np.stack(list(drv.pair_tables.values()))
+    finite = bool(np.isfinite(hw).all() and np.isfinite(tabs).all())
+    hw_ok = bool((hw >= 0).all() and (hw <= 1).all())
+    # per chunk and iteration: pass C one seeded launch a block, passes A
+    # and B one carry-only launch a block (B skips block 0)
+    chunks = launches[names[0]] / (2 * nblk)
+    say(phase, markers=M, block=BLOCK, blocks=nblk,
+        n_variants=drv._n_variants(), resident=drv._use_resident(),
+        launches=json.dumps(launches), other_kernel_launches=json.dumps(
+            others), batch_chunks=chunks, finite=finite,
+        haploweights_in_range=hw_ok,
+        peak_memory_gb_preprocess=f"{peaks['preprocess'] / 1e9:.3f}",
+        peak_memory_gb_iterations=f"{peaks['iterations'] / 1e9:.3f}",
+        limit_gb=f"{FAMILY_BLOCKED_PEAK_LIMIT / 1e9:.0f}")
+    if min(launches.values()) <= 0:
+        fail(f"{phase}: a blocked entry never launched: {launches}")
+    if others:
+        fail(f"{phase}: another kernel launched: {others}")
+    if chunks != 1 or launches[names[1]] != 2 * (2 * nblk - 1):
+        fail(f"{phase}: the cohort did not run as one batch chunk: "
+             f"{launches}")
+    if max(peaks.values()) >= FAMILY_BLOCKED_PEAK_LIMIT:
+        fail(f"{phase}: peak memory {max(peaks.values()) / 1e9:.3f} GB")
+    if not (finite and hw_ok):
+        fail(f"{phase}: non-finite or out-of-range outputs")
+    return launches
+
+
+def run_blocked_parity(model="f2", n_units=1000, block=32):
+    """``n_units`` x 192 on the card in float64: marker_block=``block``
+    against the unblocked Driver, one full iteration, at the CPU tests'
+    tolerances; ``model`` a family of family_ped (the ng2 F1 parents
+    typed)."""
     from cnf2freq_tpu_torch import Driver, copy_pedigree
-    from cnf2freq_tpu_torch.utils.simulate import simulate_f2
-    base = simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20, seed=7)
+    base = family_ped(model, n_f2=n_units, n_markers=192,
+                      typed_parents=model == "ng2",
+                      seed=3 if model == "selfing" else 7)
     peds = [copy_pedigree(base) for _ in range(2)]
     drvs = [Driver(p, dtype=torch.float64, device="cuda",
                    adaptive_relhaplo=False) for p in peds]
-    drvs[0].marker_block = 32
+    drvs[0].marker_block = block
     t0 = time.perf_counter()
     for d in drvs:
         d.resident = False
@@ -1070,12 +1339,14 @@ def run_blocked_parity():
     pair_err = max(float(np.abs(tabs[0][n] - tabs[1][n]).max())
                    for n in tabs[1])
     ok = hw_ok and calls_ok and pair_ok
-    say("blocked_parity", marker_block=32, seconds=
+    say("blocked_parity", model=model, units=n_units, marker_block=block,
+        seconds=
         f"{time.perf_counter() - t0:.3f}", haploweight_max_abs=f"{hw_err:.3e}",
         pair_max_abs=f"{pair_err:.3e}", rtol=1e-8, atol=1e-11,
         calls_equal_but_near_ties=calls_ok, ok=ok)
     if not ok:
-        fail("blocked and unblocked float64 runs disagree on the card")
+        fail(f"blocked and unblocked float64 runs disagree on the card "
+             f"({model})")
 
 
 def run_parity(adaptive, iters=2, model="f2", **driver_attrs):
@@ -1127,7 +1398,11 @@ def run_parity(adaptive, iters=2, model="f2", **driver_attrs):
     if not ok:
         fail(f"cuda and CPU float64 runs disagree (adaptive={adaptive}, "
              f"{driver_attrs})")
-    if adaptive and base.config.relskews and not moved:
+    # a marker-blocked family chromosome computes no coherence (relhaplo
+    # keeps its values, as in the JAX Driver)
+    blocked_family = model != "f2" and driver_attrs.get("marker_block")
+    if adaptive and base.config.relskews and not moved and \
+            not blocked_family:
         fail("parity: adaptive relhaplo left relhaplo at its loaded value")
 
 
@@ -1405,13 +1680,14 @@ def run_family_slice(model, resident=None):
     return small
 
 
-def run_ext_slice(model, resident=None):
+def run_ext_slice(model, resident=None, split=True):
     """An extended slice (ext_ped at 1000 x 192) in float32 through the
     Driver (its default, resident, iteration, or ``resident``):
     preprocess(), iterate(early=True), iterate() x 2, with each stage's
-    seconds and synchronising calls, then one more full iteration under
-    profile_slice's stage timers (synchronised: the engine's stages as
-    ``ext.*``), the peak memory and fb_ext's launches; fails on a
+    seconds and synchronising calls, then (``split``) one more full
+    iteration under profile_slice's stage timers (synchronised: the
+    engine's stages as ``ext.*``), the peak memory and fb_ext's launches;
+    fails on a
     non-finite output, a haploweight outside [0, 1], a relhaplo outside
     [1e-4, 1 - 1e-4] or none moved, fb_ext never launched or any other
     kernel launched.  Returns fb_ext's launches in the first four
@@ -1455,17 +1731,18 @@ def run_ext_slice(model, resident=None):
     others = {k: fn.launches for k, fn in w.items()
               if fn is not w["fb_ext"] and fn.launches}
     chunk = drv._chunk_size(len(ped.dous), ped.num_markers, True)
-    with stage_timers() as acc:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        drv.iterate()
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t0
-    split = {k: round(v, 3) for k, v in sorted(acc.items(),
-                                                key=lambda kv: -kv[1])}
-    say(phase, resident=drv._use_resident(), stage="iterate_3_split",
-        seconds=f"{total:.3f}", split="synchronised",
-        stages=json.dumps(split))
+    if split:
+        with stage_timers() as acc:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            drv.iterate()
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        stages = {k: round(v, 3) for k, v in sorted(acc.items(),
+                                                     key=lambda kv: -kv[1])}
+        say(phase, resident=drv._use_resident(), stage="iterate_3_split",
+            seconds=f"{total:.3f}", split="synchronised",
+            stages=json.dumps(stages))
     peak = torch.cuda.max_memory_allocated()
     hw = np.stack([ind.haploweight for ind in ped.inds[1:]])
     rh = np.stack([ind.relhaplo for ind in ped.inds[1:]])
@@ -1502,10 +1779,13 @@ def run_cli_models(tmp, n_f2=1000):
     (float32) with --model ng2, with --model nohaplo --lineorigin and
     with --model relskewstates, and simulate_plantimpute_selfed_files(
     n_lines=1000, n_markers=192, generations=4, spacing_cm=1.0, seed=3)
-    with --model selfing, --count 3: every F2 (or line) block written,
-    finite, table rows summing to 1 within CLI_ATOL, the family's sweep
-    entry launched (fb_small for the two-generation families, fb_ext for
-    the extended ones) and no other kernel."""
+    with --model selfing, and once more with --markerblock 64 (--count 2),
+    --count 3:
+    every F2 (or line) block written, finite, table rows summing to 1
+    within CLI_ATOL, the family's sweep entries launched (fb_small for
+    the two-generation families, fb_ext for the extended ones, the
+    blocked entries fb_ext_init and fb_ext_carry with --markerblock) and
+    no other kernel."""
     from cnf2freq_tpu_torch import cli
     from cnf2freq_tpu_torch.utils.simulate import \
         simulate_plantimpute_selfed_files
@@ -1513,40 +1793,44 @@ def run_cli_models(tmp, n_f2=1000):
     selfed = simulate_plantimpute_selfed_files(
         os.path.join(tmp, "cli_selfed"), n_lines=n_f2, n_markers=192,
         generations=4, spacing_cm=1.0, seed=3)[:3]
-    for model in ("ng2", "nohaplo", "selfing", "relskewstates"):
+    runs = [("ng2", [], ("fb_small",)), ("nohaplo", [], ("fb_small",)),
+            ("selfing", [], ("fb_ext",)), ("relskewstates", [], ("fb_ext",)),
+            ("selfing", ["--markerblock", "64", "--count", "2"],
+             ("fb_ext_init", "fb_ext_carry"))]
+    for model, extra, kernels in runs:
+        tag = model + ("_blocked" if extra else "")
         files = selfed if model == "selfing" else [
             os.path.join(d, f"synth.{x}") for x in ("map", "ped", "gen")]
         io_args = ["--mapfile", files[0], "--pedfile", files[1],
                    "--genfile", files[2], "--count", "3"]
-        kernel = "fb_ext" if model in ("selfing", "relskewstates") \
-            else "fb_small"
-        out = os.path.join(d, f"{model}.out")
+        out = os.path.join(d, f"{tag}.out")
         argv = io_args + ["--model", model, "--output", out, "--dump",
-                          os.path.join(d, f"{model}.dump")]
+                          os.path.join(d, f"{tag}.dump")] + extra
         tables = [(out, 4)]
         if model == "nohaplo":
-            argv += ["--lineorigin", os.path.join(d, f"{model}.lo")]
-            tables.append((os.path.join(d, f"{model}.lo"), 3))
+            argv += ["--lineorigin", os.path.join(d, f"{tag}.lo")]
+            tables.append((os.path.join(d, f"{tag}.lo"), 3))
         w = wrappers()
         for fn in w.values():
             fn.launches = 0
         record, err = [], io.StringIO()
         with timed_stages(record), contextlib.redirect_stderr(err):
             rc = cli.main(argv)
-        small = w[kernel].launches
+        mine = {k: w[k].launches for k in kernels}
+        ours = [w[k] for k in kernels]
         others = {k: fn.launches for k, fn in w.items()
-                  if fn is not w[kernel] and fn.launches}
+                  if all(fn is not o for o in ours) and fn.launches}
         secs = collections.defaultdict(float)
         for stage, sec, _ in record:
             secs[stage] += sec
-        say("cli_models", model=model, rc=rc, kernel=kernel,
-            launches=small, other_kernel_launches=json.dumps(others),
+        say("cli_models", model=model, extra=" ".join(extra) or None, rc=rc,
+            launches=json.dumps(mine),
+            other_kernel_launches=json.dumps(others),
             seconds=json.dumps({k: round(v, 3) for k, v in secs.items()}))
         if rc != 0:
-            fail(f"cli_models {model}: returned {rc}")
-        if small <= 0 or others:
-            fail(f"cli_models {model}: launches {kernel}={small}, "
-                 f"others {others}")
+            fail(f"cli_models {tag}: returned {rc}")
+        if min(mine.values()) <= 0 or others:
+            fail(f"cli_models {tag}: launches {mine}, others {others}")
         for path, width in tables:
             vals = numbers(path)
             blocks = table_blocks(path, width)
@@ -1560,10 +1844,10 @@ def run_cli_models(tmp, n_f2=1000):
                 max_row_sum_dev=f"{dev:.2e}")
             if len(f2) != n_f2 or not np.isfinite(vals).all() or \
                     dev > CLI_ATOL:
-                fail(f"cli_models {model}: {path}: {len(f2)} unit blocks, "
+                fail(f"cli_models {tag}: {path}: {len(f2)} unit blocks, "
                      f"a non-finite value or a row sum off by {dev}")
-        if not np.isfinite(numbers(os.path.join(d, f"{model}.dump"))).all():
-            fail(f"cli_models {model}: non-finite values in the dump")
+        if not np.isfinite(numbers(os.path.join(d, f"{tag}.dump"))).all():
+            fail(f"cli_models {tag}: non-finite values in the dump")
 
 
 class Tee(io.TextIOBase):
@@ -2172,15 +2456,24 @@ def main():
     run_family_slice("nohaplo", resident=False)
     for model in ("ng2", "nohaplo"):
         for resident in (True, False):
-            run_parity(True, iters=3, model=model, resident=resident)
+            run_parity(True, model=model, resident=resident)
     # the extended state spaces, the same way
     launches["fb_ext"] = run_ext_slice("selfing")
-    run_ext_slice("selfing", resident=False)
+    run_ext_slice("selfing", resident=False, split=False)
     launches["fb_ext_relskewstates"] = run_ext_slice("relskewstates")
-    run_ext_slice("relskewstates", resident=False)
+    run_ext_slice("relskewstates", resident=False, split=False)
     for model in ("selfing", "relskewstates"):
         for resident in (True, False):
-            run_parity(True, iters=3, model=model, resident=resident)
+            run_parity(True, model=model, resident=resident)
+    # the families' marker-blocked scan: the 1000 x 1024 slices (their
+    # launches in the summary), cuda against the CPU, blocked against
+    # whole on the card
+    blocked = run_slice_blocked_family("selfing")
+    blocked.update(run_slice_blocked_family("ng2"))
+    launches.update(blocked)
+    for model in ("ng2", "selfing", "relskewstates"):
+        run_parity(True, iters=3, model=model, marker_block=8)
+        run_blocked_parity(model, n_units=200)
 
     f32 = checks[torch.float32]
     summary = [dict(name=k, route="cuda", source=src, replaces=rep,

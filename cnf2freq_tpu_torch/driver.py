@@ -53,8 +53,9 @@ numgen=2)``) with the 7-slot embedding for the correction inference and
 the variances, and the no-haplotyping deep walk (``F2_NOHAPLO``), whose
 iteration computes the posteriors and pair tables and updates nothing
 (no variances, anchors, turn weights, flips or parameter updates).
-Parity mode, marker blocking and the map re-estimation refuse them
-before any work (``_check_family_run``).
+Parity mode, the map re-estimation and marker blocking of the deep walk
+refuse them before any work (``_check_family_run``); ng2 runs
+marker-blocked (below).
 
 The extended state spaces (``ModelConfig(selfing=True)``, V = 3 HBD
 statuses; ``ModelConfig(relskewstates=True)``, V = 2 coherence-bit
@@ -65,8 +66,16 @@ counts non-empty slots only, and with adaptive relhaplo the scan
 delivers the coherence (RELSKEWSTATES: the coherence bit's xor-marginal,
 slot 0 only; SELFING: every slot), which is scattered as the standard
 space's; a RELSKEWSTATES scan reads the focal's relhaplo (the resident
-cohort's ``rh`` column).  Parity mode refuses them at construction, and
-a marker-blocked chromosome before any work (``_check_family_run``).
+cohort's ``rh`` column).  Parity mode refuses them at construction.
+
+A marker-blocked chromosome of the ng2 family or the extended spaces
+runs ``_chromosome_blocked_family`` (``blocked_families.py``, the JAX
+Driver's), the F2 blocked path's structure without its per-block
+follow-ups: adaptive-relhaplo coherence and map re-estimation stay
+whole-chromosome features there (a notice is printed once, and relhaplo
+keeps its values), and blocked nohaplo, negshift flips, parent swaps
+and map re-estimation are refused before any work
+(``_check_family_run``).
 
 The Driver runs on the card unless it is given ``device="cpu"``.
 
@@ -91,14 +100,16 @@ stages) and ``haploweights``, and on the resident one ``stack``,
 ``device`` (the whole-cohort update and its readback) and ``writeback``;
 on a marker-blocked chromosome ``carries`` (passes A and B), ``block``
 and ``scatter`` per block and chunk (pass C), and ``flips`` around the
-solve.  The relhaplo refresh of the host-gathered iteration and the
-per-block follow-ups run outside any span, as in the JAX Driver.
+solve (the same spans on a blocked family chromosome).  The relhaplo
+refresh of the host-gathered iteration and the per-block follow-ups run
+outside any span, as in the JAX Driver.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import sys
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -675,7 +686,7 @@ class Driver:
         if self.flip_mode not in ("native", "negshift"):
             raise ValueError(f"unknown flip_mode {self.flip_mode!r}")
         # (raises before any work on a combination it cannot run)
-        self._check_family_run()
+        self._check_family_run(early)
         resident = self._use_resident()
         tr = self.tracer
         st = self.state
@@ -707,9 +718,14 @@ class Driver:
                 ped.by_id(n).lastinved[c] = -1
             Mc = hi - lo
             if self.marker_block is not None and Mc > self.marker_block:
-                winner = self._chromosome_blocked(c, lo, hi, dous, accum,
-                                                  ind_index, lut, early,
-                                                  loglik, swap_cands)
+                if self.ext or cfg.numgen == 2:
+                    winner = self._chromosome_blocked_family(
+                        c, lo, hi, dous, accum, ind_index, lut, early,
+                        loglik)
+                else:
+                    winner = self._chromosome_blocked(
+                        c, lo, hi, dous, accum, ind_index, lut, early,
+                        loglik, swap_cands)
                 if winner is not None:
                     apply_flips(ped, winner, c, accum.hb, accum.hc,
                                 ind_index)
@@ -801,41 +817,37 @@ class Driver:
         return dict(hitnnn=hits, inverted=any_inv,
                     scalefactor=st.scalefactor, loglik=float(loglik))
 
-    def _check_family_run(self):
-        """The runs a model family cannot make, refused before any work:
-        marker blocking of the two-generation families and the extended
-        spaces (the deep-walk engine is whole-chromosome only, as in the
-        JAX package; a blocked ng2 or extended chromosome needs the
-        family engines' blocked scan, ROADMAP Queue 1 item 2.3) and the
-        genetic-map re-estimation of the numgen == 2 families (its
-        expectations come from the 7-slot blocks, in the JAX package
-        too)."""
+    def _check_family_run(self, early: bool = False):
+        """The runs a model family cannot make, refused before any work,
+        as the JAX Driver refuses them: a marker-blocked chromosome of the
+        no-haplotyping deep walk (whole-chromosome only), and on a blocked
+        ng2 or extended chromosome the negshift flips and parent-pair
+        swaps of a full iteration and the map re-estimation (standard
+        space only under blocking); and the genetic-map re-estimation of
+        the numgen == 2 families (its expectations come from the 7-slot
+        blocks, in the JAX package too)."""
         cfg, ped = self.cfg, self.ped
-        if self.ext and self.marker_block is not None:
-            for c in range(ped.num_chromosomes):
-                lo, hi = ped.chromosome_range(c)
-                if hi - lo > self.marker_block:
-                    raise NotImplementedError(
-                        f"marker-blocked scans of the extended state spaces "
-                        f"are not ported yet (ROADMAP Queue 1, item 2.3): "
-                        f"chromosome {c} has {hi - lo} markers, more than "
-                        f"marker_block={self.marker_block}")
-        if cfg.numgen != 2:
-            return
-        if self.marker_block is not None:
-            if cfg.deep_walk:
+        family = self.ext or cfg.numgen == 2
+        blocked = self.marker_block is not None and any(
+            hi - lo > self.marker_block
+            for lo, hi in map(ped.chromosome_range,
+                              range(ped.num_chromosomes)))
+        if self.marker_block is not None and cfg.deep_walk:
+            raise NotImplementedError(
+                "marker-blocked scans: the no-haplotyping deep-walk "
+                "engine is whole-chromosome only")
+        if family and blocked:
+            if self.flip_mode == "negshift" and not early:
                 raise NotImplementedError(
-                    "marker-blocked scans: the no-haplotyping deep-walk "
-                    "engine is whole-chromosome only")
-            for c in range(ped.num_chromosomes):
-                lo, hi = ped.chromosome_range(c)
-                if hi - lo > self.marker_block:
-                    raise NotImplementedError(
-                        f"marker-blocked scans of the numgen == 2 family "
-                        f"are not ported yet (ROADMAP Queue 1, item 2.3): "
-                        f"chromosome {c} has {hi - lo} markers, more than "
-                        f"marker_block={self.marker_block}")
-        if self.remap_distances:
+                    "negshift x blocked runs on the standard space only")
+            if self.parent_swap and not early:
+                raise NotImplementedError(
+                    "parent-pair swap moves are unblocked-only")
+            if self.remap_distances:
+                raise NotImplementedError(
+                    "map re-estimation under blocked scans is "
+                    "standard-space only")
+        if cfg.numgen == 2 and self.remap_distances:
             raise NotImplementedError(
                 "genetic-map re-estimation needs numgen == 3 (its "
                 "recombination expectations come from the 7-slot blocks)")
@@ -1267,13 +1279,9 @@ class Driver:
         pending = None
 
         def score_block(off, wparts):
-            span = min(block, Mc - off)
-            halo = off + span < Mc
-            scored.append(self._score_turns(
-                dous, lo, hi, [w[:, :span] for w in wparts], accum,
-                ind_index, c, marker_offset=off, m_span=span, halo=halo,
-                skew_rows=accum.rows_slice(rows, lo + off,
-                                           span + (1 if halo else 0))))
+            scored.append(self._score_block(dous, lo, hi, accum, ind_index,
+                                            c, rows, off, min(block, Mc - off),
+                                            wparts))
 
         for i in range(nblk):
             off = i * block
@@ -1333,7 +1341,24 @@ class Driver:
             return self._negshift(dous, lo, hi, weights, swap_cands)
         if early or not scored:
             return None
-        # the blocks' hot markers on the score grid, the global top kept
+        return self._solve_blocks(dous, lo, hi, scored, c)
+
+    def _score_block(self, dous, lo, hi, accum, ind_index, c, rows, off,
+                     span, wparts):
+        """Device scoring of one block's hot markers (``_score_turns`` on
+        the block's span), the relskew inputs reaching one marker past a
+        block that is not the chromosome's last (its right halo)."""
+        halo = lo + off + span < hi
+        return self._score_turns(
+            dous, lo, hi, [w[:, :span] for w in wparts], accum, ind_index,
+            c, marker_offset=off, m_span=span, halo=halo,
+            skew_rows=accum.rows_slice(rows, lo + off,
+                                       span + (1 if halo else 0)))
+
+    def _solve_blocks(self, dous, lo, hi, scored, c
+                      ) -> Optional[FlipCandidate]:
+        """The flip solve of a blocked chromosome over its blocks' scored
+        hot markers: on the score grid, the global top kept."""
         idx, mg, gains, S_top = self._canonical_scores(tuple(
             np.concatenate([s[j] for s in scored], axis=0 if j < 2 else 1)
             for j in range(4)))
@@ -1342,6 +1367,95 @@ class Driver:
             return self._solve_scored(dous, lo, hi, (idx[:k], mg[:k],
                                                      gains[:, :k],
                                                      S_top[:, :k]), c)
+
+    def _chromosome_blocked_family(self, c, lo, hi, dous, accum, ind_index,
+                                   lut, early, loglik
+                                   ) -> Optional[FlipCandidate]:
+        """One chromosome of the ng2 family or an extended space in
+        marker-blocked mode (blocked_families.py): O(marker_block) sweep
+        memory at any chromosome length, plus the boundary carries of
+        every batch chunk.  Blocks outer, chunks inner, with the F2
+        blocked path's one-block scoring deferral for the relskew halo.
+        Adaptive-relhaplo coherence stays a whole-chromosome feature here,
+        as in the JAX Driver: a notice is printed once and relhaplo keeps
+        its values.  The chromosome's log-likelihood is added into
+        ``loglik``."""
+        from .blocked_families import blocked_family_chunk, family_carries
+        ped, cfg, dev = self.ped, self.cfg, self.device
+        if self.adaptive_relhaplo and (cfg.relskews or cfg.relskewstates) \
+                and not getattr(self, "_warned_blocked_coh", False):
+            print("# blocked mode (ng2/ext): adaptive-relhaplo coherence is "
+                  "a whole-chromosome feature; relhaplo keeps its current "
+                  "values", file=sys.stderr)
+            self._warned_blocked_coh = True
+        block = self.marker_block
+        Mc = hi - lo
+        Mp = -(-Mc // block) * block
+        nblk = Mp // block
+        dists = self._t(np.pad(np.diff(ped.markerposes[lo:hi]),
+                               (0, Mp - Mc)))
+        rm = self._t(np.pad(rate_matrix(cfg, self.params, Mc - 1, ped.actrec,
+                                        lo), ((0, Mp - Mc), (0, 0))))
+        NI = accum.hb.shape[0]
+
+        # batch chunks: a block's tensors plus each unit's boundary carries
+        # and whole-chromosome slot tensors, in the tensor units of
+        # _chunk_size (EXT_UNIT_TENSORS a V row on the extended spaces)
+        NS, S = cfg.numshifts, cfg.numtypes
+        V = cfg.numselfstates * cfg.numrelstates if self.ext else 1
+        tensors = EXT_UNIT_TENSORS * V if self.ext else UNIT_TENSORS[False]
+        m_eff = block + -(-(2 * (V * NS * S + NS) * nblk + SLOT_VALUES * Mp)
+                          // (tensors * NS * S)) + 1
+        bs = self._chunk_size(len(dous), m_eff)
+        gens = []
+        with self.tracer.span("carries"):
+            for b0 in range(0, len(dous), bs):
+                chunk = dous[b0:b0 + bs]
+                fb = pad_markers(self._gather(chunk, lo, hi), Mp).to(
+                    dev, self.dtype)
+                fc = family_carries(fb, dists, rm, cfg, self.params, block,
+                                    Mc)
+                loglik += fc.total.sum()
+                gens.append((chunk, blocked_family_chunk(
+                    fb, dists, rm, lut, cfg, self.params, block, NI,
+                    self._n_variants(), with_turn=not early, carries=fc)))
+
+        rows = constant([ind_index[n] for n in dous], dev)
+        scored = []
+        # a block is scored one block late, so that the next block's merged
+        # accumulators (all chunks) supply the right-halo column of the
+        # relskew term across their boundary
+        pending = None
+
+        def score_block(off, wparts):
+            scored.append(self._score_block(dous, lo, hi, accum, ind_index,
+                                            c, rows, off, min(block, Mc - off),
+                                            wparts))
+
+        for i in range(nblk):
+            # every block holds a real marker: Mp - Mc < block
+            off = i * block
+            span = min(block, Mc - off)
+            wparts = []
+            for chunk, gen in gens:
+                with self.tracer.span("block"):
+                    _, pair_i, hb_i, hc_i, inf_i, w = next(gen)
+                with self.tracer.span("scatter"):
+                    self._pair_pending.append((list(chunk), lo + off,
+                                               pair_i[:, :span]))
+                    accum.add(lo + off, hb_i[:, :span], hc_i[:, :span],
+                              inf_i[:, :span])
+                if not early:
+                    wparts.append(w)
+            if wparts:
+                if pending is not None:
+                    score_block(*pending)
+                pending = (off, wparts)
+        if pending is not None:
+            score_block(*pending)
+        if early or not scored:
+            return None
+        return self._solve_blocks(dous, lo, hi, scored, c)
 
     def _blocked_followups(self, st, fb_blk, fbres, i, off, span, block,
                            dists, rm, coh, remap_acc):

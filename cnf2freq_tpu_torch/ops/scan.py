@@ -523,8 +523,9 @@ class BlockedCarries(NamedTuple):
 
 def marker_slice(fb: FamilyBatch, sl: slice) -> FamilyBatch:
     """The family batch restricted to the markers ``sl``."""
+    relh = None if fb.relh is None else fb.relh[:, sl]
     return dataclasses.replace(fb, md=fb.md[:, :, sl], ms=fb.ms[:, :, sl],
-                               hw=fb.hw[:, :, sl])
+                               hw=fb.hw[:, :, sl], relh=relh)
 
 
 def blocked_slice(fb: FamilyBatch, i: int, block: int) -> FamilyBatch:

@@ -26,7 +26,13 @@ cohort simulate_selfed(n_lines=1000, n_markers=192, generations=4,
 marker_spacing_cm=1.0, seed=3) and with ``--model relskewstates`` the F2
 cohort, both through the extended engine (``chip_smoke.py``'s
 ``slice_selfing`` and ``slice_relskewstates``; the engine's stages
-timed as ``ext.*``): preprocess(), the early
+timed as ``ext.*``); ``--markerblock`` with ``--model ng2``, ``selfing``
+or ``relskewstates`` runs the families' marker-blocked scan, timed as
+``blocked_fam.pass_a``, ``blocked_fam.pass_b`` (the carry-only sweeps
+with each block's emissions) and ``blocked_fam.pass_c`` (each block's
+sweeps, statistics, merges and turn weights; ``chip_smoke.py``'s
+``slice_blocked_selfing`` is ``--model selfing --markers 1024
+--spacing-cm 0.1 --markerblock 256``): preprocess(), the early
 iteration, then two full iterations.  For each it prints the wall seconds
 of the whole call and of each driver stage (on the classic pipeline also
 the scan's own stages, ``scan.*``), timed on the host around calls
@@ -93,7 +99,12 @@ BLOCKED_STAGES = (("ops.scan", "blocked_pass_a", "blocked.pass_a"),
                   ("ops.scan", "blocked_pass_b", "blocked.pass_b"),
                   ("ops.scan", "blocked_block_pass", "blocked.pass_c"),
                   ("driver", "Driver._blocked_followups",
-                   "blocked.followups"))
+                   "blocked.followups"),
+                  # the families' blocked scan (blocked_families.py)
+                  ("blocked_families", "pass_a", "blocked_fam.pass_a"),
+                  ("blocked_families", "pass_b", "blocked_fam.pass_b"),
+                  ("blocked_families", "family_block_pass",
+                   "blocked_fam.pass_c"))
 
 
 @contextlib.contextmanager

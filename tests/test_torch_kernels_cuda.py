@@ -13,6 +13,11 @@ directions) against their plain twins, and the blocked chunk scan on the
 card against the same scan on the CPU.  ``test_fb_ext_matches_plain``
 holds the extended sweeps (V = 2 and 3, a non-symmetric coupling) at
 their edges (one or two markers, a zeroed emission row).
+``test_fb_small_carries_match_plain`` and
+``test_fb_ext_carries_match_plain`` hold the two entries of each family
+sweep kernel that the families' marker-blocked scan runs (seeded
+boundary carries; carry-only, both directions) against their plain
+twins.
 
 Run on a machine with the card (tests/conftest.py imports JAX):
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
@@ -583,3 +588,85 @@ def test_fb_ext_wrapper_checks(card):
     with pytest.raises(ValueError):
         pfb.fb_ext(e.transpose(0, 1), lam, C, prior)
     assert pfb.fb_ext.launches == before
+
+
+def _random_carry(rng, shape, card, dtype):
+    """A boundary carry (p of ``shape``, f [B, NS]) drawn with numpy."""
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=card)
+    return (t(rng.uniform(0.0, 1.0, shape)),
+            t(rng.normal(0.0, 3.0, (shape[0], shape[-2]))))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("NS", [1, 2])
+@pytest.mark.parametrize("case", ["K1", "K9", "zero_rows"])
+def test_fb_small_carries_match_plain(card, case, NS, dtype):
+    """The 4-state entries of the families' marker-blocked scan
+    (csrc/fb_small.cu): both sweeps from random boundary carries
+    (fb_small_block) and carry-only forward and backward with an
+    interval below the block (fb_small_carry), against their plain twins
+    at the XLA scan's clip, at one and nine markers and with zeroed
+    emission rows; each wrapper counts its launches."""
+    K = {"K1": 1, "K9": 9, "zero_rows": 23}[case]
+    e, lam = _small_inputs(card, dtype, NS, K + 2,
+                           zero_rows=case == "zero_rows")
+    e = e[:, :K].contiguous()
+    lam_pad, below = lam[:K].contiguous(), lam[K].contiguous()
+    rng = np.random.default_rng(21)
+    B = e.shape[0]
+    fwd, bwd = (_random_carry(rng, (B, NS, 4), card, dtype)
+                for _ in range(2))
+    before = (pfb.fb_small_block.launches, pfb.fb_small_carry.launches)
+    got = pfb.fb_small_block(e, lam_pad, fwd, bwd)
+    carries = (pfb.fb_small_carry(e, lam_pad, fwd) +
+               pfb.fb_small_carry(e, lam_pad, bwd, backward=True,
+                                  lam_below=below))
+    assert (pfb.fb_small_block.launches, pfb.fb_small_carry.launches) == \
+        (before[0] + 1, before[1] + 2)
+    clip = pfb.XLA_CLIP
+    _close(got, pfb.fb_block_reference(e, lam_pad, *fwd, *bwd, clip), dtype)
+    _close(carries, pfb.fb_carry_reference(e, lam_pad, *fwd, clip) +
+           pfb.fb_carry_reference(e, lam_pad, *bwd, clip, backward=True,
+                                  lam_below=below), dtype)
+    # the whole-chromosome seeds give the whole sweep (whose stores do
+    # not read the last interval row)
+    _close(pfb.fb_small_block(e, lam_pad),
+           pfb.fb_sweeps_reference(e, lam_pad[:-1], clip), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("V", [2, 3])
+@pytest.mark.parametrize("case", ["K1", "K9", "zero_rows"])
+def test_fb_ext_carries_match_plain(card, case, V, dtype):
+    """The extended entries of the marker-blocked scan (csrc/fb_ext.cu):
+    both sweeps from random [B, V, NS, 64] boundary carries (fb_ext_block)
+    and carry-only forward and backward (fb_ext_carry), the backward
+    step below the block through a random row-stochastic coupling (so
+    not symmetric: the from -> to orientation shows), against their
+    plain twins, V = 2 and 3; each wrapper counts its launches."""
+    K = {"K1": 1, "K9": 9, "zero_rows": 23}[case]
+    e, lam, C, _ = _ext_inputs(card, dtype, V, K + 2,
+                               zero_rows=case == "zero_rows")
+    e = e[:, :K].contiguous()
+    lam_pad, C_pad = lam[:K].contiguous(), C[:, :K].contiguous()
+    lam_below, C_below = lam[K].contiguous(), C[:, K].contiguous()
+    rng = np.random.default_rng(22)
+    B = e.shape[0]
+    fwd, bwd = (_random_carry(rng, (B, V, 8, 64), card, dtype)
+                for _ in range(2))
+    before = (pfb.fb_ext_block.launches, pfb.fb_ext_carry.launches)
+    got = pfb.fb_ext_block(e, lam_pad, C_pad, fwd, bwd)
+    carries = (pfb.fb_ext_carry(e, lam_pad, C_pad, fwd) +
+               pfb.fb_ext_carry(e, lam_pad, C_pad, bwd, backward=True,
+                                lam_below=lam_below, C_below=C_below))
+    assert (pfb.fb_ext_block.launches, pfb.fb_ext_carry.launches) == \
+        (before[0] + 1, before[1] + 2)
+    clip = pfb.XLA_CLIP
+    _close(got, pfb.fb_ext_block_reference(e, lam_pad, C_pad, *fwd, *bwd,
+                                           clip), dtype)
+    _close(carries,
+           pfb.fb_ext_carry_reference(e, lam_pad, C_pad, *fwd, clip) +
+           pfb.fb_ext_carry_reference(e, lam_pad, C_pad, *bwd, clip,
+                                      backward=True, lam_below=lam_below,
+                                      C_below=C_below), dtype)

@@ -18,8 +18,9 @@ JAX package's, and the 4-state sweeps against the JAX XLA scans.
   simulate_f2(12, 16) cohort with numgen=2 and the F1 parents typed from
   the simulated truth, on the resident iteration and with resident=False;
   state, pair tables and iteration records at rtol 1e-8.
-* Refusals: parity mode and a marker-blocked ng2 or extended-space
-  chromosome raise before any work; the extended spaces construct.
+* Refusals: parity mode raises before any work, and so does a
+  marker-blocked nohaplo chromosome; a marker-blocked ng2 or
+  extended-space chromosome runs; the extended spaces construct.
 """
 import numpy as np
 import pytest
@@ -339,9 +340,10 @@ def test_driver_matches_jax(resident, record_property):
 
 
 def test_refusals():
-    """Parity mode and a marker-blocked ng2 chromosome are refused before
-    any work, and so are parity mode and a marker-blocked chromosome of
-    the extended state spaces, which now construct; an unblocked
+    """Parity mode is refused for the ng2 family and the extended state
+    spaces, which construct; a marker-blocked ng2 or extended-space
+    chromosome runs (blocked_families.py), and a blocked nohaplo one is
+    refused before any work, as in the JAX Driver; an unblocked
     marker_block runs."""
     ped = from_host(f2_ped())
     with pytest.raises(NotImplementedError, match="parity"):
@@ -355,19 +357,24 @@ def test_refusals():
         d2 = Driver(p2, device="cpu")
         assert d2.ext
         d2.marker_block = 8
-        with pytest.raises(NotImplementedError, match="2.3"):
-            d2.iterate(early=True)
-        assert d2.state.iter == 0
+        assert np.isfinite(d2.iterate(early=True)["loglik"])
+        assert d2.state.iter == 1
+    nh = from_host(f2_ped())
+    nh.config = pconfig.F2_NOHAPLO
+    dn = Driver(nh, device="cpu")
+    dn.marker_block = 8
+    with pytest.raises(NotImplementedError, match="deep-walk"):
+        dn.iterate(early=True)
+    assert dn.state.iter == 0
     d = Driver(ped, device="cpu")
     d.marker_block = 8
     d.preprocess()
     before = [i.haploweight.copy() for i in ped.inds[1:]]
-    with pytest.raises(NotImplementedError, match="2.3"):
-        d.iterate(early=True)
-    assert d.state.iter == 0
-    assert all(np.array_equal(a, i.haploweight)
-               for a, i in zip(before, ped.inds[1:]))
+    assert np.isfinite(d.iterate(early=True)["loglik"])
+    assert d.state.iter == 1
     d.marker_block = 16
     assert np.isfinite(d.iterate(early=True)["loglik"])
+    assert not all(np.array_equal(a, i.haploweight)
+                   for a, i in zip(before, ped.inds[1:]))
     fb = gather_family(ped, list(ped.dous), 0, ped.num_markers - 1)
     assert fb.md.shape[1] == 3
