@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases, in order, each printing its lines (any failure exits non-zero):
+Phases, in order, each printing its lines, which end with the seconds
+since the script started (t=); any failure exits non-zero:
   device   require CUDA; print nvidia-smi's name and power limit
   build    compile csrc/*.cu with nvcc (sm_90a), one nvcc per source, all
            started together, and link them into one library in
@@ -53,6 +54,39 @@ Phases, in order, each printing its lines (any failure exits non-zero):
            (host clock, unsynchronised); fails unless its full iterations
            make fewer synchronising calls than slice_coherence's, or if
            they make more than RESIDENT_SYNCS (4) in all
+  mesh_world1
+           the same cohort through the default Driver over a one-rank
+           NCCL mesh (an in-process group on a FileStore, make_mesh(1)),
+           in turns with the unmeshed Driver (unmeshed, meshed, meshed,
+           unmeshed; preprocess(), iterate(early=True), iterate() x 4,
+           each synchronised and timed): fails unless the meshed state
+           (haploweights, genotypes, error rates, relhaplo, pair tables)
+           and iteration records equal the unmeshed ones bit for bit,
+           its fb_classic (#5) and stats_bmns (#3b) launches equal the
+           unmeshed ones, and its median full iteration exceeds the
+           unmeshed one by no more than the larger of 5% of it
+           (MESH_WORLD1_SLOWDOWN) and the unmeshed samples'
+           interquartile spread (a wider spread than 5% is printed as
+           share_resolved=False); then one more full iteration with
+           every all-reduce synchronised and timed (calls, seconds);
+           peak memory of each run
+  mesh_gloo2
+           two ranks spawned (chip_smoke.py --mesh-rank ...) into a gloo
+           group on cuda:0 (NCCL refuses two ranks on one card), each
+           with Driver(mesh=make_mesh(2)): run_parity's 24 x 32 cohort in
+           float64 (early + 2 full iterations) held to the card's
+           unmeshed Driver at rtol 1e-9 / atol 1e-11 with equal hitnnn
+           and inverted, each rank's checkpoint shard (save_sharded)
+           loaded by a fresh unmeshed Driver that resumes one iteration;
+           then the 1000 x 192 float32 slice per rank: stage seconds, one
+           more full iteration with the all-reduces timed, launches, peak
+           memory; the ranks must hold the same bits on both cohorts;
+           a rank that fails or outlives MESH_RANK_TIMEOUT_S fails the
+           phase
+  mesh_nccl
+           on a machine with two cards or more, mesh_gloo2's run over
+           NCCL with min(cards, 4) ranks, one a card; on one card a line
+           says it was skipped
   slice_negshift
            the same cohort with flip_mode="negshift" and
            parent_swap=True (the host-gathered iteration, the default
@@ -243,6 +277,7 @@ limit, and {"ok": true, "device":
 import collections
 import contextlib
 import dataclasses
+import datetime
 import functools
 import io
 import json
@@ -413,7 +448,14 @@ def fail(msg):
     sys.exit(1)
 
 
+# the script's start, for the elapsed seconds (t=) that every line ends
+# with: the difference between two lines is what the phases between them
+# took
+START = time.perf_counter()
+
+
 def say(phase, **kw):
+    kw["t"] = f"{time.perf_counter() - START:.1f}"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
           flush=True)
 
@@ -2177,8 +2219,8 @@ def recording_updates(log):
     from cnf2freq_tpu_torch import driver as dm
     real = dm.resident_updates
 
-    def updates(*args):
-        out = real(*args)
+    def updates(*args, **kw):
+        out = real(*args, **kw)
         log.append(([host_copy(a) for a in args],
                     out._replace(**{k: v.cpu()
                                     for k, v in out._asdict().items()})))
@@ -2361,6 +2403,367 @@ def run_cli_parity(tmp):
         fail("cli_parity: cuda and CPU float64 CLI outputs disagree")
 
 
+
+# -- the device mesh -------------------------------------------------------
+# seconds a collective (and the rendezvous) of the mesh phases waits for a
+# rank, and that a spawned rank may run, before the phase fails
+MESH_COLLECTIVE_TIMEOUT_S = 120
+MESH_RANK_TIMEOUT_S = 420
+# mesh_world1's full iterations against the unmeshed Driver's, in turns:
+# the most the meshed median may exceed the unmeshed one by, as a share of
+# it, where the unmeshed samples' own spread (their interquartile range)
+# is narrower; a wider spread leaves the share unresolved, and then only a
+# median excess beyond that spread fails the phase
+MESH_WORLD1_SLOWDOWN = 0.05
+MESH_WORLD1_FULL = 4
+MESH_RTOL, MESH_ATOL = 1e-9, 1e-11
+# a checkpoint's haploweights print six decimals: half a unit of the
+# sixth, and the binary rounding of the printed value
+DUMP_ATOL = 5.0000001e-7
+
+
+@contextlib.contextmanager
+def collective_clock(acc):
+    """Time every torch.distributed.all_reduce while active: the card is
+    synchronised before and after each call, and acc gets the calls and
+    their seconds (the synchronising changes the timeline; the phases time
+    their iterations without it)."""
+    import torch.distributed as dist
+    real = dist.all_reduce
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        acc["seconds"] += time.perf_counter() - t0
+        acc["calls"] += 1
+        return out
+
+    dist.all_reduce = timed
+    try:
+        yield acc
+    finally:
+        dist.all_reduce = real
+
+
+def mesh_state(ped, drv):
+    """The per-individual state and pair tables of a run, for the bitwise
+    and tolerance comparisons of the mesh phases."""
+    inds = ped.inds[1:]
+    return dict(haploweight=np.stack([i.haploweight for i in inds]),
+                markerdata=np.stack([i.markerdata for i in inds]),
+                markersure=np.stack([i.markersure for i in inds]),
+                relhaplo=np.stack([i.relhaplo for i in inds]),
+                pair=np.stack([drv.pair_tables[n] for n in ped.dous]))
+
+
+def timed_run(drv, full=2):
+    """The slice's stages on ``drv`` (preprocess, the early iteration and
+    ``full`` full ones), each synchronised and timed: ({stage: seconds},
+    [iteration records])."""
+    calls = {"preprocess": drv.preprocess,
+             "iterate_early": lambda: drv.iterate(early=True)}
+    calls.update({f"iterate_{i}": drv.iterate for i in range(1, full + 1)})
+    secs, infos = {}, []
+    for name, fn in calls.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        if out is not None:
+            infos.append(out)
+    return secs, infos
+
+
+def run_mesh_world1():
+    """The default Driver at 1000 x 192 f32 over a one-rank NCCL mesh
+    (an in-process group on a FileStore), in turns with the unmeshed
+    Driver (unmeshed, meshed, meshed, unmeshed; MESH_WORLD1_FULL full
+    iterations each): the meshed state must equal the unmeshed one bit
+    for bit (an all-reduce over one rank is the identity), its launches
+    of fb_classic (#5) and stats_bmns (#3b) the unmeshed ones, and its
+    median full iteration may exceed the unmeshed one by no more than the
+    larger of MESH_WORLD1_SLOWDOWN of it and the unmeshed samples'
+    interquartile spread; then one more full iteration with every
+    all-reduce timed."""
+    import torch.distributed as dist
+
+    from cnf2freq_tpu_torch import Driver
+    from cnf2freq_tpu_torch.parallel import make_mesh
+    from cnf2freq_tpu_torch.utils.simulate import simulate_f2
+    tmp = tempfile.mkdtemp(prefix="cnf2freq_mesh1_")
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1,
+        timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_TIMEOUT_S))
+    try:
+        mesh = make_mesh(1)
+        say("mesh_world1", backend=dist.get_backend(), mesh=mesh,
+            group_seconds=f"{time.perf_counter() - t0:.3f}")
+        wr = {k: wrappers()[k] for k in ("fb_classic", "stats_bmns")}
+        runs = []
+        for meshed in (False, True, True, False):
+            ped = simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20,
+                              seed=7)
+            drv = Driver(ped, dtype=torch.float32,
+                         mesh=mesh if meshed else None)
+            for fn in wr.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            secs, infos = timed_run(drv, full=MESH_WORLD1_FULL)
+            launches = {k: fn.launches for k, fn in wr.items()}
+            peak = torch.cuda.max_memory_allocated()
+            runs.append(dict(meshed=meshed, secs=secs, infos=infos,
+                             launches=launches, peak=peak,
+                             state=mesh_state(ped, drv), drv=drv))
+            say("mesh_world1", meshed=meshed, resident=drv._use_resident(),
+                device=drv.device,
+                **{k: f"{v:.3f}" for k, v in secs.items()},
+                hitnnn=[i["hitnnn"] for i in infos],
+                loglik=f"{infos[-1]['loglik']:.6f}",
+                launches=json.dumps(launches),
+                peak_memory_gb=f"{peak / 1e9:.3f}")
+        ref, got = runs[0], runs[1]
+        bitwise = {k: bool(np.array_equal(got["state"][k], ref["state"][k]))
+                   for k in ref["state"]}
+        same_steps = [(i["hitnnn"], i["inverted"], i["loglik"])
+                      for i in got["infos"]] == \
+            [(i["hitnnn"], i["inverted"], i["loglik"]) for i in ref["infos"]]
+        samples = {m: [r["secs"][f"iterate_{i}"] for r in runs
+                       if r["meshed"] == m
+                       for i in range(1, MESH_WORLD1_FULL + 1)]
+                   for m in (False, True)}
+        full = {m: statistics.median(v) for m, v in samples.items()}
+        q1, _, q3 = statistics.quantiles(samples[False], n=4)
+        spread = q3 - q1
+        allowed = max(MESH_WORLD1_SLOWDOWN * full[False], spread)
+        acc = {"seconds": 0.0, "calls": 0}
+        drv = runs[2]["drv"]
+        with collective_clock(acc):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            drv.iterate()
+            torch.cuda.synchronize()
+            it3 = time.perf_counter() - t1
+        say("mesh_world1", full_iteration_median_unmeshed=f"{full[False]:.4f}",
+            full_iteration_median_meshed=f"{full[True]:.4f}",
+            ratio=f"{full[True] / full[False]:.4f}",
+            unmeshed_iqr=f"{spread:.4f}",
+            share_resolved=spread <= MESH_WORLD1_SLOWDOWN * full[False],
+            allowed_excess=f"{allowed:.4f}",
+            samples=json.dumps({str(m): [round(x, 4) for x in v]
+                                for m, v in samples.items()}),
+            bitwise=json.dumps(bitwise),
+            same_hitnnn_inverted_loglik=same_steps,
+            launches_meshed=json.dumps(got["launches"]),
+            launches_unmeshed=json.dumps(ref["launches"]),
+            peak_memory_gb_meshed=f"{got['peak'] / 1e9:.3f}",
+            peak_memory_gb_unmeshed=f"{ref['peak'] / 1e9:.3f}")
+        say("mesh_world1", stage="iterate_3 (all-reduces synchronised)",
+            seconds=f"{it3:.4f}", collective_calls=acc["calls"],
+            collective_seconds=f"{acc['seconds']:.4f}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not all(bitwise.values()) or not same_steps:
+        fail(f"mesh_world1: the one-rank mesh departs from the unmeshed "
+             f"Driver: {bitwise}, same steps {same_steps}")
+    if got["launches"] != ref["launches"] or min(got["launches"].values()) \
+            <= 0:
+        fail(f"mesh_world1: launches {got['launches']} against unmeshed "
+             f"{ref['launches']}")
+    if full[True] - full[False] > allowed:
+        fail(f"mesh_world1: full iterations {full[True]:.4f} s meshed, "
+             f"{full[False]:.4f} s unmeshed (allowed excess "
+             f"{allowed:.4f} s)")
+
+
+def mesh_rank(rdv, rank, world, outdir, backend):
+    """One rank of mesh_gloo2 or mesh_nccl (python3 chip_smoke.py
+    --mesh-rank RDV RANK WORLD OUTDIR BACKEND): gloo with every rank on
+    cuda:0 (NCCL refuses two ranks on one card), or NCCL with rank r on
+    card r; Driver(mesh=make_mesh(world)) on the 24 x 32 float64 cohort
+    of run_parity (early + 2 full iterations, then this rank's checkpoint
+    shard), then the 1000 x 192 float32 slice timed (early + 2 full, and
+    one more full iteration with every all-reduce timed); writes
+    OUTDIR/rank<RANK>.npz."""
+    import torch.distributed as dist
+
+    from cnf2freq_tpu_torch import Driver
+    from cnf2freq_tpu_torch.io.sharded_checkpoint import save_sharded
+    from cnf2freq_tpu_torch.parallel import make_mesh
+    from cnf2freq_tpu_torch.utils.simulate import simulate_f2
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    dist.init_process_group(
+        backend, init_method=f"file://{rdv}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_TIMEOUT_S))
+    out = {}
+    try:
+        mesh = make_mesh(world)
+        ped = family_ped("f2", n_f2=24, n_markers=32, n_founder_pairs=2,
+                         seed=11)
+        drv = Driver(ped, dtype=torch.float64, mesh=mesh)
+        _, infos = timed_run(drv)
+        out.update({f"parity/{k}": v for k, v in mesh_state(ped,
+                                                            drv).items()})
+        out["parity/hitnnn"] = np.array([i["hitnnn"] for i in infos])
+        out["parity/inverted"] = np.array([i["inverted"] for i in infos])
+        save_sharded(ped, os.path.join(outdir, "ckpt"),
+                     meta={"driver": drv.export_state()})
+        wr = {k: wrappers()[k] for k in ("fb_classic", "stats_bmns")}
+        ped = simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20,
+                          seed=7)
+        drv = Driver(ped, dtype=torch.float32, mesh=mesh)
+        for fn in wr.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        secs, infos = timed_run(drv)
+        out["time/launches"] = np.array([wr[k].launches for k in
+                                         ("fb_classic", "stats_bmns")])
+        out["time/peak"] = np.array(torch.cuda.max_memory_allocated())
+        acc = {"seconds": 0.0, "calls": 0}
+        with collective_clock(acc):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            drv.iterate()
+            torch.cuda.synchronize()
+            secs["iterate_3_clocked"] = time.perf_counter() - t1
+        secs["collectives_3"] = acc["seconds"]
+        out["time/calls"] = np.array(acc["calls"])
+        out["time/secs"] = np.array([secs[k] for k in MESH_TIMED])
+        out["time/hitnnn"] = np.array([i["hitnnn"] for i in infos])
+        out.update({f"slice/{k}": v for k, v in mesh_state(ped,
+                                                           drv).items()})
+    finally:
+        np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
+        dist.destroy_process_group()
+
+
+MESH_TIMED = ("preprocess", "iterate_early", "iterate_1", "iterate_2",
+              "iterate_3_clocked", "collectives_3")
+
+
+def run_mesh_spawned(phase, backend, world):
+    """``world`` spawned ranks (mesh_rank) over ``backend``: the 24 x 32
+    float64 run held to the card's unmeshed Driver at MESH_RTOL /
+    MESH_ATOL with equal hit counts, the ranks bit-identical on both
+    cohorts, the 1000 x 192 float32 slice's times, and the unmeshed
+    Driver resumed from the ranks' checkpoint shards."""
+    from cnf2freq_tpu_torch import Driver
+    from cnf2freq_tpu_torch.io.sharded_checkpoint import load_sharded
+    ped = family_ped("f2", n_f2=24, n_markers=32, n_founder_pairs=2,
+                     seed=11)
+    drv = Driver(ped, dtype=torch.float64)
+    _, ref_infos = timed_run(drv)
+    ref = mesh_state(ped, drv)
+    tmp = tempfile.mkdtemp(prefix="cnf2freq_mesh2_")
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        for r in range(world):
+            log = open(os.path.join(tmp, f"log{r}.txt"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                 os.path.join(tmp, "rdv"), str(r), str(world), tmp,
+                 backend],
+                stdout=log, stderr=subprocess.STDOUT), log))
+        for p, log in procs:
+            try:
+                p.wait(timeout=max(1.0, MESH_RANK_TIMEOUT_S -
+                                   (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                pass
+        wall = time.perf_counter() - t0
+        bad = []
+        for r, (p, log) in enumerate(procs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+            if p.returncode != 0:
+                bad.append((r, p.returncode, open(os.path.join(
+                    tmp, f"log{r}.txt")).read()[-3000:]))
+        if bad:
+            fail(f"{phase}: ranks failed or timed out: {bad}")
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                 for r in range(world)]
+        identical = {k: all(np.array_equal(o[k], ranks[0][k])
+                            for o in ranks[1:])
+                     for k in ranks[0] if not k.startswith("time/")}
+        got = {k[len("parity/"):]: v for k, v in ranks[0].items()
+               if k.startswith("parity/")}
+        errs = {k: float(np.abs(got[k] - ref[k]).max()) for k in ref}
+        close = all(np.allclose(got[k], ref[k], rtol=MESH_RTOL,
+                                atol=MESH_ATOL) for k in ref)
+        same_steps = got["hitnnn"].tolist() == \
+            [i["hitnnn"] for i in ref_infos] and \
+            got["inverted"].tolist() == [i["inverted"] for i in ref_infos]
+        say(phase, cohort="24x32 float64", world=world, backend=backend,
+            spawn_and_run_seconds=f"{wall:.2f}",
+            max_abs=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}),
+            rtol=MESH_RTOL, atol=MESH_ATOL, within=close,
+            same_hitnnn_inverted=same_steps,
+            ranks_identical=all(identical.values()))
+        for r, o in enumerate(ranks):
+            secs = dict(zip(MESH_TIMED, o["time/secs"].tolist()))
+            say(phase, cohort="1000x192 float32", rank=r,
+                **{k: f"{v:.4f}" for k, v in secs.items()},
+                collective_calls=int(o["time/calls"]),
+                hitnnn=o["time/hitnnn"].tolist(),
+                launches=json.dumps(dict(zip(("fb_classic", "stats_bmns"),
+                                             o["time/launches"].tolist()))),
+                peak_memory_gb=f"{float(o['time/peak']) / 1e9:.3f}")
+        # a fresh unmeshed Driver resumes from the ranks' shards
+        ckpt = os.path.join(tmp, "ckpt")
+        shards = sorted(f for f in os.listdir(ckpt) if f.startswith("shard"))
+        ped = family_ped("f2", n_f2=24, n_markers=32, n_founder_pairs=2,
+                         seed=11)
+        drv = Driver(ped, dtype=torch.float64)
+        drv.preprocess()
+        man = load_sharded(ped, ckpt)
+        drv.import_state(man["driver"])
+        md_same = bool(np.array_equal(
+            np.stack([i.markerdata for i in ped.inds[1:]]),
+            got["markerdata"]))
+        hw_err = float(np.abs(np.stack([i.haploweight for i in ped.inds[1:]])
+                              - got["haploweight"]).max())
+        info = drv.iterate()
+        resumed = md_same and hw_err <= DUMP_ATOL and \
+            drv.state.iter == 4 and math.isfinite(info["loglik"])
+        say(phase, checkpoint_shards=shards, resumed_iter=
+            drv.state.iter, markerdata_equal=md_same,
+            haploweight_max_abs=f"{hw_err:.2e}", dump_atol=DUMP_ATOL,
+            resumed_loglik=f"{info['loglik']:.6f}", ok=resumed)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not (close and same_steps and all(identical.values())):
+        fail(f"{phase}: the {world}-rank run departs: within={close}, "
+             f"steps={same_steps}, ranks identical={identical}")
+    if len(shards) != world or not resumed:
+        fail(f"{phase}: checkpoint shards {shards}, resumed={resumed}")
+
+
+def run_mesh_phases():
+    """mesh_world1, mesh_gloo2 (two ranks on the one card) and, on a
+    machine with two cards or more, mesh_nccl over min(cards, 4) ranks;
+    with one card a line says that mesh_nccl was skipped."""
+    run_mesh_world1()
+    run_mesh_spawned("mesh_gloo2", "gloo", 2)
+    n = torch.cuda.device_count()
+    if n < 2:
+        say("mesh_nccl", skipped="one card: NCCL runs one rank a card")
+    else:
+        run_mesh_spawned("mesh_nccl", "nccl", min(n, 4))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -2421,6 +2824,7 @@ def main():
         fail(f"the resident iteration with a live Tracer made "
              f"{resident_syncs} synchronising calls in two full iterations, "
              f"more than {RESIDENT_SYNCS}")
+    run_mesh_phases()
     run_slice("slice_negshift", adaptive=True, flip_mode="negshift",
               parent_swap=True)
     for resident in (False, True):
@@ -2490,4 +2894,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+                  sys.argv[5], sys.argv[6])
+    else:
+        main()

@@ -1,13 +1,12 @@
 """Iteration driver: preprocessing and the outer EM-like loop.
 
-Port of ``cnf2freq_tpu/driver.py`` on its unmeshed branches: per
-chromosome and chunk of analysis units, the scan and the segment-sum
-merges run on the device and fold into per-individual
-accumulators that stay device tensors; phase flips come from the native
-solver (device scoring, component solve on the host in C++) or the legacy
-negshift pass (``flip_mode``, with optional parent-pair swaps); the
-capped-gradient updates run on the device and write the new parameters
-back into the shared ``Pedigree``.
+Port of ``cnf2freq_tpu/driver.py``: per chromosome and chunk of analysis
+units, the scan and the segment-sum merges run on the device and fold
+into per-individual accumulators that stay device tensors; phase flips
+come from the native solver (device scoring, component solve on the host
+in C++) or the legacy negshift pass (``flip_mode``, with optional
+parent-pair swaps); the capped-gradient updates run on the device and
+write the new parameters back into the shared ``Pedigree``.
 
 Two forms of the iteration, chosen as the JAX package chooses them
 (``_use_resident``): the device-resident one (``resident.py``, the
@@ -79,6 +78,27 @@ and map re-estimation are refused before any work
 
 The Driver runs on the card unless it is given ``device="cpu"``.
 
+Multi-GPU (``Driver(mesh=...)``, the JAX Driver's mesh branches): one
+process per GPU, every rank building the same Driver on the same
+Pedigree, and a ``torch.distributed`` ``DeviceMesh`` from
+``parallel.mesh.make_mesh`` (or ``parallel.multihost.pod_mesh``) whose
+"data" dimension splits each chunk of analysis units: the chunk size is
+rounded up to a multiple of the data size (and, where it is read from the
+card's free memory, agreed across the ranks with a MIN all-reduce), each
+rank scans its contiguous block of the padded chunk
+(``parallel.collective.sharded_scan_merged``), the merged accumulators,
+the coherence partials, the recombination sums and the log-likelihood
+are summed over the ranks, and the pair tables and turn weights are
+gathered whole where the reporters and the flip stage read them.  The
+resident update runs row-sharded (``resident.resident_updates(group=)``).
+The host stages (flip solve, the host-gathered updates, the scalefactor)
+then run on identical inputs on every rank, so every rank ends each
+iteration with the same state; a digest of it is compared across the
+ranks after every iteration, and a departure raises.  The Driver's
+device is the rank's (``parallel.mesh.mesh_device``).  The preprocess
+and marker-blocked chromosomes run whole on every rank, as in the JAX
+Driver.
+
 Tracing: ``Driver.tracer`` (``utils/tracing.py``; a no-op ``NullTracer``
 by default) gets the JAX Driver's spans and its per-iteration ``metric``
 record (event "iteration": iter, hitnnn, inverted, scalefactor, flips).
@@ -110,6 +130,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import sys
+import zlib
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -127,7 +148,9 @@ from .hmm.transition import (interval_recomb, rate_matrix,
                              transition_eigenvalues)
 from .ops import scan as v2
 from .ops.scan import R_QUANTUM
-from .parallel.mesh import pad_markers
+from .parallel.collective import all_sum, gather_units, sharded_scan_merged
+from .parallel.mesh import (batch_sharding, data_size, pad_batch,
+                            pad_markers, shard_batch)
 from .pedigree import Pedigree
 from .resident import (RELHAPLO_CLIP, ResidentAccum, ScanCohort,
                        coherence_slots, gather_cohort_static, gather_dev,
@@ -216,9 +239,21 @@ def _torch_dtype(dtype) -> torch.dtype:
 
 class Driver:
     def __init__(self, ped: Pedigree, params: Optional[RuntimeParams] = None,
-                 dtype=torch.float64, device="cuda",
-                 adaptive_relhaplo: bool = True, parity: bool = False):
-        self.device = torch.device(device)
+                 dtype=torch.float64, device=None,
+                 adaptive_relhaplo: bool = True, parity: bool = False,
+                 mesh=None):
+        # a DeviceMesh with a "data" dimension (parallel.mesh): the
+        # analysis units split over its ranks, the device the rank's
+        self.mesh = mesh
+        if mesh is not None:
+            from .parallel.mesh import mesh_device
+            rank_dev = mesh_device(mesh)
+            if device is not None and torch.device(device).type != \
+                    rank_dev.type:
+                raise ValueError(f"device {device!r} on a "
+                                 f"{mesh.device_type!r} mesh")
+            device = rank_dev
+        self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device "
                                "is available")
@@ -330,7 +365,7 @@ class Driver:
                              n_variants=self._n_variants(), light=light)
 
     def _chunk_size(self, n_units: int, m_markers: int,
-                    with_coherence: bool = False) -> int:
+                    with_coherence: bool = False, agree: bool = True) -> int:
         """Units per scan chunk.  "auto" on the card: half the free device
         memory (the caching allocator's unused reserve counted as free, so
         that earlier work does not shrink the chunks) over the
@@ -338,7 +373,9 @@ class Driver:
         NS * S = 512 in the 64-state space, 8 and 4 in the two-generation
         families), in whole warps of units; on the CPU the whole cohort.
         The extended spaces hold ``EXT_UNIT_TENSORS`` a unit on each of
-        the V rows, in quanta of 32 units."""
+        the V rows, in quanta of 32 units.  Under a mesh the ranks agree on
+        the smallest of their sizes (a collective every rank must enter;
+        ``agree=False`` for a reporter that a rank may run alone)."""
         if self.batch_size is None:
             return n_units
         if self.batch_size != "auto":
@@ -356,6 +393,12 @@ class Driver:
         per_unit = tensors * m_markers * self.cfg.numshifts * \
             self.cfg.numtypes * itemsize
         bs = int(0.5 * free // per_unit)
+        if self.mesh is not None and agree:
+            # the ranks' free memory differs: agree on the smallest
+            t = torch.tensor([bs], dtype=torch.int64, device=self.device)
+            torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MIN,
+                                         group=self._group())
+            bs = int(t.item())
         if bs >= n_units:
             return n_units
         return max(q, bs // q * q)
@@ -704,6 +747,9 @@ class Driver:
         winners: List[Optional[FlipCandidate]] = []
         swap_cands: list = []     # parent-pair swap hypotheses, all chroms
         loglik = torch.zeros((), dtype=torch.float64, device=dev)
+        # under a mesh: the rank's units' share, summed over the ranks
+        loglik_units = torch.zeros((), dtype=torch.float64, device=dev)
+        group = self._group()
         self._pair_pending.clear()
 
         # vacant slots map to the sentinel row NI (dropped by the merges)
@@ -738,6 +784,9 @@ class Driver:
             else:
                 dists, rm = self._t(dists), self._t(rm)
             bs = self._chunk_size(len(dous), Mc, need_coh)
+            if group is not None:
+                nd = data_size(self.mesh)
+                bs = max(nd, -(-bs // nd) * nd)
             weight_parts = []
             remap_acc = (np.zeros((2, Mc - 1)), np.zeros(2, dtype=np.int64))
             for b0 in range(0, len(dous), bs):
@@ -746,26 +795,51 @@ class Driver:
                     if resident:
                         fb = self._fill_family_dev(chunk, c, b0, ids, lut_h)
                     else:
-                        fb = self._gather(chunk, lo, hi).to(dev, dt)
+                        fb = self._rank_units(self._gather(chunk, lo, hi)
+                                              ).to(dev, dt)
+                want_turn = not early and cfg.haplotyping
                 with tr.span("scan"):
-                    res, hb_p, hc_p, inf_p = scan_merged(
-                        fb, dists, lut, rm, cfg, params, NI,
-                        with_coherence=need_coh, probe_rules=self.parity,
-                        n_variants=self._n_variants())
+                    if group is None:
+                        res, hb_p, hc_p, inf_p = scan_merged(
+                            fb, dists, lut, rm, cfg, params, NI,
+                            with_coherence=need_coh,
+                            probe_rules=self.parity,
+                            n_variants=self._n_variants())
+                        pair, turn_w = res.pair, res.turn_weight
+                    else:
+                        n_own = self._n_own(len(chunk))
+                        res, hb_p, hc_p, inf_p, rec = sharded_scan_merged(
+                            fb, dists, lut, rm, cfg, params, NI, group,
+                            n_own, with_coherence=need_coh,
+                            probe_rules=self.parity,
+                            n_variants=self._n_variants(),
+                            with_recomb=self.remap_distances)
                 with tr.span("scatter"):
-                    self._pair_pending.append((list(chunk), lo, res.pair))
-                    loglik += res.total.sum()
+                    if group is None:
+                        loglik += res.total.sum()
+                    else:
+                        loglik_units += res.total[:n_own].sum()
+                        whole = gather_units(
+                            [res.pair, res.turn_weight] if want_turn
+                            else [res.pair], len(chunk), group)
+                        pair = whole[0]
+                        turn_w = whole[1] if want_turn else None
+                    self._pair_pending.append((list(chunk), lo, pair))
                     accum.add(lo, hb_p, hc_p, inf_p)
                 if need_coh:
                     with tr.span("coherence"):
                         accum.add_coh(
                             lo, res.coherence[..., :coherence_slots(cfg)],
-                            fb.slot_ind, fb.descendants, lut)
+                            fb.slot_ind, fb.descendants, lut, group=group)
                 if self.remap_distances:
-                    self._accumulate_recomb(fb, dists, res, rm, remap_acc)
+                    if group is None:
+                        self._accumulate_recomb(fb, dists, res, rm,
+                                                remap_acc)
+                    else:
+                        self._add_recomb_sums(rec, remap_acc)
                     self._count_recomb(remap_acc, len(chunk))
-                if not early and cfg.haplotyping:
-                    weight_parts.append(res.turn_weight)
+                if want_turn:
+                    weight_parts.append(turn_w)
                 del res
             winner = None
             if not early and cfg.haplotyping:
@@ -785,6 +859,8 @@ class Driver:
             if self.remap_distances:
                 self._apply_recomb(lo, hi, remap_acc)
 
+        if group is not None:
+            loglik = loglik + all_sum([loglik_units], group)[0]
         any_inv = any(w is not None for w in winners)
         sf = 0.0 if any_inv else st.scalefactor
         if not cfg.haplotyping:
@@ -811,6 +887,8 @@ class Driver:
             # finds its mirror stale and uploads again
             apply_parent_swaps(ped, swap_cands)
         self._adapt_scalefactor(any_inv, hits, len(dous))
+        if group is not None:
+            self._check_ranks_agree(ids, group, resident)
         tr.metric(event="iteration", iter=st.iter, hitnnn=hits,
                   inverted=any_inv, scalefactor=st.scalefactor,
                   flips=sum(len(w.flips) for w in winners if w is not None))
@@ -851,6 +929,65 @@ class Driver:
             raise NotImplementedError(
                 "genetic-map re-estimation needs numgen == 3 (its "
                 "recombination expectations come from the 7-slot blocks)")
+
+    # -- the mesh ----------------------------------------------------
+    def _group(self):
+        """The mesh's "data" process group, or None unmeshed."""
+        return None if self.mesh is None else self.mesh.get_group("data")
+
+    def _rank_units(self, fb):
+        """A host chunk's batch as this rank scans it: under a mesh the
+        rank's block of the chunk padded to a multiple of the data size
+        (``parallel.mesh.pad_batch`` / ``shard_batch``), else the chunk."""
+        if self.mesh is None:
+            return fb
+        return shard_batch(pad_batch(fb, data_size(self.mesh)), self.mesh)
+
+    def _n_own(self, n_units: int) -> int:
+        """The real units (not padding) of this rank's block of a chunk of
+        ``n_units``."""
+        sl = batch_sharding(self.mesh, n_units)
+        return max(0, min(n_units, sl.stop) - sl.start)
+
+    def _add_recomb_sums(self, rec, acc):
+        """A chunk's recombination expectations summed over its units and
+        the ranks ([Mc-1, typebits], ``sharded_scan_merged``) into acc's
+        per-sex sums."""
+        rec = rec.cpu().numpy()
+        sexes = np.asarray(self.cfg.typesexes)
+        for sex in range(2):
+            acc[0][sex] += rec[:, sexes == sex].sum(axis=1)
+
+    def _check_ranks_agree(self, ids, group, resident: bool):
+        """Raise unless every rank of the mesh ends the iteration with the
+        same state: a CRC of the per-individual parameters (markerdata,
+        markersure, haploweight, relhaplo) and the cross-iteration knobs,
+        compared by one MAX all-reduce of (crc, -crc).  The resident
+        iteration's mirrors hold host copies of the parameters that its
+        writeback left equal to the Pedigree (markersure in the Driver's
+        dtype), stacked already; otherwise the Pedigree's are stacked
+        here (~40 ms at 3040 x 192, which would be ~8% of a resident
+        iteration)."""
+        ped, st = self.ped, self.state
+        crc = zlib.crc32(repr((st.iter, st.scalefactor, st.oldhitnnn,
+                               st.oldhitnnn2)).encode())
+        if resident and "md_ms_mirror" in self._cache:
+            arrays = [*self._cache["md_ms_mirror"]["host"].values(),
+                      *self._cache["param_mirror"]["host"].values()]
+        else:
+            inds = [ped.by_id(n) for n in ids]
+            arrays = [np.stack([getattr(i, f) for i in inds]) for f in
+                      ("markerdata", "markersure", "haploweight")]
+            arrays += [i.relhaplo for i in inds if i.relhaplo is not None]
+        for a in arrays:
+            crc = zlib.crc32(np.ascontiguousarray(a), crc)
+        t = torch.tensor([crc, -crc], dtype=torch.int64, device=self.device)
+        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX,
+                                     group=group)
+        if int(t[0]) != -int(t[1]):
+            raise RuntimeError(
+                f"the ranks of the mesh disagree after iteration {st.iter}: "
+                f"their state digests differ")
 
     def _flips(self, dous, lo, hi, weight_parts, accum, ind_index, chrom,
                resident, swap_cands) -> Optional[FlipCandidate]:
@@ -973,7 +1110,7 @@ class Driver:
         key = ("fb_light", c, b0)
         cached = self._cache.get(key)
         if cached is None or cached[0] != chunk:
-            skel = self._gather(chunk, lo, hi, light=True)
+            skel = self._rank_units(self._gather(chunk, lo, hi, light=True))
             rows = lut_h[skel.slot_ind]       # vacant slots: id 0 -> row NI
             cached = (list(chunk), skel.to(self.device, self.dtype),
                       upload(rows, self.device))
@@ -1006,7 +1143,8 @@ class Driver:
                 cfg, self.params,
                 [ped.chromosome_range(c) for c in range(C)], accum,
                 mdms["md"], mdms["ms"], static, param["hw"], param["rh"],
-                upload(lastinv_c, self.device), scalefactor)
+                upload(lastinv_c, self.device), scalefactor,
+                group=self._group())
             pulls = dict(md_e=out.markerdata_e, ms_e=out.markersure_e,
                          take_e=out.take_e, hw=out.haploweight,
                          active=out.active, hits=out.hits, loglik=loglik)
@@ -1693,7 +1831,8 @@ class Driver:
             dists = self._t(np.diff(ped.markerposes[lo:hi]))
             rm = self._t(rate_matrix(cfg, self.params, Mc - 1, ped.actrec,
                                      lo))
-            bs = self._chunk_size(len(dous), Mc, with_coherence=True)
+            bs = self._chunk_size(len(dous), Mc, with_coherence=True,
+                                  agree=False)
             for b0 in range(0, len(dous), bs):
                 chunk = dous[b0:b0 + bs]
                 fb = gather_family(ped, chunk, lo, hi - 1,

@@ -29,7 +29,6 @@ Not carried over, and why:
   reduces to its slot rule (``coherence_slots``).  The
   no-haplotyping family measures no coherence and runs no update: its
   resident iteration only accumulates (zeros) and reports;
-* ``make_scatter_coh_sharded`` waits for the mesh;
 * the padded marker layout (``_layout_prog``, ``_layout_prog_2d``, the
   Driver's ``marker_bucket``) exists so that XLA compiles one program per
   bucket of chromosome lengths; the port compiles no shapes, so a
@@ -43,10 +42,12 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import ModelConfig, RuntimeParams
 from .updates.parameter_updates import update_haploweights, update_infprobs
 from .updates.relskew import relskew_ratio
+from .parallel.collective import all_sum, gather_units
 from .updates.scatter import scatter_coherence
 from .utils.transfer import constant, upload
 
@@ -74,16 +75,25 @@ class ResidentAccum:
         self.hc[:, lo:hi] += hc_p
         self.inf[:, lo:hi] += inf_p
 
-    def add_coh(self, lo: int, coh, slot_ind, descendants, lut):
+    def add_coh(self, lo: int, coh, slot_ind, descendants, lut,
+                group=None):
         """Scatter one chunk's coherence [B, Mc, slots] onto cnum/cden
         (the first ``coh.shape[-1]`` slots of ``slot_ind``); the last
         marker has no right neighbour, so its interval coherence stays
-        neutral."""
+        neutral.  With ``group``, the chunk's units are this rank's and
+        the partials are summed over the group's ranks first."""
         slot_ind = slot_ind[:, :coh.shape[-1]]
         coh = coh.clone()
         coh[:, -1] = 0.5
-        scatter_coherence(slot_ind, descendants, lo, coh, self.cnum,
-                          self.cden, lut)
+        if group is None:
+            scatter_coherence(slot_ind, descendants, lo, coh, self.cnum,
+                              self.cden, lut)
+            return
+        num, den = scatter_coh_sharded(coh, slot_ind, descendants, lut,
+                                       self.cnum.shape[0], group)
+        hi = lo + coh.shape[1]
+        self.cnum[:, lo:hi] += num
+        self.cden[:, lo:hi] += den
 
     def flip_rows(self, flips: Sequence[Tuple[int, int]], hi: int):
         """hb[r, m+1:hi] <- hc - hb for each (row, marker), in list order
@@ -101,6 +111,19 @@ class ResidentAccum:
     def rows_slice(self, rows, s0: int, span: int):
         """The flip scorer's views: hb, hc [len(rows), span]."""
         return (self.hb[rows, s0:s0 + span], self.hc[rows, s0:s0 + span])
+
+
+def scatter_coh_sharded(coh, slot_ind, descendants, lut,
+                        num_individuals: int, group):
+    """Mesh form of the coherence scatter (port of
+    ``make_scatter_coh_sharded``): this rank's units' coherence
+    [B, Mc, S] onto descendant-weighted [NI, Mc] num / den partials,
+    summed over the ranks of ``group``."""
+    shape = (num_individuals, coh.shape[1])
+    num = torch.zeros(shape, dtype=coh.dtype, device=coh.device)
+    den = torch.zeros_like(num)
+    scatter_coherence(slot_ind, descendants, 0, coh, num, den, lut)
+    return all_sum([num, den], group)
 
 
 @dataclasses.dataclass
@@ -167,7 +190,8 @@ class ResidentUpdate(NamedTuple):
 def resident_updates(cfg: ModelConfig, params: RuntimeParams,
                      chrom_ranges: Sequence[Tuple[int, int]],
                      accum: ResidentAccum, md, ms, static: CohortStatic, hw,
-                     rh, lastinv_c, scalefactor: float) -> ResidentUpdate:
+                     rh, lastinv_c, scalefactor: float, group=None
+                     ) -> ResidentUpdate:
     """processinfprobs then updatehaploweights over the whole cohort from
     the device accumulators (cnF2freq.cpp:4179-4323, 4533-4734), after the
     adaptive-relhaplo refresh from accum.cnum/cden when coherence is on.
@@ -175,51 +199,86 @@ def resident_updates(cfg: ModelConfig, params: RuntimeParams,
     relhaplo = clip(num / max(den, 1)) on measured lanes; the best
     candidate with the side-1 1e-30 epsilon (the reference's allele-1
     tie-breaking); haploweights from the new markerdata/markersure.
-    lastinv_c [NI, C] bool: a flip on chromosome c this iteration."""
+    lastinv_c [NI, C] bool: a flip on chromosome c this iteration.
+
+    With ``group`` (a mesh's "data" group) the update is row-sharded:
+    this rank updates rows [r * per, (r + 1) * per) of the NI rows, per =
+    ceil(NI / ranks) (every lane is its own, so the rows are exact
+    slices of the whole update; the capped steps' early stop is per
+    rank and exact, done lanes being frozen), the hit counts are summed
+    and the outputs gathered whole over the group's ranks."""
+    NI = hw.shape[0]
+    rows = slice(None)
+    if group is not None:
+        nd, r = dist.get_world_size(group), dist.get_rank(group)
+        per = -(-NI // nd)
+        rows = slice(r * per, min(NI, (r + 1) * per))
+    cnum = None if accum.cnum is None else accum.cnum[rows]
+    newmd, newms, newhw, rh, active, got, take, hits = _update_rows(
+        cfg, params, chrom_ranges, accum.hb[rows], accum.hc[rows],
+        accum.inf[rows], cnum, None if cnum is None else accum.cden[rows],
+        md[rows], ms[rows], static, rows, hw[rows], rh[rows],
+        lastinv_c[rows], scalefactor)
+    if group is not None:
+        newmd, newms, newhw, rh, active, got, take = gather_units(
+            [newmd, newms, newhw, rh, active, got, take], NI, group)
+        (hits,) = all_sum([hits], group)
+    e = static.elig_idx
+    return ResidentUpdate(
+        markerdata=newmd, markersure=newms, haploweight=newhw,
+        relhaplo=rh, active=active, got=got, hits=hits,
+        markerdata_e=(newmd if e is None else newmd[e]).to(torch.int8),
+        markersure_e=newms if e is None else newms[e],
+        take_e=take if e is None else take[e])
+
+
+def _update_rows(cfg, params, chrom_ranges, hb, hc, inf, cnum, cden, md, ms,
+                 static: CohortStatic, rows: slice, hw, rh, lastinv_c,
+                 scalefactor):
+    """The update of ``resident_updates`` on the rows ``rows`` of the
+    cohort (every tensor argument but ``static`` already sliced):
+    (markerdata, markersure, haploweight, relhaplo, active, got, take,
+    hits)."""
     dtype = hw.dtype
-    NI, M = hw.shape
-    if accum.cnum is not None:
-        got = accum.cden > 0
-        vals = torch.where(got, accum.cnum / torch.clamp(accum.cden, min=1),
-                           0.5)
-        rh = torch.where(got & static.has_rh[:, None],
+    n, M = hw.shape
+    has_rh = static.has_rh[rows]
+    if cnum is not None:
+        got = cden > 0
+        vals = torch.where(got, cnum / torch.clamp(cden, min=1), 0.5)
+        rh = torch.where(got & has_rh[:, None],
                          torch.clamp(vals, RELHAPLO_CLIP, 1 - RELHAPLO_CLIP),
                          rh)
     else:
         got = torch.zeros_like(hw, dtype=torch.bool)
     # processinfprobs first: the haploweight similarity damping reads the
     # genotypes it just updated
-    ires = update_infprobs(accum.inf, md, ms, static.prior, static.priorsure,
-                           static.has_prior, static.children, params,
-                           scalefactor)
-    live = accum.inf > 0
+    ires = update_infprobs(inf, md, ms, static.prior[rows],
+                           static.priorsure[rows], static.has_prior[rows],
+                           static.children[rows], params, scalefactor)
+    live = inf > 0
     pick = torch.where(live, ires.newprob, -torch.inf)
     eps = constant([0.0, 1e-30], hw.device, dtype)
-    best = (pick[..., 1] > pick[..., 0] - eps).long()     # [NI, M, 2]
+    best = (pick[..., 1] > pick[..., 0] - eps).long()     # [n, M, 2]
     bestp = torch.gather(pick, -1, best[..., None])[..., 0]
     take = live.any(dim=-1) & torch.isfinite(bestp) & \
-        static.eligible[:, None, None]
+        static.eligible[rows][:, None, None]
     newmd = torch.where(take, (best + 1).to(md.dtype), md)
     newms = torch.where(take, 1.0 - bestp, ms)
 
     relterm = torch.full_like(hw, 0.5)
     active = (hw > 0) & (hw < 1)
-    lastinv = torch.zeros((NI, M), dtype=torch.bool, device=hw.device)
+    lastinv = torch.zeros((n, M), dtype=torch.bool, device=hw.device)
     for c, (lo, hi) in enumerate(chrom_ranges):
         if cfg.relskews:
             relterm[:, lo:hi] = relskew_ratio(hw[:, lo:hi], rh[:, lo:hi])
-        active[:, lo:hi] &= (accum.hc[:, lo:hi] > 0).any(dim=1, keepdim=True)
+        active[:, lo:hi] &= (hc[:, lo:hi] > 0).any(dim=1, keepdim=True)
         lastinv[:, lo:hi] = lastinv_c[:, c:c + 1]
-    hres = update_haploweights(hw, accum.hb, accum.hc, newmd, newms, relterm,
-                               static.descendants, static.children, lastinv,
-                               active, params, scalefactor)
-    e = static.elig_idx
-    return ResidentUpdate(
-        markerdata=newmd, markersure=newms, haploweight=hres.haploweight,
-        relhaplo=rh, active=active, got=got, hits=ires.hits + hres.hits,
-        markerdata_e=(newmd if e is None else newmd[e]).to(torch.int8),
-        markersure_e=newms if e is None else newms[e],
-        take_e=take if e is None else take[e])
+    hres = update_haploweights(hw, hb, hc, newmd, newms, relterm,
+                               static.descendants[rows],
+                               static.children[rows], lastinv, active,
+                               params, scalefactor)
+    return (newmd, newms, hres.haploweight, rh, active, got, take,
+            ires.hits + hres.hits)
 
 
 def coherence_slots(cfg: ModelConfig) -> int:
