@@ -57,9 +57,10 @@ since the script started (t=); any failure exits non-zero:
   mesh_world1
            the same cohort through the default Driver over a one-rank
            NCCL mesh (an in-process group on a FileStore, make_mesh(1)),
-           in turns with the unmeshed Driver (unmeshed, meshed, meshed,
-           unmeshed; preprocess(), iterate(early=True), iterate() x 4,
-           each synchronised and timed): fails unless the meshed state
+           in turns with the unmeshed Driver (MESH_WORLD1_TURNS: eight
+           runs, four a side, in the order U M M U M U U M; preprocess(),
+           iterate(early=True), iterate() x 4, each synchronised and
+           timed): fails unless the meshed state
            (haploweights, genotypes, error rates, relhaplo, pair tables)
            and iteration records equal the unmeshed ones bit for bit,
            its fb_classic (#5) and stats_bmns (#3b) launches equal the
@@ -2126,17 +2127,17 @@ def run_cli_formats(tmp, card, n_f2=1000, n_markers=192):
     argv = argv_of(flags) + ["--count", "3", "--dump", os.path.join(d, "dump"),
                              "--trace", trace, "--outputvcffile", vcf]
     scans = []
-    real_scan = dm.scan_merged
+    real_scan = dm.sharded_scan_merged
 
     def counted_scan(fb, *a, **kw):
         scans.append(fb.md.shape[0])
         return real_scan(fb, *a, **kw)
     torch.cuda.reset_peak_memory_stats()
-    dm.scan_merged = counted_scan
+    dm.sharded_scan_merged = counted_scan
     try:
         rc, record, launches, err = run_cli_once(argv)
     finally:
-        dm.scan_merged = real_scan
+        dm.sharded_scan_merged = real_scan
     peak = torch.cuda.max_memory_allocated()
     for stage, sec, _ in record:
         say("cli_formats", stage=stage, seconds=f"{sec:.3f}")
@@ -2416,6 +2417,9 @@ MESH_RANK_TIMEOUT_S = 420
 # median excess beyond that spread fails the phase
 MESH_WORLD1_SLOWDOWN = 0.05
 MESH_WORLD1_FULL = 4
+# the order of mesh_world1's runs (True: meshed), balanced so that a drift
+# of the card's speed over the phase falls on both sides alike
+MESH_WORLD1_TURNS = (False, True, True, False, True, False, False, True)
 MESH_RTOL, MESH_ATOL = 1e-9, 1e-11
 # a checkpoint's haploweights print six decimals: half a unit of the
 # sixth, and the binary rounding of the printed value
@@ -2480,8 +2484,7 @@ def timed_run(drv, full=2):
 def run_mesh_world1():
     """The default Driver at 1000 x 192 f32 over a one-rank NCCL mesh
     (an in-process group on a FileStore), in turns with the unmeshed
-    Driver (unmeshed, meshed, meshed, unmeshed; MESH_WORLD1_FULL full
-    iterations each): the meshed state must equal the unmeshed one bit
+    Driver (MESH_WORLD1_TURNS; MESH_WORLD1_FULL full iterations each): the meshed state must equal the unmeshed one bit
     for bit (an all-reduce over one rank is the identity), its launches
     of fb_classic (#5) and stats_bmns (#3b) the unmeshed ones, and its
     median full iteration may exceed the unmeshed one by no more than the
@@ -2506,7 +2509,7 @@ def run_mesh_world1():
             group_seconds=f"{time.perf_counter() - t0:.3f}")
         wr = {k: wrappers()[k] for k in ("fb_classic", "stats_bmns")}
         runs = []
-        for meshed in (False, True, True, False):
+        for i, meshed in enumerate(MESH_WORLD1_TURNS):
             ped = simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20,
                               seed=7)
             drv = Driver(ped, dtype=torch.float32,
@@ -2519,7 +2522,8 @@ def run_mesh_world1():
             peak = torch.cuda.max_memory_allocated()
             runs.append(dict(meshed=meshed, secs=secs, infos=infos,
                              launches=launches, peak=peak,
-                             state=mesh_state(ped, drv), drv=drv))
+                             state=mesh_state(ped, drv),
+                             drv=drv if i == 2 else None))
             say("mesh_world1", meshed=meshed, resident=drv._use_resident(),
                 device=drv.device,
                 **{k: f"{v:.3f}" for k, v in secs.items()},
@@ -2603,7 +2607,8 @@ def mesh_rank(rdv, rank, world, outdir, backend):
         timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_TIMEOUT_S))
     out = {}
     try:
-        mesh = make_mesh(world)
+        # gloo carries the card's tensors here: the mesh is a "cuda" one
+        mesh = make_mesh(world, device_type="cuda")
         ped = family_ped("f2", n_f2=24, n_markers=32, n_founder_pairs=2,
                          seed=11)
         drv = Driver(ped, dtype=torch.float64, mesh=mesh)

@@ -138,7 +138,7 @@ import torch
 
 from .config import (SEXMARKER, UNKNOWN, ZP_NO_EQUIVALENCE, ModelConfig,
                      RuntimeParams)
-from .engine import recomb_expectations, scan_merged
+from .engine import recomb_expectations
 from .engine_ng2 import embed7, ng3_equiv
 from .hmm.emission import build_blocks
 from .hmm.family import gather_family
@@ -747,9 +747,10 @@ class Driver:
         winners: List[Optional[FlipCandidate]] = []
         swap_cands: list = []     # parent-pair swap hypotheses, all chroms
         loglik = torch.zeros((), dtype=torch.float64, device=dev)
-        # under a mesh: the rank's units' share, summed over the ranks
-        loglik_units = torch.zeros((), dtype=torch.float64, device=dev)
+        # a mesh's "data" group (None unmeshed: every collective returns
+        # its inputs, and a chunk is one rank's block)
         group = self._group()
+        nd = 1 if group is None else data_size(self.mesh)
         self._pair_pending.clear()
 
         # vacant slots map to the sentinel row NI (dropped by the merges)
@@ -784,9 +785,7 @@ class Driver:
             else:
                 dists, rm = self._t(dists), self._t(rm)
             bs = self._chunk_size(len(dous), Mc, need_coh)
-            if group is not None:
-                nd = data_size(self.mesh)
-                bs = max(nd, -(-bs // nd) * nd)
+            bs = max(nd, -(-bs // nd) * nd)
             weight_parts = []
             remap_acc = (np.zeros((2, Mc - 1)), np.zeros(2, dtype=np.int64))
             for b0 in range(0, len(dous), bs):
@@ -798,33 +797,18 @@ class Driver:
                         fb = self._rank_units(self._gather(chunk, lo, hi)
                                               ).to(dev, dt)
                 want_turn = not early and cfg.haplotyping
+                n_own = self._n_own(len(chunk))
                 with tr.span("scan"):
-                    if group is None:
-                        res, hb_p, hc_p, inf_p = scan_merged(
-                            fb, dists, lut, rm, cfg, params, NI,
-                            with_coherence=need_coh,
-                            probe_rules=self.parity,
-                            n_variants=self._n_variants())
-                        pair, turn_w = res.pair, res.turn_weight
-                    else:
-                        n_own = self._n_own(len(chunk))
-                        res, hb_p, hc_p, inf_p, rec = sharded_scan_merged(
-                            fb, dists, lut, rm, cfg, params, NI, group,
-                            n_own, with_coherence=need_coh,
-                            probe_rules=self.parity,
-                            n_variants=self._n_variants(),
-                            with_recomb=self.remap_distances)
+                    res, hb_p, hc_p, inf_p, ll = sharded_scan_merged(
+                        fb, dists, lut, rm, cfg, params, NI, group, n_own,
+                        with_coherence=need_coh, probe_rules=self.parity,
+                        n_variants=self._n_variants())
                 with tr.span("scatter"):
-                    if group is None:
-                        loglik += res.total.sum()
-                    else:
-                        loglik_units += res.total[:n_own].sum()
-                        whole = gather_units(
-                            [res.pair, res.turn_weight] if want_turn
-                            else [res.pair], len(chunk), group)
-                        pair = whole[0]
-                        turn_w = whole[1] if want_turn else None
-                    self._pair_pending.append((list(chunk), lo, pair))
+                    loglik += ll
+                    whole = gather_units(
+                        [res.pair, res.turn_weight] if want_turn
+                        else [res.pair], len(chunk), group)
+                    self._pair_pending.append((list(chunk), lo, whole[0]))
                     accum.add(lo, hb_p, hc_p, inf_p)
                 if need_coh:
                     with tr.span("coherence"):
@@ -832,15 +816,12 @@ class Driver:
                             lo, res.coherence[..., :coherence_slots(cfg)],
                             fb.slot_ind, fb.descendants, lut, group=group)
                 if self.remap_distances:
-                    if group is None:
-                        self._accumulate_recomb(fb, dists, res, rm,
-                                                remap_acc)
-                    else:
-                        self._add_recomb_sums(rec, remap_acc)
+                    self._accumulate_recomb(fb, dists, res, rm, remap_acc,
+                                            n_units=n_own, group=group)
                     self._count_recomb(remap_acc, len(chunk))
                 if want_turn:
-                    weight_parts.append(turn_w)
-                del res
+                    weight_parts.append(whole[1])
+                del res, whole
             winner = None
             if not early and cfg.haplotyping:
                 with tr.span("flips"):
@@ -859,8 +840,6 @@ class Driver:
             if self.remap_distances:
                 self._apply_recomb(lo, hi, remap_acc)
 
-        if group is not None:
-            loglik = loglik + all_sum([loglik_units], group)[0]
         any_inv = any(w is not None for w in winners)
         sf = 0.0 if any_inv else st.scalefactor
         if not cfg.haplotyping:
@@ -887,7 +866,8 @@ class Driver:
             # finds its mirror stale and uploads again
             apply_parent_swaps(ped, swap_cands)
         self._adapt_scalefactor(any_inv, hits, len(dous))
-        if group is not None:
+        if group is not None and torch.distributed.get_world_size(group) > 1:
+            # (one rank has no other to disagree with)
             self._check_ranks_agree(ids, group, resident)
         tr.metric(event="iteration", iter=st.iter, hitnnn=hits,
                   inverted=any_inv, scalefactor=st.scalefactor,
@@ -945,18 +925,11 @@ class Driver:
 
     def _n_own(self, n_units: int) -> int:
         """The real units (not padding) of this rank's block of a chunk of
-        ``n_units``."""
+        ``n_units`` (all of them unmeshed)."""
+        if self.mesh is None:
+            return n_units
         sl = batch_sharding(self.mesh, n_units)
         return max(0, min(n_units, sl.stop) - sl.start)
-
-    def _add_recomb_sums(self, rec, acc):
-        """A chunk's recombination expectations summed over its units and
-        the ranks ([Mc-1, typebits], ``sharded_scan_merged``) into acc's
-        per-sex sums."""
-        rec = rec.cpu().numpy()
-        sexes = np.asarray(self.cfg.typesexes)
-        for sex in range(2):
-            acc[0][sex] += rec[:, sexes == sex].sum(axis=1)
 
     def _check_ranks_agree(self, ids, group, resident: bool):
         """Raise unless every rank of the mesh ends the iteration with the
@@ -1194,18 +1167,20 @@ class Driver:
             mirror["dev"]["rh"] = out.relhaplo
 
     def _accumulate_recomb(self, fb, dists, res, rm, acc, lo=0,
-                           n_real=None):
+                           n_real=None, n_units=None, group=None):
         """Accumulation of posterior recombination expectations into
         acc = (sum [2, Mc-1], count [2]): the intervals of ``fb`` from
-        column ``lo`` (the first ``n_real`` of them, default all); the
-        units join the divisor through ``_count_recomb``, once a chunk."""
+        column ``lo`` (the first ``n_real`` of them, default all), summed
+        in float64 over its first ``n_units`` units (default all) and over
+        the ranks of ``group`` (a mesh's; None unmeshed); the units join
+        the divisor through ``_count_recomb``, once a chunk."""
         p = recomb_expectations(fb, dists, res, self.cfg, self.params,
-                                ratemat=rm).to("cpu", torch.float64).numpy()
-        p = p[:, :n_real]
+                                ratemat=rm)
+        (p,) = all_sum([p[:n_units, :n_real].double().sum(dim=0)], group)
+        p = p.cpu().numpy()
         sexes = np.asarray(self.cfg.typesexes)
         for sex in range(2):
-            acc[0][sex][lo:lo + p.shape[1]] += \
-                p[:, :, sexes == sex].sum(axis=(0, 2))
+            acc[0][sex][lo:lo + p.shape[0]] += p[:, sexes == sex].sum(axis=1)
 
     def _count_recomb(self, acc, n_units: int):
         """The divisor of the rate update: each unit once per sex-matched

@@ -113,14 +113,17 @@ def chromosome_scan(fb: FamilyBatch, dists: torch.Tensor, cfg: ModelConfig,
 def scan_merged(fb: FamilyBatch, dists: torch.Tensor, lut: torch.Tensor,
                 ratemat, cfg: ModelConfig, params: RuntimeParams,
                 num_individuals: int, with_coherence: bool = False,
-                probe_rules: bool = False, n_variants: int = 1):
+                probe_rules: bool = False, n_variants: int = 1,
+                group=None):
     """Scan plus accumulator merge: per-family statistics segment-summed
     onto per-individual rows (under ``probe_rules`` the infprob merge's
     duplicate-slot damping counts non-empty slots only, as the
     reference's reltreeordered holds only non-empty members; so it does
     on the extended spaces, whose dedup rule 2 is always on).  Returns
-    (res, haplobase [NI, M], haplocount [NI, M], infacc [NI, M, 2, 2]).
-    The numgen == 2 families take their engines' forms."""
+    (res, haplobase [NI, M], haplocount [NI, M], infacc [NI, M, 2, 2]),
+    the merges summed over the ranks of ``group`` (a mesh's "data"
+    group; None unmeshed).  The numgen == 2 families take their engines'
+    forms."""
     from .parallel.collective import merge_haplos, merge_infprobs
     if cfg.numgen == 2 and not probe_rules:
         if cfg.deep_walk:
@@ -128,17 +131,17 @@ def scan_merged(fb: FamilyBatch, dists: torch.Tensor, lut: torch.Tensor,
         else:
             from .engine_ng2 import scan_merged_ng2 as merged
         return merged(fb, dists, lut, ratemat, cfg, params, num_individuals,
-                      with_coherence=with_coherence)
+                      with_coherence=with_coherence, group=group)
     res = chromosome_scan(fb, dists, cfg, params,
                           with_coherence=with_coherence, ratemat=ratemat,
                           probe_rules=probe_rules, n_variants=n_variants)
     hb, hc = merge_haplos(res.haplo_b12, res.haplo_mask, fb.hw, fb.slot_ind,
-                          fb.descendants, lut, num_individuals)
+                          fb.descendants, lut, num_individuals, group=group)
     inf = merge_infprobs(res.inf_accum, fb.slot_ind, fb.descendants, lut,
                          num_individuals,
                          emptyslot=fb.emptyslot if (
                              probe_rules or cfg.selfing or
-                             cfg.relskewstates) else None)
+                             cfg.relskewstates) else None, group=group)
     return res, hb, hc, inf
 
 

@@ -345,9 +345,10 @@ def chromosome_scan_ng2(fb: FamilyBatch, dists: torch.Tensor,
 
 def scan_merged_ng2(fb: FamilyBatch, dists: torch.Tensor, lut, ratemat,
                     cfg: ModelConfig, params: RuntimeParams,
-                    num_individuals: int, with_coherence: bool = False):
+                    num_individuals: int, with_coherence: bool = False,
+                    group=None):
     """The numgen==2 form of ``engine.scan_merged``: (res, haplobase,
-    haplocount, infacc).  The JAX package (make_jitted_scan_merged_ng2)
+    haplocount, infacc), the merges summed over ``group``.  The JAX package (make_jitted_scan_merged_ng2)
     compiles the sweep/haplo part and the infprob part as two programs,
     only to keep XLA's compile time down, and leaves the merged scan's
     coherence at 0.5 (its Driver measures it per slot with
@@ -357,7 +358,7 @@ def scan_merged_ng2(fb: FamilyBatch, dists: torch.Tensor, lut, ratemat,
     res = chromosome_scan_ng2(fb, dists, cfg, params, ratemat=ratemat,
                               with_coherence=with_coherence)
     hb, hc = merge_haplos(res.haplo_b12, res.haplo_mask, fb.hw, fb.slot_ind,
-                          fb.descendants, lut, num_individuals)
+                          fb.descendants, lut, num_individuals, group=group)
     inf = merge_infprobs(res.inf_accum, fb.slot_ind, fb.descendants, lut,
-                         num_individuals)
+                         num_individuals, group=group)
     return res, hb, hc, inf

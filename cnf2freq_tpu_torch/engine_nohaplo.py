@@ -249,10 +249,12 @@ def chromosome_scan_nohaplo(fb: FamilyBatch, dists: torch.Tensor,
 
 def scan_merged_nohaplo(fb: FamilyBatch, dists: torch.Tensor, lut, ratemat,
                         cfg: ModelConfig, params: RuntimeParams,
-                        num_individuals: int, with_coherence: bool = False):
+                        num_individuals: int, with_coherence: bool = False,
+                        group=None):
     """The no-haplotyping form of ``engine.scan_merged``: the scan plus
     inert merge outputs (no update exists in this family), [NI, M]
-    zeros as the JAX package's make_jitted_scan_merged_nohaplo returns."""
+    zeros as the JAX package's make_jitted_scan_merged_nohaplo returns
+    (the same on every rank of ``group``, so nothing is summed)."""
     res = chromosome_scan_nohaplo(fb, dists, cfg, params, ratemat=ratemat)
     M = fb.md.shape[2]
     kw = dict(dtype=fb.ms.dtype, device=fb.ms.device)

@@ -10,14 +10,15 @@ on the card.
 
 Under a device mesh (``parallel.mesh``) each rank merges its own units
 and the partial sums are added over the ranks of the mesh's "data" group
-(``group=``, JAX's ``axis_name=`` and ``psum``).  The one collective is
-``all_reduce(SUM)`` (``all_sum``): a gather of per-unit outputs
-(``gather_units``) is the sum of zero-filled full-size buffers into which
-each rank wrote its own rows, exact since every other term is 0.  Under
-gloo, PyTorch's backend table lists only ``broadcast`` and ``all_reduce``
-for CUDA tensors; a backend that rejects a tensor raises, and nothing is
-staged through the host in its place.  Every rank must enter the
-collectives in the same order.
+(``group=``, JAX's ``axis_name=`` and ``psum``); ``group=None`` is the
+unmeshed run, where every collective here returns its inputs.  The one
+collective is ``all_reduce(SUM)`` (``all_sum``): a gather of per-unit
+outputs (``gather_units``) is the sum of zero-filled full-size buffers
+into which each rank wrote its own rows, exact since every other term is
+0.  Under gloo, PyTorch's backend table lists only ``broadcast`` and
+``all_reduce`` for CUDA tensors; a backend that rejects a tensor raises,
+and nothing is staged through the host in its place.  Every rank must
+enter the collectives in the same order.
 """
 
 from __future__ import annotations
@@ -34,7 +35,10 @@ def all_sum(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
     """Each tensor summed over the ranks of ``group`` (new tensors): one
     ``all_reduce`` of the flattened concatenation per dtype, in the order
     the dtypes first appear.  Bool tensors travel as uint8 and come back
-    as "any rank set it"."""
+    as "any rank set it".  ``group=None`` (unmeshed): the tensors
+    themselves."""
+    if group is None:
+        return list(tensors)
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     by_dtype = {}
     for i, t in enumerate(tensors):
@@ -55,7 +59,10 @@ def gather_units(tensors: Sequence[torch.Tensor], n: int, group
     """Whole [n, ...] tensors from each rank's contiguous block of rows:
     rank r holds rows [r * per, r * per + len) with per = ceil(n / ranks)
     (``mesh.batch_sharding``); its rows past n (padding) are dropped.
-    Every rank gets the same bits (a negative zero comes back as +0)."""
+    Every rank gets the same bits (a negative zero comes back as +0).
+    ``group=None`` (unmeshed): the tensors themselves, n rows each."""
+    if group is None:
+        return list(tensors)
     nd, r = dist.get_world_size(group), dist.get_rank(group)
     per = -(-n // nd)
     lo = r * per
@@ -79,10 +86,6 @@ def _segment_sum(flat: torch.Tensor, rows: torch.Tensor, n: int):
     return out[:-1]
 
 
-def _summed(tensors, group):
-    return tensors if group is None else all_sum(tensors, group)
-
-
 def merge_slot_stats(values: torch.Tensor, slot_ind: torch.Tensor,
                      num_individuals: int, group=None) -> torch.Tensor:
     """Fold [B, M, slot, ...] statistics onto [num_individuals, M, ...]
@@ -94,7 +97,7 @@ def merge_slot_stats(values: torch.Tensor, slot_ind: torch.Tensor,
                       dtype=values.dtype, device=values.device)
     with ordered_sums():
         out.index_add_(0, slot_ind.reshape(B * S).long(), flat)
-    return _summed([out[1:]], group)[0]
+    return all_sum([out[1:]], group)[0]
 
 
 def merge_haplos(b12, mask, hw, slot_ind, descendants, lut,
@@ -129,7 +132,7 @@ def merge_haplos(b12, mask, hw, slot_ind, descendants, lut,
                       num_individuals)
     hc = _segment_sum(count.movedim(2, 1).reshape(B * S, M), rows_flat,
                       num_individuals)
-    return tuple(_summed([hb, hc], group))
+    return tuple(all_sum([hb, hc], group))
 
 
 def merge_infprobs(accum, slot_ind, descendants, lut, num_individuals: int,
@@ -155,35 +158,27 @@ def merge_infprobs(accum, slot_ind, descendants, lut, num_individuals: int,
 
     rows = torch.where(first, lut[slot_ind.long()], num_individuals)
     flat = contrib.movedim(2, 1).reshape(B * S, M, 2, 2)
-    return _summed([_segment_sum(flat, rows.reshape(B * S),
+    return all_sum([_segment_sum(flat, rows.reshape(B * S),
                                  num_individuals)], group)[0]
 
 
 def sharded_scan_merged(fb, dists, lut, ratemat, cfg, params,
                         num_individuals: int, group, n_real: int,
                         with_coherence: bool = False,
-                        probe_rules: bool = False, n_variants: int = 1,
-                        with_recomb: bool = False):
+                        probe_rules: bool = False, n_variants: int = 1):
     """The scan and merge of one rank's units (port of
     ``make_sharded_scan_merged``): ``engine.scan_merged`` on ``fb``, the
     rank's block of a padded chunk whose first ``n_real`` units are real,
-    then one ``all_sum`` of the merged accumulators over ``group``.
-    Returns (res, haplobase, haplocount, infacc, recomb): res holds the
-    rank's units (totals, pair tables, turn weights, coherence; padded
-    units' values are not to be read); the accumulators [NI, M, ...] and,
-    with ``with_recomb``, the real units' posterior recombination
-    expectations summed over units and ranks (float64 [M-1, typebits]),
-    come back summed over the ranks; recomb is None without it."""
-    from ..engine import recomb_expectations, scan_merged
+    with its merges summed over ``group``.  Returns (res, haplobase,
+    haplocount, infacc, loglik): res holds the rank's units (totals, pair
+    tables, turn weights, coherence; padded units' values are not to be
+    read); the accumulators [NI, M, ...] and loglik, the real units'
+    total log-likelihood, come back summed over the ranks.  With
+    ``group=None`` it is the unmeshed chunk's scan_merged and loglik."""
+    from ..engine import scan_merged
     res, hb, hc, inf = scan_merged(
         fb, dists, lut, ratemat, cfg, params, num_individuals,
         with_coherence=with_coherence, probe_rules=probe_rules,
-        n_variants=n_variants)
-    sums = [hb, hc, inf]
-    if with_recomb:
-        p = recomb_expectations(fb, dists, res, cfg, params,
-                                ratemat=ratemat)
-        sums.append(p[:n_real].double().sum(dim=0))
-    sums = all_sum(sums, group)
-    return (res, sums[0], sums[1], sums[2],
-            sums[3] if with_recomb else None)
+        n_variants=n_variants, group=group)
+    (loglik,) = all_sum([res.total[:n_real].sum()], group)
+    return res, hb, hc, inf, loglik

@@ -30,10 +30,13 @@ if TYPE_CHECKING:
 
 
 def make_mesh(n_devices: Optional[int] = None, data: Optional[int] = None,
-              state: int = 1) -> DeviceMesh:
+              state: int = 1, device_type: Optional[str] = None
+              ) -> DeviceMesh:
     """A ``DeviceMesh`` over every rank of the process group, shaped
-    (data, state) with ``mesh_dim_names=("data", "state")``, on "cuda"
-    where a card is available, else on "cpu".
+    (data, state) with ``mesh_dim_names=("data", "state")``.  Its device
+    type is ``device_type``, or by default the process group's: "cuda"
+    under NCCL, "cpu" under any other backend (gloo carries CUDA tensors
+    too: pass "cuda" for such a group).
 
     Needs an initialised process group (``multihost.init_distributed``)
     and raises without one: no call here falls back to a one-device run.
@@ -53,8 +56,9 @@ def make_mesh(n_devices: Optional[int] = None, data: Optional[int] = None,
     if data * state != n:
         raise ValueError(f"data={data} x state={state} != {n} ranks")
     from torch.distributed.device_mesh import DeviceMesh
-    return DeviceMesh("cuda" if torch.cuda.is_available() else "cpu",
-                      torch.arange(n).reshape(data, state),
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type, torch.arange(n).reshape(data, state),
                       mesh_dim_names=("data", "state"))
 
 

@@ -58,18 +58,22 @@ TIMEOUT_S = 600.0
 def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
-                     timeout_s: float = TIMEOUT_S) -> None:
+                     timeout_s: float = TIMEOUT_S,
+                     backend: Optional[str] = None) -> None:
     """Join this process to the process group.
 
     The arguments, or torchrun's environment (``MASTER_ADDR`` /
     ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``): ``coordinator`` is an
-    ``init_method`` URL (``tcp://host:port`` or ``file://path``).  On a
-    machine with a card the backend is NCCL and the process takes the
-    card ``LOCAL_RANK`` (default: its rank modulo the cards); without
-    one, gloo on the CPU.  A no-op when the group is already up or when
-    nothing is configured (a single-process run); a partial
-    configuration, or a rendezvous that fails, raises: a multi-process
-    run never degrades to a single-process one in silence."""
+    ``init_method`` URL (``tcp://host:port`` or ``file://path``).  The
+    backend is ``backend``, or by default NCCL on a machine with a card
+    and gloo without one; under NCCL the process takes the card
+    ``LOCAL_RANK`` (default: its rank modulo the cards).  ``make_mesh``
+    reads the device type from the backend, so ``backend="gloo"`` runs
+    a CPU mesh on a machine with cards.  A no-op when the group is
+    already up or when nothing is configured (a single-process run); a
+    partial configuration, or a rendezvous that fails, raises: a
+    multi-process run never degrades to a single-process one in
+    silence."""
     if dist.is_initialized():
         return
     env = os.environ
@@ -87,22 +91,23 @@ def init_distributed(coordinator: Optional[str] = None,
             "init_distributed: a coordinator, a process count and a "
             f"process id are all needed (got {given}); set MASTER_ADDR, "
             "MASTER_PORT, WORLD_SIZE and RANK, or pass all three")
-    if torch.cuda.is_available():
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
         local = int(env.get("LOCAL_RANK",
                             process_id % torch.cuda.device_count()))
         torch.cuda.set_device(local)
-        backend = "nccl"
-    else:
-        backend = "gloo"
     dist.init_process_group(
         backend, init_method=coordinator, world_size=num_processes,
         rank=process_id, timeout=datetime.timedelta(seconds=timeout_s))
 
 
-def pod_mesh(state: int = 1):
+def pod_mesh(state: int = 1, device_type: Optional[str] = None):
     """A data-parallel mesh over every rank of every host (the same call
-    shapes single-host and multi-host runs)."""
-    return make_mesh(data=dist.get_world_size() // state, state=state)
+    shapes single-host and multi-host runs); ``device_type`` as in
+    ``make_mesh``."""
+    return make_mesh(data=dist.get_world_size() // state, state=state,
+                     device_type=device_type)
 
 
 def local_cohort_slice(n_units: int) -> slice:

@@ -70,12 +70,16 @@ STAGES = ("_feasibility", "_compute_variances", "_score_turns",
           # writeback into the Pedigree
           "_fill_family_dev", "_md_ms_dev", "_param_dev", "_updates_resident",
           "_writeback_resident")
-# driver-module functions timed under their own names: the host gather
-# and the scan of the other iteration, the update arithmetic of the
-# resident one, the negshift pass, parity mode's flip stage
-FUNCTIONS = ("gather_family", "scan_merged", "resident_updates",
-             "negshift_flips", "parent_swap_candidates",
-             "apply_parent_swaps", "reference_flips")
+# driver-module functions timed under their own names: the host gather,
+# the scan with its merges (stage "scan_merged"), the update arithmetic of
+# the resident iteration, the negshift pass, parity mode's flip stage
+FUNCTIONS = {"gather_family": "gather_family",
+             "sharded_scan_merged": "scan_merged",
+             "resident_updates": "resident_updates",
+             "negshift_flips": "negshift_flips",
+             "parent_swap_candidates": "parent_swap_candidates",
+             "apply_parent_swaps": "apply_parent_swaps",
+             "reference_flips": "reference_flips"}
 # stages inside the classic scan (engine.chromosome_scan imports them at
 # each call): (module, function)
 SCAN_STAGES = (("hmm.emission", "build_blocks"),
@@ -142,7 +146,7 @@ def stage_timers():
                   for obj, name, stage in saved_scan]
     try:
         for name, fn in saved.items():
-            setattr(dm, name, timed(name, fn))
+            setattr(dm, name, timed(FUNCTIONS[name], fn))
         for name, fn in saved_methods.items():
             setattr(dm.Driver, name, timed(name, fn))
         for obj, name, stage, fn in saved_scan:

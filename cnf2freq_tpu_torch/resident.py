@@ -80,15 +80,12 @@ class ResidentAccum:
         """Scatter one chunk's coherence [B, Mc, slots] onto cnum/cden
         (the first ``coh.shape[-1]`` slots of ``slot_ind``); the last
         marker has no right neighbour, so its interval coherence stays
-        neutral.  With ``group``, the chunk's units are this rank's and
-        the partials are summed over the group's ranks first."""
+        neutral.  With ``group`` (a mesh's; None unmeshed), the chunk's
+        units are this rank's and the partials are summed over the
+        group's ranks first."""
         slot_ind = slot_ind[:, :coh.shape[-1]]
         coh = coh.clone()
         coh[:, -1] = 0.5
-        if group is None:
-            scatter_coherence(slot_ind, descendants, lo, coh, self.cnum,
-                              self.cden, lut)
-            return
         num, den = scatter_coh_sharded(coh, slot_ind, descendants, lut,
                                        self.cnum.shape[0], group)
         hi = lo + coh.shape[1]
@@ -115,10 +112,11 @@ class ResidentAccum:
 
 def scatter_coh_sharded(coh, slot_ind, descendants, lut,
                         num_individuals: int, group):
-    """Mesh form of the coherence scatter (port of
+    """The coherence scatter of one chunk (port of
     ``make_scatter_coh_sharded``): this rank's units' coherence
     [B, Mc, S] onto descendant-weighted [NI, Mc] num / den partials,
-    summed over the ranks of ``group``."""
+    summed over the ranks of ``group`` (None unmeshed: the chunk's
+    own)."""
     shape = (num_individuals, coh.shape[1])
     num = torch.zeros(shape, dtype=coh.dtype, device=coh.device)
     den = torch.zeros_like(num)
@@ -219,10 +217,9 @@ def resident_updates(cfg: ModelConfig, params: RuntimeParams,
         accum.inf[rows], cnum, None if cnum is None else accum.cden[rows],
         md[rows], ms[rows], static, rows, hw[rows], rh[rows],
         lastinv_c[rows], scalefactor)
-    if group is not None:
-        newmd, newms, newhw, rh, active, got, take = gather_units(
-            [newmd, newms, newhw, rh, active, got, take], NI, group)
-        (hits,) = all_sum([hits], group)
+    newmd, newms, newhw, rh, active, got, take = gather_units(
+        [newmd, newms, newhw, rh, active, got, take], NI, group)
+    (hits,) = all_sum([hits], group)
     e = static.elig_idx
     return ResidentUpdate(
         markerdata=newmd, markersure=newms, haploweight=newhw,

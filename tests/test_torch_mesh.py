@@ -7,18 +7,17 @@ across the two packages.
 The ranks are spawned processes (tests/torch_mesh_worker.py: torch, numpy
 and the port only, one torch thread) meeting through a rendezvous file
 under the test's temporary directory, so that no TCP port can collide
-between pytest workers; each is killed if it outlives WORKER_TIMEOUT_S.
-One 2-rank and one 4-rank group run every case, started together when
-the module's first test asks for them, while this process computes the
-unmeshed and JAX references.  Tolerances: float64, rtol 1e-9 and atol
-1e-11 (the JAX package's own mesh tests), hit counts and inversions
-equal, and the ranks bit-identical.
+between pytest workers; each is killed if it outlives
+``worker.WORKER_TIMEOUT_S``.  One 2-rank and one 4-rank group run every
+case, started together when the module's first test asks for them,
+while this process computes the unmeshed and JAX references.
+Tolerances: float64, rtol 1e-9 and atol 1e-11 (the JAX package's own
+mesh tests), hit counts and inversions equal, and the ranks
+bit-identical.  The ng2 and map re-estimation runs against the JAX mesh
+Driver are in tests/test_torch_mesh_jax.py.
 """
 
 import os
-import subprocess
-import sys
-import time
 
 import numpy as np
 import pytest
@@ -26,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 import torch_mesh_worker as worker
+from torch_mesh_worker import case_arrays, results
 from torch_port_util import patch_jax_with_port_rules
 
 from cnf2freq_tpu_torch import Driver
@@ -38,11 +38,12 @@ from cnf2freq_tpu_torch.parallel.collective import all_sum
 from cnf2freq_tpu_torch.utils.simulate import simulate_f2
 
 RTOL, ATOL = 1e-9, 1e-11
-WORKER_TIMEOUT_S = 150
-# the cases of each group (tests/torch_mesh_worker.py: "f2:N" is the F2
+# the cases of each group (tests/torch_mesh_worker.py: "NAME:N" is the
 # cohort with N units, 8 by default; N = 9 and 10 divide by neither 2 nor
-# 4 respectively)
-CASES = {2: ["merges", "f2", "f2_host", "f2:9", "ng2", "selfed", "remap",
+# 4 respectively; "_bs3" runs chunks of 3 units, 4 under 2 ranks: the
+# 9 units make chunks of 4, 4 and 1, whose padding is a whole rank's)
+CASES = {2: ["merges", "f2", "f2_host", "f2:9", "f2_bs3:9",
+             "f2_host_bs3:9", "ng2", "ng2:9", "selfed", "selfed:9", "remap",
              "parity", "blocked", "diverge"],
          4: ["f2", "f2_host", "f2:10"]}
 KEYS = ("haploweight", "markersure", "relhaplo", "pair", "loglik",
@@ -54,63 +55,7 @@ def groups(tmp_path_factory):
     """The two groups, started together: {world: (output directory,
     [(process, log path)])}; every process is killed at the end of the
     module if it still runs."""
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
-        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
-            os.pathsep) if p]))
-    out, logs = {}, []
-    for world, cases in CASES.items():
-        d = tmp_path_factory.mktemp(f"mesh{world}")
-        procs = []
-        for r in range(world):
-            log = open(d / f"log{r}.txt", "w")
-            logs.append(log)
-            procs.append((subprocess.Popen(
-                [sys.executable, worker.__file__, str(d / "rdv"), str(r),
-                 str(world), str(d)] + cases, env=env, stdout=log,
-                stderr=subprocess.STDOUT), d / f"log{r}.txt"))
-        out[world] = (d, procs)
-    yield out
-    for _, procs in out.values():
-        for p, _ in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-    for log in logs:
-        log.close()
-
-
-def results(groups, world):
-    """Every rank's arrays of a group, once its processes have ended
-    (within WORKER_TIMEOUT_S of this wait, or all are killed and the test
-    fails)."""
-    d, procs = groups[world]
-    deadline = time.monotonic() + WORKER_TIMEOUT_S
-    for p, log in procs:
-        try:
-            p.wait(timeout=max(0.0, deadline - time.monotonic()))
-        except subprocess.TimeoutExpired:
-            for q, _ in procs:
-                q.kill()
-            pytest.fail(f"mesh{world} ranks did not end within "
-                        f"{WORKER_TIMEOUT_S} s: {log.read_text()[-3000:]}")
-        if p.returncode != 0:
-            pytest.fail(f"a rank of mesh{world} failed "
-                        f"(exit {p.returncode}): {log.read_text()[-3000:]}")
-    return [dict(np.load(d / f"rank{r}.npz")) for r in range(world)]
-
-
-def case_arrays(ranks, case):
-    """A case's arrays, after checking that every rank holds the same
-    bits."""
-    pre = case + "/"
-    first = {k[len(pre):]: v for k, v in ranks[0].items()
-             if k.startswith(pre)}
-    for r, other in enumerate(ranks[1:], 1):
-        for k, v in first.items():
-            np.testing.assert_array_equal(other[pre + k], v,
-                                          err_msg=f"rank {r} {case} {k}")
-    return first
+    yield from worker.spawn_groups(CASES, tmp_path_factory.mktemp)
 
 
 def assert_same_run(got, ref, what):
@@ -199,10 +144,11 @@ def test_merges_under_group_match_jax_shard_map(groups):
                                         if c not in ("merges", "diverge")])
 def test_mesh_driver_matches_unmeshed(groups, world, case):
     """Driver(mesh=make_mesh(world)): F2 on both iteration branches (with
-    chunks that the data size does not divide), the ng2 and selfed
-    families, map re-estimation, parity mode and a marker-blocked
-    chromosome (run whole on every rank), against the port's unmeshed
-    Driver on the same cohort."""
+    chunks that the data size does not divide, and several chunks an
+    iteration), the ng2 and selfed families (with padded units), map
+    re-estimation, parity mode and a marker-blocked chromosome (run whole
+    on every rank), against the port's unmeshed Driver on the same
+    cohort."""
     ref, _ = worker.run_driver(case)
     got = case_arrays(results(groups, world), case)
     assert set(got) == set(ref)
@@ -313,7 +259,7 @@ def test_rejected_collective_raises(one_rank_group):
     """A tensor the backend rejects raises; nothing is staged through the
     host in its place (gloo sums no int16)."""
     with pytest.raises(RuntimeError):
-        all_sum([torch.ones(3, dtype=torch.int16)], None)
+        all_sum([torch.ones(3, dtype=torch.int16)], dist.group.WORLD)
 
 
 def test_no_process_group_no_mesh(monkeypatch):

@@ -1,4 +1,4 @@
-"""One rank of the port's CPU mesh runs in tests/test_torch_mesh.py.
+"""One rank of the port's CPU mesh runs in tests/test_torch_mesh*.py.
 
     python tests/torch_mesh_worker.py RDV RANK WORLD OUTDIR CASE [CASE ...]
 
@@ -8,10 +8,16 @@ turn on the CPU in float64 and writes every array it reads to
 OUTDIR/rank<RANK>.npz.  It imports torch, numpy and the port only (no
 JAX), with one torch thread.  The cohorts are built here and, for the
 unmeshed and JAX runs, by the test process from the same functions.
+
+The test process's side is at the end: ``spawn_groups`` starts the
+ranks, ``results`` waits for them and ``case_arrays`` reads a case.
 """
 
+import importlib
 import os
+import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -43,14 +49,16 @@ def rand_merge_inputs(B=8, NI=28, M=5, seed=6):
         lut=np.concatenate([[NI], np.arange(NI)]).astype(np.int64), NI=NI)
 
 
-def ng2_cohort():
+def ng2_cohort(K=8, package="cnf2freq_tpu_torch"):
     """The two-generation cohort of tests/test_engine_ng2.py's mesh test:
-    a sire, a dam and 8 full sibs typed at 12 markers."""
-    from cnf2freq_tpu_torch.config import ModelConfig
-    from cnf2freq_tpu_torch.pedigree import Pedigree
+    a sire, a dam and K full sibs (8 there) typed at 12 markers, as a
+    Pedigree of ``package`` (the port, or the JAX package for the test
+    process's reference)."""
+    config = importlib.import_module(package + ".config")
+    pedigree = importlib.import_module(package + ".pedigree")
     rng = np.random.default_rng(7)
-    M, K = 12, 8
-    ped = Pedigree(ModelConfig(numgen=2))
+    M = 12
+    ped = pedigree.Pedigree(config.ModelConfig(numgen=2))
     ped.markerposes = np.arange(M) * 2.0
     ped.chromstarts = [0, M]
     names = ["s", "dA"] + [f"k{i}" for i in range(K)]
@@ -70,22 +78,28 @@ def ng2_cohort():
     return ped
 
 
+# the F2 cases' Driver attributes ("_bs3": chunks of 3 units, rounded up
+# to a multiple of the data size under a mesh)
+F2_ATTRS = {"f2": {}, "f2_host": dict(resident=False),
+            "f2_bs3": dict(batch_size=3),
+            "f2_host_bs3": dict(resident=False, batch_size=3),
+            "parity": dict(parity=True), "blocked": dict(marker_block=4)}
+
+
 def cohort(case):
-    """(pedigree, Driver attributes, iterations) of a Driver case; the
+    """(pedigree, Driver attributes, iterations) of a Driver case
+    "NAME[:N]" (N: the number of units where the cohort takes one); the
     iterations' first is early unless the attributes say parity."""
     from cnf2freq_tpu_torch.utils.simulate import (simulate_f2,
                                                    simulate_selfed)
     name, _, n = case.partition(":")
-    if name in ("f2", "f2_host", "parity", "blocked"):
-        attrs = {"f2_host": dict(resident=False),
-                 "parity": dict(parity=True),
-                 "blocked": dict(marker_block=4)}.get(name, {})
-        return simulate_f2(n_f2=int(n or 8), **F2), attrs, 3
+    if name in F2_ATTRS:
+        return simulate_f2(n_f2=int(n or 8), **F2), dict(F2_ATTRS[name]), 3
     if name == "ng2":
-        return ng2_cohort(), {}, 2
+        return ng2_cohort(int(n or 8)), {}, 2
     if name == "selfed":
-        return simulate_selfed(n_lines=8, n_markers=10, generations=4,
-                               seed=1), {}, 2
+        return simulate_selfed(n_lines=int(n or 8), n_markers=10,
+                               generations=4, seed=1), {}, 2
     if name == "remap":
         return (simulate_f2(n_f2=16, n_markers=12, n_founder_pairs=2,
                             seed=17),
@@ -175,7 +189,7 @@ def main(argv):
     from cnf2freq_tpu_torch.io.sharded_checkpoint import save_sharded
     from cnf2freq_tpu_torch.parallel import init_distributed, make_mesh
     init_distributed(coordinator=f"file://{rdv}", num_processes=world,
-                     process_id=rank, timeout_s=TIMEOUT_S)
+                     process_id=rank, timeout_s=TIMEOUT_S, backend="gloo")
     mesh = make_mesh(world)
     results = {}
     try:
@@ -195,6 +209,80 @@ def main(argv):
     finally:
         np.savez(os.path.join(outdir, f"rank{rank}.npz"), **results)
         dist.destroy_process_group()
+
+
+# -- the test process's side --------------------------------------------
+# seconds the test process waits for a group's ranks before it kills them
+WORKER_TIMEOUT_S = 150
+
+
+def spawn_groups(cases, mktemp):
+    """Start one group of ranks per entry of ``cases`` ({world: [case,
+    ...]}), all at once, each in a directory from ``mktemp(name)``, and
+    yield {world: (directory, [(process, log path)])}; every process
+    still running when the generator is closed is killed."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    out, logs = {}, []
+    try:
+        for world, names in cases.items():
+            d = mktemp(f"mesh{world}")
+            procs = []
+            for r in range(world):
+                log = open(d / f"log{r}.txt", "w")
+                logs.append(log)
+                procs.append((subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     str(d / "rdv"), str(r), str(world), str(d)] + names,
+                    env=env, stdout=log, stderr=subprocess.STDOUT),
+                    d / f"log{r}.txt"))
+            out[world] = (d, procs)
+        yield out
+    finally:
+        for _, procs in out.values():
+            for p, _ in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+
+
+def results(groups, world):
+    """Every rank's arrays of a group, once its processes have ended
+    (within WORKER_TIMEOUT_S of this wait, or all are killed and an
+    AssertionError carries the log)."""
+    d, procs = groups[world]
+    deadline = time.monotonic() + WORKER_TIMEOUT_S
+    for p, log in procs:
+        try:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for q, _ in procs:
+                q.kill()
+            raise AssertionError(
+                f"mesh{world} ranks did not end within {WORKER_TIMEOUT_S} "
+                f"s: {log.read_text()[-3000:]}")
+        if p.returncode != 0:
+            raise AssertionError(
+                f"a rank of mesh{world} failed (exit {p.returncode}): "
+                f"{log.read_text()[-3000:]}")
+    return [dict(np.load(d / f"rank{r}.npz")) for r in range(world)]
+
+
+def case_arrays(ranks, case):
+    """A case's arrays, after checking that every rank holds the same
+    bits."""
+    pre = case + "/"
+    first = {k[len(pre):]: v for k, v in ranks[0].items()
+             if k.startswith(pre)}
+    for r, other in enumerate(ranks[1:], 1):
+        for k, v in first.items():
+            np.testing.assert_array_equal(other[pre + k], v,
+                                          err_msg=f"rank {r} {case} {k}")
+    return first
 
 
 if __name__ == "__main__":
