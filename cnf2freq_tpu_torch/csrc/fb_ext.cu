@@ -38,19 +38,20 @@
 //                       backward from bT, bfT, bw at the block's last
 //                       marker; lam row and C column j are the interval
 //                       leaving marker j of the block;
-//   cnf_fb_ext_carry_*  one direction carry-only (one warp a row, as
-//                       above): forward from the carry entering the
-//                       block to the one entering the next; backward
-//                       from bw at the block's last marker through
-//                       markers K-1..0, the step at marker 0 taking
-//                       lam_below and C_below [B, V, V], the interval
-//                       below the block, in the same from -> to
-//                       orientation.  It reads e and C once and stores
-//                       only the outgoing carry.
+//   cnf_fb_ext_carry_*  one direction carry-only (its own body, below):
+//                       forward from the carry entering the block to
+//                       the one entering the next; backward from bw at
+//                       the block's last marker through markers
+//                       K-1..0, the step at marker 0 taking lam_below
+//                       and C_below [B, V, V], the interval below the
+//                       block, in the same from -> to orientation.  It
+//                       reads e and C once and stores only the outgoing
+//                       carry.
 //
-// Bound on the H100: memory.  Per marker a warp reads V rows of e and
-// writes two stored rows forward (fw_pre, fw_post) or one backward (bw):
-// at B = 1000, M = 192, V = 3 that is 4.7 GB in float32.  One warp owns a
+// Bound on the H100 of the whole sweeps and the seeded entry: memory.  Per
+// marker a warp reads V rows of e and writes two stored rows forward
+// (fw_pre, fw_post) or one backward (bw): at B = 1000, M = 192, V = 3
+// that is 4.7 GB in float32.  One warp owns a
 // (unit, shift): lane l holds states l and l + 32 of each of the V rows
 // (2V registers), the joint renormalising sum is one warp reduction of
 // the lane's 2V values, the 64-point FWHT of each row runs as in
@@ -60,9 +61,39 @@
 // (gridDim.y == 2).  The next marker's e rows are loaded before the
 // current step's arithmetic.  No fast math: the clip and log must stay
 // exact.
+//
+// The carry-only entry is bound by memory too (at one K = 256 block of the
+// selfing slice, V = 3, it reads 1.6 GB of e in float32: 0.476 ms at 3.35
+// TB/s), if its step keeps within that: with one warp a chain, as above, a
+// chain-step costs 65 warp-shuffles (five for the joint sum, 60 in the
+// FWHTs), more issue than the bytes allow, and its 192 quotients each take
+// their own range check and slow-path region.  Its body: kCarryLanes = 8
+// lanes share a (unit, shift) chain, lane q holding 8 states of each V row
+// in 16-byte vectors, state (j * 8 + q) * W + i in value i of vector j (W =
+// 16 / sizeof(T)), so the chain's 8 lanes read 128 contiguous bytes a
+// vector; the FWHT strides within a vector and between a lane's vectors run
+// in registers and only the three lane strides go through __shfl_xor_sync
+// (the plain twin's stride order is kept); the joint sum takes three
+// shuffles.  The carry is scaled (y, c) (csrc/renorm.cuh): no division and
+// no log on the chain, one log at the end.  The lam rows come through
+// shared memory, a double-buffered tile of kLamTile rows a block staged by
+// cp.async, and the next marker's e rows and [V, V] coupling are loaded
+// into registers while the current step's transition runs.  Kept from
+// variant runs at that block (NVIDIA H100 80GB HBM3, 700.00 W): 8 lanes in
+// both types (4 lanes took 0.64-0.70 ms in float32: twice the registers for
+// the carry and the e rows, so fewer warps in flight; 16 lanes 0.91 ms),
+// 256 threads a block, tiles of 32 lam rows (16 the same).  The shuffles
+// are (2 x 3 x 3 x 8 + 3) / 4 = 37 a chain-step in float32 at V = 3 (twice
+// that in double), 0.3 ms of issue at this block: the bytes bind again.
+// -Xptxas -v: 128 / 116 registers in float (V = 3 / 2), 242 / 178 in
+// double, no spills; 16 / 32 KB of shared memory a block.
 #include <cuda_runtime.h>
 
+#include <initializer_list>
+
 #include "blocks.cuh"
+#include "pipeline.cuh"
+#include "renorm.cuh"
 
 namespace {
 
@@ -284,10 +315,213 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-// one direction, carry-only: per (unit, shift) row, one warp takes the
-// carry (p_in, f_in) through the block's K markers into (p_out, f_out)
+// ---- the carry-only entry: L lanes a (unit, shift) chain -------------
+
+constexpr int kCarryLanes = 8;  // lanes a (unit, shift) chain
+constexpr int kCarryThreads = 256;
+constexpr int kLamTile = 32;  // interval rows a staged tile
+
+// the L lanes of this lane's chain (aligned groups of L lanes)
+template <int L>
+__device__ __forceinline__ unsigned chain_mask(int lane) {
+  static_assert(L > 1 && L < 32 && (L & (L - 1)) == 0,
+                "L: a power of two in [2, 16]");
+  return ((1u << L) - 1u) << (lane & ~(L - 1));
+}
+
+// one 16-byte vector of W = 16 / sizeof(T) values
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+  static __device__ __forceinline__ float get(const float4& v, int i) {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+  }
+  static __device__ __forceinline__ float4 make(const float* x) {
+    return make_float4(x[0], x[1], x[2], x[3]);
+  }
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+  static __device__ __forceinline__ double get(const double2& v, int i) {
+    return i == 0 ? v.x : v.y;
+  }
+  static __device__ __forceinline__ double2 make(const double* x) {
+    return make_double2(x[0], x[1]);
+  }
+};
+
+// A chain's row of 64 states over its L lanes: lane q holds P = 64 / L
+// states, register r = j * W + i (vector j < P / W, i < W) holding state
+// (j * L + q) * W + i, so that each lane's vector j is 16 contiguous bytes
+// and the chain's L lanes read 16 L contiguous bytes.
+template <typename T, int L>
+struct Chain {
+  static constexpr int W = 16 / (int)sizeof(T);
+  static constexpr int P = 64 / L;
+  static constexpr int G = P / W;
+};
+
+// the lane's P states of one row whose state 0 is at `at` (the lane's
+// own offset q * W already in `at`): vector g of the lane is 16 L bytes
+// after vector g - 1
+template <typename T, int L>
+__device__ __forceinline__ void load_row(T (&x)[64 / L],
+                                         const T* __restrict__ at) {
+  using V = Vec16<T>;
+  constexpr int W = Chain<T, L>::W, G = Chain<T, L>::G;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const typename V::type v =
+        *reinterpret_cast<const typename V::type*>(at + g * L * W);
+#pragma unroll
+    for (int i = 0; i < W; ++i) x[g * W + i] = V::get(v, i);
+  }
+}
+
+template <typename T, int L>
+__device__ __forceinline__ void store_row(T* __restrict__ at,
+                                          const T (&x)[64 / L]) {
+  using V = Vec16<T>;
+  constexpr int W = Chain<T, L>::W, G = Chain<T, L>::G;
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    *reinterpret_cast<typename V::type*>(at + g * L * W) =
+        V::make(&x[g * W]);
+}
+
+// one butterfly stage between the lane's registers r and r + h (the trip
+// count is P whatever h is, so the loop unrolls fully once h is known)
+template <typename T, int P>
+__device__ __forceinline__ void butterflies(T (&x)[P], int h) {
+#pragma unroll
+  for (int r = 0; r < P; ++r)
+    if ((r & h) == 0) {
+      const T a = x[r], b = x[r + h];
+      x[r] = a + b;
+      x[r + h] = a - b;
+    }
+}
+
+// unnormalised FWHT64 of one row over the chain, butterfly strides in the
+// plain twin's order 1, 2, ..., 32: state strides below W in the lane's
+// vectors, strides W .. W L / 2 across the lanes q ^ (h / W), strides
+// from W L up between the lane's vectors
+template <typename T, int L>
+__device__ __forceinline__ void chain_fwht64(T (&x)[64 / L], int q,
+                                             unsigned mask) {
+  constexpr int W = Chain<T, L>::W, P = Chain<T, L>::P;
+#pragma unroll
+  for (int h = 1; h < W; h <<= 1) butterflies<T, P>(x, h);
+#pragma unroll
+  for (int b = 1; b < L; b <<= 1) {
+    const bool upper = (q & b) != 0;
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      const T o = __shfl_xor_sync(mask, x[r], b);
+      x[r] = upper ? o - x[r] : x[r] + o;
+    }
+  }
+#pragma unroll
+  for (int h = W; h < P; h <<= 1) butterflies<T, P>(x, h);
+}
+
+// The emission of a chain's scaled carry (csrc/renorm.cuh): values below
+// thr (the clip times c) zeroed, times e, in place; returns the joint sum
+// over the V rows, the lane's partial sum then log2 L xor-shuffles, so
+// that every lane of the chain holds the same value.
+template <typename T, int V, int L>
+__device__ __forceinline__ T chain_emit(T (&x)[V][64 / L],
+                                        const T (&e)[V][64 / L], T thr,
+                                        unsigned mask) {
+  constexpr int P = 64 / L;
+  T s = T(0);
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      x[v][r] = (x[v][r] < thr ? T(0) : x[v][r]) * e[v][r];
+      s += x[v][r];
+    }
+#pragma unroll
+  for (int o = 1; o < L; o <<= 1) s += __shfl_xor_sync(mask, s, o);
+  return s;
+}
+
+// the base-state transition of every row, H . diag(lam) . H scaled by
+// `scale` (the 1/64 and the carry's power of two), then the [V, V]
+// coupling mix out[g] = sum_f c[f][g] in[f]
+template <typename T, int V, int L>
+__device__ __forceinline__ void chain_transition(T (&x)[V][64 / L],
+                                                 const T (&lam)[64 / L],
+                                                 const T (&c)[V * V], T scale,
+                                                 int q, unsigned mask) {
+  constexpr int P = 64 / L;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    chain_fwht64<T, L>(x[v], q, mask);
+#pragma unroll
+    for (int r = 0; r < P; ++r) x[v][r] *= lam[r];
+    chain_fwht64<T, L>(x[v], q, mask);
+#pragma unroll
+    for (int r = 0; r < P; ++r) x[v][r] *= scale;
+  }
+#pragma unroll
+  for (int r = 0; r < P; ++r) {
+    T out[V];
+#pragma unroll
+    for (int g = 0; g < V; ++g) {
+      out[g] = T(0);
+#pragma unroll
+      for (int fr = 0; fr < V; ++fr) out[g] += c[fr * V + g] * x[fr][r];
+    }
+#pragma unroll
+    for (int g = 0; g < V; ++g) x[g][r] = out[g];
+  }
+}
+
+// Issue the copies of lam tile t (if there is one) as one commit group:
+// slot row d holds the interval of step j = t * kLamTile + d (forward:
+// lam row j; backward, at marker m = K - 1 - j: lam row m - 1, lam_below
+// at marker 0).
+template <typename T>
+__device__ __forceinline__ void stage_lam(T (*lam_s)[kLamTile * 64], int t,
+                                          int K, const T* __restrict__ lam,
+                                          const T* __restrict__ lam_below,
+                                          bool backward) {
+  if (t * kLamTile < K) {
+    constexpr int W = 16 / (int)sizeof(T);
+    constexpr int rchunks = 64 / W;
+    const int n = min(kLamTile, K - t * kLamTile);
+    T* slot = lam_s[t & 1];
+    for (int c = threadIdx.x; c < n * rchunks; c += kCarryThreads) {
+      const int d = c / rchunks, w = c - d * rchunks;
+      const int j = t * kLamTile + d, m = K - 1 - j;
+      const T* src = !backward ? lam + (size_t)j * 64
+                     : m > 0   ? lam + (size_t)(m - 1) * 64
+                               : lam_below;
+      cnf::copy16_async(slot + d * 64 + w * W, src + w * W);
+    }
+  }
+  cnf::commit_group();
+}
+
+// the [V, V] coupling of the step at marker m (V * V values at
+// cb + i * V * V for interval i): forward the interval leaving m,
+// backward the one entering it, C_below's row at marker 0
 template <typename T, int V>
-__global__ void __launch_bounds__(kWarps * 32)
+__device__ __forceinline__ const T* interval_c(const T* cb, const T* c_below,
+                                               int m, int backward) {
+  if (!backward) return cb + (size_t)m * V * V;
+  return m > 0 ? cb + (size_t)(m - 1) * V * V : c_below;
+}
+
+// one direction, carry-only: per (unit, shift) row, L lanes take the
+// carry (p_in, f_in) through the block's K markers into (p_out, f_out)
+template <typename T, int V, int L>
+__global__ void __launch_bounds__(kCarryThreads)
     fb_ext_carry_kernel(const T* __restrict__ e, const T* __restrict__ lam,
                         const T* __restrict__ C,
                         const T* __restrict__ lam_below,
@@ -296,63 +530,86 @@ __global__ void __launch_bounds__(kWarps * 32)
                         const T* __restrict__ f_in, T* __restrict__ p_out,
                         T* __restrict__ f_out, int backward, int B, int K,
                         int NS, T clip) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= (long long)B * NS) return;
-  const int b = (int)(row / NS), ns = (int)(row % NS);
+  constexpr int W = Chain<T, L>::W, P = Chain<T, L>::P;
+  // the interval rows, double-buffered tiles (the copies of tile t + 1
+  // fly while tile t is swept)
+  __shared__ __align__(16) T lam_s[2][kLamTile * 64];
+  const int q = threadIdx.x & (L - 1);
+  const long long row =
+      (long long)blockIdx.x * (kCarryThreads / L) + threadIdx.x / L;
+  const bool active = row < (long long)B * NS;  // uniform over the chain
+  const unsigned mask = chain_mask<L>(threadIdx.x & 31);
+  const int b = active ? (int)(row / NS) : 0;
+  const int ns = active ? (int)(row % NS) : 0;
+  // element (b, m, v, ns, s) of e is b * K * mstep + m * mstep +
+  // v * vstep + ns * 64 + s; a carry [B, V, NS, 64] is one marker of it
   const size_t vstep = (size_t)NS * 64;
   const size_t mstep = (size_t)V * vstep;
-  const size_t base = (size_t)b * K * mstep + (size_t)ns * 64 + lane;
-  const size_t cbase = (size_t)b * K * V * V;
-  T lo[V], hi[V], elo[V], ehi[V], nlo[V], nhi[V];
-  T f;
-  seed_row<T, V>(lo, hi, f, p_in, f_in, nullptr, b, ns, NS, lane);
-  const int first = backward ? K - 1 : 0;
-  const int dir = backward ? -1 : 1;
+  const size_t lane_off = (size_t)ns * 64 + q * W;
+  const T* eb = e + (size_t)b * K * mstep + lane_off;
+  const size_t carry = (size_t)b * mstep + lane_off;
+  // the step's e rows and coupling: forward, marker j and the interval
+  // leaving it; backward, marker K - 1 - j and the interval entering it
+  // (C_below at marker 0), in the same from -> to orientation
+  const int first = backward ? K - 1 : 0, dir = backward ? -1 : 1;
+  const T* cb = C + (size_t)b * K * V * V;
+  const T* c_below = backward ? C_below + (size_t)b * V * V : nullptr;
+
+  // the chain's scaled carry (x, c) and its log-factor (csrc/renorm.cuh)
+  T x[V][P], ev[V][P], cm[V * V], cn[V * V], lr[P];
+  T c = T(1), f = T(0);
+  if (active) {
 #pragma unroll
-  for (int v = 0; v < V; ++v) {
-    elo[v] = e[base + (size_t)first * mstep + v * vstep];
-    ehi[v] = e[base + (size_t)first * mstep + v * vstep + 32];
-    nlo[v] = nhi[v] = T(0);
+    for (int v = 0; v < V; ++v)
+      load_row<T, L>(x[v], p_in + carry + v * vstep);
+    f = f_in[row];
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      load_row<T, L>(ev[v], eb + (size_t)first * mstep + v * vstep);
+    const T* c0 = interval_c<T, V>(cb, c_below, first, backward);
+#pragma unroll
+    for (int k = 0; k < V * V; ++k) cm[k] = c0[k];
   }
-  for (int j = 0; j < K; ++j) {
-    const int m = first + dir * j;
-    if (j + 1 < K) {
-      const size_t i = base + (size_t)(m + dir) * mstep;
+  cnf::LogFactor<T> lf{f};
+  stage_lam(lam_s, 0, K, lam, lam_below, backward);
+  const int ntiles = (K + kLamTile - 1) / kLamTile;
+  for (int t = 0; t < ntiles; ++t) {
+    cnf::wait_groups<0>();
+    __syncthreads();
+    stage_lam(lam_s, t + 1, K, lam, lam_below, backward);
+    if (!active) continue;
+    const int j0 = t * kLamTile, n = min(kLamTile, K - j0);
+    const T* ls = lam_s[t & 1] + q * W;
+    for (int d = 0; d < n; ++d) {
+      const int j = j0 + d;
+      const T s = chain_emit<T, V, L>(x, ev, clip * c, mask);
+      const int ex = cnf::Pow2<T>::exponent(s);
+      // the next step's inputs fly while this step's transition runs
+      if (j + 1 < K) {
+        const int m = first + dir * (j + 1);
 #pragma unroll
-      for (int v = 0; v < V; ++v) {
-        nlo[v] = e[i + v * vstep];
-        nhi[v] = e[i + v * vstep + 32];
+        for (int v = 0; v < V; ++v)
+          load_row<T, L>(ev[v], eb + (size_t)m * mstep + v * vstep);
+        const T* cnext = interval_c<T, V>(cb, c_below, m, backward);
+#pragma unroll
+        for (int k = 0; k < V * V; ++k) cn[k] = cnext[k];
       }
-    }
-    emit_norm<T, V>(lo, hi, f, elo, ehi, clip);
-    // forward: the interval leaving m; backward: the one entering m
-    const T* lam_m;
-    const T* c_m;
-    if (!backward) {
-      lam_m = lam + (size_t)m * 64;
-      c_m = C + cbase + (size_t)m * V * V;
-    } else if (m > 0) {
-      lam_m = lam + (size_t)(m - 1) * 64;
-      c_m = C + cbase + (size_t)(m - 1) * V * V;
-    } else {
-      lam_m = lam_below;
-      c_m = C_below + (size_t)b * V * V;
-    }
-    transition<T, V>(lo, hi, lam_m, c_m, lane);
+      load_row<T, L>(lr, ls + d * 64);
+      chain_transition<T, V, L>(x, lr, cm, cnf::Pow2<T>::pow2(ex, 6), q,
+                                mask);
+      c = s * cnf::Pow2<T>::pow2(ex, 0);
+      lf.count(s, ex);
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
-      elo[v] = nlo[v];
-      ehi[v] = nhi[v];
+      for (int k = 0; k < V * V; ++k) cm[k] = cn[k];
     }
   }
-  const size_t out = (size_t)b * V * vstep + (size_t)ns * 64 + lane;
+  if (active) {
+    cnf::unscale(x, c);
 #pragma unroll
-  for (int v = 0; v < V; ++v) {
-    p_out[out + v * vstep] = lo[v];
-    p_out[out + v * vstep + 32] = hi[v];
+    for (int v = 0; v < V; ++v)
+      store_row<T, L>(p_out + carry + v * vstep, x[v]);
+    if (q == 0) f_out[row] = lf.value();
   }
-  if (lane == 0) f_out[row] = f;
 }
 
 template <typename T>
@@ -385,16 +642,23 @@ int launch_fb_ext_carry(const T* e, const T* lam, const T* C,
                         const T* f_in, T* p_out, T* f_out, int backward,
                         int B, int K, int V, int NS, T clip, void* stream) {
   if (p_in == nullptr || f_in == nullptr) return (int)cudaErrorInvalidValue;
+  if (backward && (lam_below == nullptr || C_below == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (B <= 0 || K <= 0 || NS <= 0) return 0;
+  // the 16-byte loads, copies and stores
+  for (const T* p : {e, lam, lam_below, p_in, (const T*)p_out})
+    if (((size_t)p & 15) != 0) return (int)cudaErrorMisalignedAddress;
+  constexpr int L = kCarryLanes;
+  constexpr int chains = kCarryThreads / L;
   const long long rows = (long long)B * NS;
-  const unsigned grid = (unsigned)((rows + kWarps - 1) / kWarps);
+  const unsigned grid = (unsigned)((rows + chains - 1) / chains);
   cudaStream_t s = (cudaStream_t)stream;
   if (V == 2) {
-    fb_ext_carry_kernel<T, 2><<<grid, kWarps * 32, 0, s>>>(
+    fb_ext_carry_kernel<T, 2, L><<<grid, kCarryThreads, 0, s>>>(
         e, lam, C, lam_below, C_below, p_in, f_in, p_out, f_out, backward, B,
         K, NS, clip);
   } else if (V == 3) {
-    fb_ext_carry_kernel<T, 3><<<grid, kWarps * 32, 0, s>>>(
+    fb_ext_carry_kernel<T, 3, L><<<grid, kCarryThreads, 0, s>>>(
         e, lam, C, lam_below, C_below, p_in, f_in, p_out, f_out, backward, B,
         K, NS, clip);
   } else {

@@ -17,7 +17,11 @@ their edges (one or two markers, a zeroed emission row).
 ``test_fb_ext_carries_match_plain`` hold the two entries of each family
 sweep kernel that the families' marker-blocked scan runs (seeded
 boundary carries; carry-only, both directions) against their plain
-twins.
+twins.  The 4-state sweeps and the extended carry-only entry stage
+their inputs a tile of markers ahead and run several rows a block or a
+warp, so their cases include a marker count that is no multiple of a
+tile, zeroed emission rows on tile boundaries, fewer rows than a block
+or a warp takes, and float64 carries below the XLA scan's 1e-300 clip.
 
 Run on a machine with the card (tests/conftest.py imports JAX):
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
@@ -475,13 +479,24 @@ def test_merges_reproduce(card, dtype):
     assert torch.equal(got[0], got[1]) and torch.equal(got[0], host)
 
 
-def _small_inputs(card, dtype, NS, M, zero_rows=False, seed=13):
+# markers on which a staged tile of 16, 32 or 64 markers starts or ends
+TILE_EDGES = (15, 16, 31, 32, 63, 64)
+# a value that float64 holds below the XLA scan's 1e-300 clip
+TINY = 1e-302
+
+
+def _small_inputs(card, dtype, NS, M, zero_rows=False, seed=13, B=37,
+                  edges=False, tiny=False):
     """e [B, M, NS, 4] and lam [M-1, 4] of a 4-state family, made with
     numpy; ``zero_rows`` zeroes whole emission rows (every state of a
     (unit, marker, shift)), so that a sweep meets a zero sum
-    (MINFACTOR) and restarts from zeros."""
+    (MINFACTOR) and restarts from zeros; ``edges`` zeroes whole rows of
+    units 3 and 4 on the markers of TILE_EDGES; ``tiny`` (M >= 7) scales
+    the interval leaving marker 5 by TINY, so that every carry crossing
+    it holds values below the clip (in float64; 0 in float32): the clip
+    zeroes them and the rows die (MINFACTOR), where without it they
+    would live on."""
     rng = np.random.default_rng(seed)
-    B = 37
     e = rng.uniform(0.0, 1.0, (B, M, NS, 4))
     e[rng.random((B, M, NS, 4)) < 0.2] = 0.0
     if zero_rows:
@@ -491,26 +506,48 @@ def _small_inputs(card, dtype, NS, M, zero_rows=False, seed=13):
                            == 1, 1.0 - 2.0 * rng.uniform(
                                0.0, 0.4, (max(M - 1, 0), 1, 2)), 1.0),
                   axis=-1)
+    if edges:
+        for m in TILE_EDGES:
+            if m < M:
+                e[3:5, m] = 0.0
+    if tiny:
+        lam[5] *= TINY
     return (torch.as_tensor(e, dtype=dtype, device=card),
             torch.as_tensor(lam, dtype=dtype, device=card))
 
 
+# (markers, units, edit of _small_inputs / _ext_inputs): one and two
+# markers; zeroed emission rows; M not a multiple of the staged tile
+# depth, with zeroed rows on tile boundaries; values below the clip, in
+# fewer units than a block takes
+SMALL_CASES = {"M1": (1, 37, {}), "M2": (2, 37, {}),
+               "zero_rows": (23, 37, dict(zero_rows=True)),
+               "tile_edges": (69, 37, dict(edges=True)),
+               "tiny": (41, 5, dict(tiny=True))}
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("NS", [1, 2])
-@pytest.mark.parametrize("case", ["M1", "M2", "zero_rows"])
+@pytest.mark.parametrize("case", list(SMALL_CASES))
 def test_fb_small_matches_plain(card, case, NS, dtype):
     """The 4-state entry (csrc/fb_small.cu) against its plain twin at the
-    XLA scan's clip, at one and two markers and with zeroed emission rows
-    (MINFACTOR), NS = 1 (nohaplo) and NS = 2 (ng2)."""
-    M = {"M1": 1, "M2": 2, "zero_rows": 23}[case]
-    e, lam = _small_inputs(card, dtype, NS, M, zero_rows=case == "zero_rows")
+    XLA scan's clip, NS = 1 (nohaplo) and NS = 2 (ng2), in the cases of
+    SMALL_CASES; zeroed rows and values below the clip must reach
+    MINFACTOR, and without the clip the tiny case's float64 rows would
+    not."""
+    M, B, edit = SMALL_CASES[case]
+    e, lam = _small_inputs(card, dtype, NS, M, B=B, **edit)
     before = pfb.fb_sweeps_small.launches
     got = pfb.fb_sweeps(e, lam, pfb.XLA_CLIP)
     assert pfb.fb_sweeps_small.launches == before + 1
     ref = pfb.fb_sweeps_reference(e, lam, pfb.XLA_CLIP)
     _close(got, ref, dtype)
-    if case == "zero_rows":
+    if case in ("zero_rows", "tile_edges", "tiny"):
         assert (got[4] == -1e15).any()
+    if case == "tiny" and dtype == torch.float64:
+        unclipped = pfb.fb_sweeps_reference(e, lam, 0.0)
+        assert not torch.equal(unclipped[4], ref[4])
+        assert not torch.equal(unclipped[5], ref[5])
 
 
 def test_fb_small_wrapper_checks(card):
@@ -532,22 +569,36 @@ def test_fb_small_wrapper_checks(card):
     assert (pfb.fb_sweeps.launches, pfb.fb_sweeps_small.launches) == before
 
 
-def _ext_inputs(card, dtype, V, M, zero_rows=False, seed=13):
-    """Random extended sweep inputs: e [5, M, V, 8, 64] with zeros, lam
+def _ext_inputs(card, dtype, V, M, zero_rows=False, seed=13, B=5, NS=8,
+                edges=False, tiny=False):
+    """Random extended sweep inputs: e [B, M, V, NS, 64] with zeros, lam
     from random recombination rates, a random row-stochastic (so not
-    symmetric) coupling [5, M-1, V, V] and a prior [5, V]."""
+    symmetric) coupling [B, M-1, V, V] and a prior [B, V]; ``edges`` zeroes
+    every row of unit 3 and shift 1's of unit 4 on the markers of
+    TILE_EDGES; ``tiny`` (M >= 13, B >= 3) scales unit 1's coupling of
+    the interval leaving marker 5 and unit 2's of the one below marker
+    M - 6 by TINY, so that unit 1's forward and unit 2's backward carry
+    cross them with values below the clip (in float64; 0 in float32):
+    the clip zeroes them and the rows die (MINFACTOR)."""
     rng = np.random.default_rng(seed)
-    B = 5
-    e = rng.uniform(0.0, 1.0, (B, M, V, 8, 64))
+    e = rng.uniform(0.0, 1.0, (B, M, V, NS, 64))
     e[rng.random(e.shape) < 0.2] = 0.0
     if zero_rows:
-        e[:, M // 2, :, 3] = 0.0
+        e[:, M // 2, :, min(3, NS - 1)] = 0.0
     r = rng.uniform(0.0, 0.3, (max(M - 1, 0), 6))
     bits = (np.arange(64)[:, None] >> np.arange(6)[None, :]) & 1
     lam = np.where(bits[None] == 1, 1 - 2 * r[:, None, :], 1.0).prod(-1)
     C = rng.uniform(0.05, 1.0, (B, max(M - 1, 0), V, V))
     C /= C.sum(-1, keepdims=True)
     prior = rng.uniform(0.1, 1.0, (B, V)) / (64 * V)
+    if edges:
+        for m in TILE_EDGES:
+            if m < M:
+                e[3, m] = 0.0
+                e[4, m, :, min(1, NS - 1)] = 0.0
+    if tiny:
+        C[1, 5] *= TINY
+        C[2, M - 7] *= TINY
 
     def t(x):
         return torch.as_tensor(x, dtype=dtype, device=card)
@@ -600,23 +651,36 @@ def _random_carry(rng, shape, card, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("NS", [1, 2])
-@pytest.mark.parametrize("case", ["K1", "K9", "zero_rows"])
+@pytest.mark.parametrize("case", ["K1", "K9", "zero_rows", "tile_edges",
+                                  "tiny"])
 def test_fb_small_carries_match_plain(card, case, NS, dtype):
     """The 4-state entries of the families' marker-blocked scan
     (csrc/fb_small.cu): both sweeps from random boundary carries
     (fb_small_block) and carry-only forward and backward with an
     interval below the block (fb_small_carry), against their plain twins
-    at the XLA scan's clip, at one and nine markers and with zeroed
-    emission rows; each wrapper counts its launches."""
-    K = {"K1": 1, "K9": 9, "zero_rows": 23}[case]
-    e, lam = _small_inputs(card, dtype, NS, K + 2,
-                           zero_rows=case == "zero_rows")
+    at the XLA scan's clip, at one and nine markers, with zeroed emission
+    rows, at K = 69 with zeroed rows on tile boundaries (K not a multiple
+    of a tile) and with values below the clip in 5 units (tiny, as in
+    SMALL_CASES); each wrapper counts its launches."""
+    K, B, edit = {"K1": (1, 37, {}), "K9": (9, 37, {}),
+                  "zero_rows": (23, 37, dict(zero_rows=True)),
+                  "tile_edges": (69, 37, dict(edges=True)),
+                  "tiny": (41, 5, {})}[case]
+    e, lam = _small_inputs(card, dtype, NS, K + 2, B=B, **edit)
     e = e[:, :K].contiguous()
     lam_pad, below = lam[:K].contiguous(), lam[K].contiguous()
     rng = np.random.default_rng(21)
-    B = e.shape[0]
     fwd, bwd = (_random_carry(rng, (B, NS, 4), card, dtype)
                 for _ in range(2))
+    if case == "tiny":
+        # unit 1's forward and unit 2's backward carry enter with
+        # values below the clip beside one large state, which the first
+        # emission takes away (no other zero of e in those units ends
+        # either row)
+        tiny_row = torch.tensor([1.0, TINY, TINY, TINY], dtype=dtype)
+        fwd[0][1], bwd[0][2] = tiny_row, tiny_row
+        e[1:3].clamp_(min=0.05)
+        e[1, 0] = e[2, K - 1] = torch.tensor([0.0, 1.0, 1.0, 1.0])
     before = (pfb.fb_small_block.launches, pfb.fb_small_carry.launches)
     got = pfb.fb_small_block(e, lam_pad, fwd, bwd)
     carries = (pfb.fb_small_carry(e, lam_pad, fwd) +
@@ -626,9 +690,16 @@ def test_fb_small_carries_match_plain(card, case, NS, dtype):
         (before[0] + 1, before[1] + 2)
     clip = pfb.XLA_CLIP
     _close(got, pfb.fb_block_reference(e, lam_pad, *fwd, *bwd, clip), dtype)
-    _close(carries, pfb.fb_carry_reference(e, lam_pad, *fwd, clip) +
+    ref = (pfb.fb_carry_reference(e, lam_pad, *fwd, clip) +
            pfb.fb_carry_reference(e, lam_pad, *bwd, clip, backward=True,
-                                  lam_below=below), dtype)
+                                  lam_below=below))
+    _close(carries, ref, dtype)
+    if case == "tiny":
+        assert bool((carries[1][1] == -1e15).all())
+        assert bool((carries[3][2] == -1e15).all())
+        if dtype == torch.float64:
+            assert not torch.equal(
+                pfb.fb_carry_reference(e, lam_pad, *fwd, 0.0)[1], ref[1])
     # the whole-chromosome seeds give the whole sweep (whose stores do
     # not read the last interval row)
     _close(pfb.fb_small_block(e, lam_pad),
@@ -637,23 +708,31 @@ def test_fb_small_carries_match_plain(card, case, NS, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("V", [2, 3])
-@pytest.mark.parametrize("case", ["K1", "K9", "zero_rows"])
+@pytest.mark.parametrize("case", ["K1", "K9", "zero_rows", "tile_edges",
+                                  "tiny", "NS3"])
 def test_fb_ext_carries_match_plain(card, case, V, dtype):
     """The extended entries of the marker-blocked scan (csrc/fb_ext.cu):
     both sweeps from random [B, V, NS, 64] boundary carries (fb_ext_block)
     and carry-only forward and backward (fb_ext_carry), the backward
     step below the block through a random row-stochastic coupling (so
     not symmetric: the from -> to orientation shows), against their
-    plain twins, V = 2 and 3; each wrapper counts its launches."""
-    K = {"K1": 1, "K9": 9, "zero_rows": 23}[case]
-    e, lam, C, _ = _ext_inputs(card, dtype, V, K + 2,
-                               zero_rows=case == "zero_rows")
+    plain twins, V = 2 and 3: at one and nine markers, with zeroed
+    emission rows, at K = 69 with zeroed rows on the boundaries of the
+    staged interval tiles, with values below the clip (tiny, as in
+    SMALL_CASES), and with 3 shifts, so that the 15 (unit, shift) chains
+    fill no warp; each wrapper counts its launches."""
+    K, NS, edit = {"K1": (1, 8, {}), "K9": (9, 8, {}),
+                   "zero_rows": (23, 8, dict(zero_rows=True)),
+                   "tile_edges": (69, 8, dict(edges=True)),
+                   "tiny": (41, 8, dict(tiny=True)),
+                   "NS3": (41, 3, dict(zero_rows=True))}[case]
+    e, lam, C, _ = _ext_inputs(card, dtype, V, K + 2, NS=NS, **edit)
     e = e[:, :K].contiguous()
     lam_pad, C_pad = lam[:K].contiguous(), C[:, :K].contiguous()
     lam_below, C_below = lam[K].contiguous(), C[:, K].contiguous()
     rng = np.random.default_rng(22)
     B = e.shape[0]
-    fwd, bwd = (_random_carry(rng, (B, V, 8, 64), card, dtype)
+    fwd, bwd = (_random_carry(rng, (B, V, NS, 64), card, dtype)
                 for _ in range(2))
     before = (pfb.fb_ext_block.launches, pfb.fb_ext_carry.launches)
     got = pfb.fb_ext_block(e, lam_pad, C_pad, fwd, bwd)
@@ -670,3 +749,10 @@ def test_fb_ext_carries_match_plain(card, case, V, dtype):
            pfb.fb_ext_carry_reference(e, lam_pad, C_pad, *bwd, clip,
                                       backward=True, lam_below=lam_below,
                                       C_below=C_below), dtype)
+    if case == "tiny":
+        assert bool((carries[1][1] == -1e15).all())
+        assert bool((carries[3][2] == -1e15).all())
+        if dtype == torch.float64:
+            unclipped = pfb.fb_ext_carry_reference(e, lam_pad, C_pad, *fwd,
+                                                   0.0)
+            assert not torch.equal(unclipped[1], carries[1])
