@@ -13,7 +13,8 @@ since the script started (t=); any failure exits non-zero:
            abs/rel error against the stated tolerance, and CUDA-event
            times taken in turns plain, kernel, kernel, plain: the kernel
            in 6 rounds of 20 launches (median, min and max), the plain
-           version in 2 rounds of 3; the sweep kernel's two entries of the
+           version once on either side (the mean of the two); the sweep
+           kernel's two entries of the
            marker-blocked scan at its block's shape (K=256 markers, 1000
            units, 0.05 cM apart): with seeded boundary carries
            (fb_sweep_init) and carry-only, forward and backward (fb_carry,
@@ -197,12 +198,33 @@ since the script started (t=); any failure exits non-zero:
            through cli.main on the card in float32 with --model ng2, with
            --model nohaplo --lineorigin and with --model relskewstates,
            and 1000 x 192 selfed-line files with --model selfing and again
-           with --markerblock 64, --count 3 --output --dump: stage
+           with --markerblock 64, --count 2 --output --dump: stage
            seconds; fails on a nonzero return, a missing unit block, a
            non-finite number, a table row whose sum is more than 2e-5 from
            1, the family's sweep entries (fb_small, fb_ext, or the blocked
            fb_ext_init and fb_ext_carry) never launched or another kernel
            launched
+  impute_example
+           (run after cli_models) the port's imputation example,
+           examples.impute_cohort.impute_cohort at 1000 x 192 with 4
+           iterations, float32, on the card (simulate_f2(missing_rate=0.05,
+           error_rate=0.01, seed=42), every 7th marker of each unit
+           masked): the seconds of simulate + mask, preprocess, each
+           iteration, line_origin_tables and each writer, the score and
+           the exit code the JAX example's rule gives (printed, not
+           asserted: held-out markersure settles above its strict 0.2
+           threshold), the launches of fb_classic and stats_bmns, peak
+           memory; fails if the example raises, a file is missing or
+           empty, fb_classic launched fewer than iterations + 1 times or
+           stats_bmns fewer than iterations times, or the dump, parsed by
+           utils.refparity.parse_dump, departs from state_from_pedigree
+           by a genotype or by more than the dump's rounding (DUMP_ATOL)
+  impute_example_parity
+           the example at 24 x 32 in float64 with 2 iterations on cuda
+           and on the CPU: the genotype and line-origin tables within
+           2e-5, the dumps within 2e-5 but for the collapse-tie
+           departures that utils.dumpcompare admits (at most
+           MAX_DEPARTED), the same score
   slice_ng2, slice_nohaplo
            family_ped's cohort (simulate_f2(n_f2=1000, n_markers=192,
            n_founder_pairs=20, seed=7) under ModelConfig(numgen=2), and
@@ -258,8 +280,11 @@ since the script started (t=); any failure exits non-zero:
            values there), then each family at 200 x 192 in float64 on the
            card with marker_block=32 against its unblocked Driver, one
            full iteration, at the CPU tests' tolerances
-The launch counters are set to 0 just before each slice, scan and CLI run
-and read just after it; the kernels line takes the launches of the v2
+The CLI and example phases share one temporary directory; each phase's
+files are deleted once it has checked them, and a tmp_bytes_released
+line gives their size.
+The launch counters are set to 0 just before each slice, scan, CLI and
+example run and read just after it; the kernels line takes the launches of the v2
 kernels from slice, of the classic ones from slice_resident, of the
 sweep kernel's two blocked entries from slice_blocked, of stats_rules
 from slice_parity, of stats_bmns_rules from scan_parity, and of the
@@ -291,6 +316,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import warnings
 
 import numpy as np
@@ -449,6 +475,10 @@ def fail(msg):
     sys.exit(1)
 
 
+# impute_example: the slices' cohort through the port's example
+IMPUTE_UNITS, IMPUTE_MARKERS, IMPUTE_ITERS = 1000, 192, 4
+
+
 # the script's start, for the elapsed seconds (t=) that every line ends
 # with: the difference between two lines is what the phases between them
 # took
@@ -459,6 +489,21 @@ def say(phase, **kw):
     kw["t"] = f"{time.perf_counter() - START:.1f}"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
           flush=True)
+
+
+def release(tmp, phase, keep=()):
+    """Deletes every file under ``tmp`` but those in ``keep`` (a later
+    phase's inputs) and prints the bytes that the phase had left there:
+    the CLI and example phases write hundreds of MB of tables and dumps,
+    and each phase's files go once it has checked them."""
+    left = 0
+    for root, _, files in os.walk(tmp):
+        for name in files:
+            path = os.path.join(root, name)
+            if path not in keep:
+                left += os.path.getsize(path)
+                os.remove(path)
+    say(phase, tmp_bytes_released=left, kept_files=len(keep))
 
 
 def wrappers():
@@ -479,10 +524,12 @@ def wrappers():
             "fb_ext_init": pfb.fb_ext_block, "fb_ext_carry": pfb.fb_ext_carry}
 
 
-def cuda_rounds(fn, rounds, reps):
+def cuda_rounds(fn, rounds, reps, warm=True):
     """Milliseconds per launch of fn() in each of ``rounds`` rounds of
-    ``reps`` launches, by CUDA events, after one warm-up call."""
-    fn()
+    ``reps`` launches, by CUDA events, after one warm-up call (none with
+    ``warm=False``)."""
+    if warm:
+        fn()
     out = []
     for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
@@ -499,10 +546,11 @@ def cuda_rounds(fn, rounds, reps):
 def in_turns(plain, kernel):
     """(kernel round times, plain_ms) measured plain, kernel, kernel,
     plain: the kernel in 2 x 3 rounds of 20 launches, the slow plain
-    version in one round of 3 on either side."""
-    p1 = cuda_rounds(plain, 1, 3)
+    version (100-700 ms, run just before for the comparison, so warm) in
+    one call on either side."""
+    p1 = cuda_rounds(plain, 1, 1, warm=False)
     k = cuda_rounds(kernel, 3, 20) + cuda_rounds(kernel, 3, 20)
-    p2 = cuda_rounds(plain, 1, 3)
+    p2 = cuda_rounds(plain, 1, 1, warm=False)
     return k, (p1[0] + p2[0]) / 2
 
 
@@ -1817,13 +1865,123 @@ def run_ext_slice(model, resident=None, split=True):
     return launches
 
 
+def run_impute_example(tmp, card):
+    """The port's imputation example (examples/impute_cohort.py) at the
+    slices' cohort size on the card in float32: stage seconds, score, the
+    JAX example's exit code (printed, not asserted), the launches of
+    fb_classic (#5) and stats_bmns (#3b), peak memory; fails if it raises,
+    writes a missing or empty file, launches #5 fewer than iterations + 1
+    times or #3b fewer than iterations times, or writes a dump that
+    parses (utils.refparity) into another state than the pedigree's
+    beyond the dump's rounding."""
+    from cnf2freq_tpu_torch.examples import impute_cohort as ex
+    from cnf2freq_tpu_torch.utils.refparity import (compare, parse_dump,
+                                                    state_from_pedigree)
+    w = wrappers()
+    for fn in w.values():
+        fn.launches = 0
+    lo_launches, record = [], []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with counting_line_origin(lo_launches), timed_stages(record):
+            score, paths, drv = ex.impute_cohort(
+                IMPUTE_UNITS, IMPUTE_MARKERS, IMPUTE_ITERS, 7,
+                os.path.join(tmp, "impute_demo"), "cuda")
+    except Exception as e:
+        traceback.print_exc()
+        fail(f"impute_example: the example raised {e!r}")
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: w[k].launches for k in ("fb_classic", "stats_bmns")}
+    secs = {"simulate_mask": sum(sec for st, sec, _ in record
+                                 if st in ("simulate", "mask"))}
+    n_iter = 0
+    for stage, sec, _ in record:
+        if stage == "iterate":
+            stage, n_iter = f"iterate_{n_iter}", n_iter + 1
+        if stage not in ("simulate", "mask"):
+            secs[stage] = secs.get(stage, 0.0) + sec
+    for stage, sec in secs.items():
+        say("impute_example", stage=stage, seconds=f"{sec:.3f}")
+    say("impute_example", units=IMPUTE_UNITS, markers=IMPUTE_MARKERS,
+        iterations=IMPUTE_ITERS, score=json.dumps(score),
+        exit_code=ex.exit_code(score), launches=json.dumps(launches),
+        line_origin_fb_classic_launches=lo_launches,
+        peak_memory_gb=f"{peak / 1e9:.3f}", card=card)
+    sizes = {k: os.path.getsize(p) if os.path.exists(p) else 0
+             for k, p in paths.items()}
+    if min(sizes.values()) <= 0:
+        fail(f"impute_example: a missing or empty file: {sizes}")
+    if launches["fb_classic"] < IMPUTE_ITERS + 1 or \
+            launches["stats_bmns"] < IMPUTE_ITERS:
+        fail(f"impute_example: launches {launches} in {IMPUTE_ITERS} "
+             f"iterations and a line-origin pass")
+    with open(paths["dump"]) as f:
+        blocks = parse_dump(f.read(), drv.ped.num_markers)
+    dev = compare(blocks[-1], state_from_pedigree(drv.ped))
+    ok = len(blocks) == 1 and dev["genotype_mismatches"] == 0 and all(
+        dev[k] <= DUMP_ATOL for k in ("haploweight", "markersure",
+                                      "relhaplo"))
+    say("impute_example", dump_round_trip=json.dumps(dev),
+        dump_blocks=len(blocks), file_bytes=json.dumps(sizes),
+        tol=DUMP_ATOL, ok=ok)
+    if not ok:
+        fail("impute_example: the dump does not parse back into the "
+             "pedigree's state")
+
+
+def run_impute_example_parity(tmp):
+    """The example at 24 x 32 in float64 with 2 iterations on cuda and on
+    the CPU: the genotype and line-origin tables within CLI_ATOL, the
+    dumps within CLI_ATOL but for the collapse-tie departures that
+    utils.dumpcompare admits (at most MAX_DEPARTED), the same score."""
+    from cnf2freq_tpu_torch.driver import Driver
+    from cnf2freq_tpu_torch.examples import impute_cohort as ex
+    from cnf2freq_tpu_torch.utils.dumpcompare import (compare_dumps, faults,
+                                                      recording_collapse)
+    runs, seen = {}, {}
+    for dev in ("cuda", "cpu"):
+        seen[dev] = []
+        with contextlib.redirect_stderr(io.StringIO()), \
+                recording_collapse(Driver, seen[dev]):
+            runs[dev] = ex.impute_cohort(
+                24, 32, 2, 7, os.path.join(tmp, f"impute_parity_{dev}"),
+                dev, dtype=np.float64)[:2]
+    (score_c, paths_c), (score_h, paths_h) = runs["cuda"], runs["cpu"]
+    worst = 0.0
+    for kind in ("genotypes", "lineorigin"):
+        a, b = numbers(paths_c[kind]), numbers(paths_h[kind])
+        if a.size != b.size or a.size == 0:
+            fail(f"impute_example_parity: {kind} prints {a.size} and "
+                 f"{b.size} numbers")
+        worst = max(worst, float(np.abs(a - b).max()))
+    # the one dump, written after the last iteration: the flags as that
+    # iteration started
+    dump_err, departed = compare_dumps(
+        paths_c["dump"], paths_h["dump"], seen["cuda"][-1:],
+        seen["cpu"][-1:], 1, CLI_ATOL)
+    broken = faults(departed, MAX_DEPARTED)
+    ok = worst <= CLI_ATOL and dump_err <= CLI_ATOL and not broken and \
+        score_c == score_h
+    say("impute_example_parity", tables_max_abs=f"{worst:.2e}",
+        dump_max_abs=f"{dump_err:.2e}",
+        departed_dump_blocks=json.dumps(
+            [(p.block, round(p.haploweight, 6), round(p.relhaplo, 6))
+             for p in departed]),
+        departure_faults=json.dumps(broken), max_departed=MAX_DEPARTED,
+        score_cuda=json.dumps(score_c), score_cpu=json.dumps(score_h),
+        tol=CLI_ATOL, ok=ok)
+    if not ok:
+        fail("impute_example_parity: the example's float64 runs on cuda "
+             "and the CPU disagree")
+
+
 def run_cli_models(tmp, n_f2=1000):
     """The cli phase's 1000 x 192 files through the CLI on the card
     (float32) with --model ng2, with --model nohaplo --lineorigin and
     with --model relskewstates, and simulate_plantimpute_selfed_files(
     n_lines=1000, n_markers=192, generations=4, spacing_cm=1.0, seed=3)
-    with --model selfing, and once more with --markerblock 64 (--count 2),
-    --count 3:
+    with --model selfing, and once more with --markerblock 64, --count 2
+    each (the script's time limit; the other CLI phases run 3):
     every F2 (or line) block written, finite, table rows summing to 1
     within CLI_ATOL, the family's sweep entries launched (fb_small for
     the two-generation families, fb_ext for the extended ones, the
@@ -1838,14 +1996,14 @@ def run_cli_models(tmp, n_f2=1000):
         generations=4, spacing_cm=1.0, seed=3)[:3]
     runs = [("ng2", [], ("fb_small",)), ("nohaplo", [], ("fb_small",)),
             ("selfing", [], ("fb_ext",)), ("relskewstates", [], ("fb_ext",)),
-            ("selfing", ["--markerblock", "64", "--count", "2"],
+            ("selfing", ["--markerblock", "64"],
              ("fb_ext_init", "fb_ext_carry"))]
     for model, extra, kernels in runs:
         tag = model + ("_blocked" if extra else "")
         files = selfed if model == "selfing" else [
             os.path.join(d, f"synth.{x}") for x in ("map", "ped", "gen")]
         io_args = ["--mapfile", files[0], "--pedfile", files[1],
-                   "--genfile", files[2], "--count", "3"]
+                   "--genfile", files[2], "--count", "2"]
         out = os.path.join(d, f"{tag}.out")
         argv = io_args + ["--model", model, "--output", out, "--dump",
                           os.path.join(d, f"{tag}.dump")] + extra
@@ -1915,8 +2073,12 @@ def timed_stages(record):
     import cnf2freq_tpu_torch.io.outputs as pout
     import cnf2freq_tpu_torch.io.plink as pplink
     import cnf2freq_tpu_torch.io.vcf as pvcf
+    import cnf2freq_tpu_torch.utils.harness as pharness
+    import cnf2freq_tpu_torch.utils.simulate as psim
     from cnf2freq_tpu_torch import Driver
     targets = [(pio, "load_plantimpute", "load"),
+               (psim, "simulate_f2", "simulate"),
+               (pharness, "mask_markers", "mask"),
                (phaps, "read_sample", "read_sample"),
                (phaps, "read_haps_full", "read_haps"),
                (pplink, "read_fam_bed", "read_fam_bed"),
@@ -1979,6 +2141,26 @@ def table_blocks(path, width):
     return blocks
 
 
+@contextlib.contextmanager
+def counting_line_origin(lo_launches):
+    """Within the block, each Driver.line_origin_tables call appends the
+    fb_classic launches it made to ``lo_launches``."""
+    from cnf2freq_tpu_torch import Driver
+    real = Driver.line_origin_tables
+
+    def counted(self):
+        before = wrappers()["fb_classic"].launches
+        out = real(self)
+        lo_launches.append(wrappers()["fb_classic"].launches - before)
+        return out
+
+    Driver.line_origin_tables = counted
+    try:
+        yield lo_launches
+    finally:
+        Driver.line_origin_tables = real
+
+
 def run_cli_once(argv):
     """cli.main(argv) with its stage seconds, launches and stderr."""
     from cnf2freq_tpu_torch import cli
@@ -1996,7 +2178,6 @@ def run_cli_once(argv):
 def run_cli(tmp, card, n_f2=1000, n_markers=192):
     """The PlantImpute workflow at 1000 x 192 through the port's CLI on
     the card (float32, the CLI's default there)."""
-    from cnf2freq_tpu_torch import Driver
     from cnf2freq_tpu_torch.io import deserialize, load_plantimpute
     from cnf2freq_tpu_torch.utils.simulate import simulate_plantimpute_files
     d = os.path.join(tmp, "cli")
@@ -2016,20 +2197,9 @@ def run_cli(tmp, card, n_f2=1000, n_markers=192):
                         "--dump", os.path.join(d, "d4")]
 
     lo_launches = []
-    real_lo = Driver.line_origin_tables
-
-    def counted_line_origin(self):
-        before = wrappers()["fb_classic"].launches
-        out = real_lo(self)
-        lo_launches.append(wrappers()["fb_classic"].launches - before)
-        return out
-
     torch.cuda.reset_peak_memory_stats()
-    Driver.line_origin_tables = counted_line_origin
-    try:
+    with counting_line_origin(lo_launches):
         runs = [run_cli_once(first), run_cli_once(resume)]
-    finally:
-        Driver.line_origin_tables = real_lo
     peak = torch.cuda.max_memory_allocated()
     drivers = []
     for tag, (rc, record, launches, err) in zip(("count3", "resume4"), runs):
@@ -2843,12 +3013,24 @@ def main():
     run_parity(True, resident=True, marker_block=32)
     run_blocked_parity()
     tmp = tempfile.mkdtemp(prefix="cnf2freq_smoke_")
+    # cli_models reads the cli phase's input files
+    synth = [os.path.join(tmp, "cli", f"synth.{x}")
+             for x in ("map", "ped", "gen")]
     try:
         run_cli(tmp, card)
+        release(tmp, "cli", keep=synth)
         run_cli_parity(tmp)
+        release(tmp, "cli_parity", keep=synth)
         run_cli_formats(tmp, card)
+        release(tmp, "cli_formats", keep=synth)
         run_cli_formats_parity(tmp)
+        release(tmp, "cli_formats_parity", keep=synth)
         run_cli_models(tmp)
+        release(tmp, "cli_models")
+        run_impute_example(tmp, card)
+        release(tmp, "impute_example")
+        run_impute_example_parity(tmp)
+        release(tmp, "impute_example_parity")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches.update(run_scan_parity())

@@ -16,6 +16,7 @@ text for the same pedigree and tables.
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, TextIO
 
 import numpy as np
@@ -66,19 +67,17 @@ def write_genotype_table(ped: Pedigree, pair_tables: Dict[int, np.ndarray],
             lo, hi = ped.chromosome_range(c)
             out.write(f"{ind.name}:{c + 1}\n")
             tab = pair_tables.get(n)
-            for m in range(lo, hi):
-                if tab is None:
-                    row = np.full(4, 0.25)
-                else:
-                    p = tab[m]
-                    s = p.sum()
-                    p = p / s if s > 0 else np.full((2, 2), 0.25)
-                    if phased:
-                        row = p.reshape(-1)
-                    else:
-                        row = np.array([p[0, 0], p[0, 1] + p[1, 0],
-                                        p[1, 1], 0.0])
-                out.write("\t".join(f"{v:.5f}" for v in row) + "\n")
+            if tab is None:
+                rows = np.full((hi - lo, 4), 0.25)
+            else:
+                p = tab[lo:hi].reshape(hi - lo, 4)
+                s = p.sum(axis=1, keepdims=True)
+                pos = s > 0
+                p = np.where(pos, p / np.where(pos, s, 1), 0.25)
+                rows = p if phased else np.stack(
+                    [p[:, 0], p[:, 1] + p[:, 2], p[:, 3],
+                     np.zeros(hi - lo, p.dtype)], axis=1)
+            _write_rows(out, rows)
             out.write("\n")
     if skipped:
         import sys
@@ -101,9 +100,9 @@ def write_line_origin_table(ped: Pedigree, tables: Dict[int, np.ndarray],
         for c in range(ped.num_chromosomes):
             lo, hi = ped.chromosome_range(c)
             out.write(f"{ind.name}:{c + 1}\n")
-            for m in range(lo, hi):
-                row = tab[m] if tab is not None else np.full(3, 1.0 / 3)
-                out.write("\t".join(f"{v:.5f}" for v in row) + "\n")
+            rows = tab[lo:hi] if tab is not None else \
+                np.full((hi - lo, 3), 1.0 / 3)
+            _write_rows(out, rows)
 
 
 def write_haplotype_dump(ped: Pedigree, out: TextIO,
@@ -115,23 +114,53 @@ def write_haplotype_dump(ped: Pedigree, out: TextIO,
         if ind is None or ind.haploweight is None:
             continue
         out.write(f"{ind.n} {ind.name}\n")
+        fmt = _DUMP_ROW + (_DUMP_PRIOR if ind.has_prior else "") + "\n"
         for c in range(ped.num_chromosomes):
             lo, hi = ped.chromosome_range(c)
-            for j in range(lo, hi):
-                rel = ind.relhaplo[j] if ind.relhaplo is not None else 0.0
-                base = (f"{ind.haploweight[j]:f}\t{int(ind.markerdata[j, 0])}"
-                        f"\t{int(ind.markerdata[j, 1])}\t"
-                        f"\t{ind.negshift[j]:f}"
-                        f"\t{ind.markersure[j, 0]:.6f} "
-                        f"{ind.markersure[j, 1]:.6f} {rel:.6f}")
-                if ind.has_prior:
-                    base += (f"\t{int(ind.priormarkerdata[j, 0])}"
-                             f"\t{int(ind.priormarkerdata[j, 1])}"
-                             f"\t{ind.priormarkersure[j, 0]:.6f}"
-                             f"\t{ind.priormarkersure[j, 1]:.6f}")
-                out.write(base + "\n")
-                if reset_negshift:
-                    ind.negshift[j] = 0.0
+            rel = ind.relhaplo[lo:hi] if ind.relhaplo is not None else \
+                np.zeros(hi - lo)
+            md, ms = ind.markerdata[lo:hi], ind.markersure[lo:hi]
+            cols = [ind.haploweight[lo:hi], _ints(md[:, 0]), _ints(md[:, 1]),
+                    ind.negshift[lo:hi], ms[:, 0], ms[:, 1], rel]
+            if ind.has_prior:
+                pmd, pms = ind.priormarkerdata[lo:hi], \
+                    ind.priormarkersure[lo:hi]
+                cols += [_ints(pmd[:, 0]), _ints(pmd[:, 1]), pms[:, 0],
+                         pms[:, 1]]
+            _write_columns(out, fmt, cols)
+            if reset_negshift:
+                ind.negshift[lo:hi] = 0.0
+
+
+# one dump row: haploweight, the two alleles, an empty column, negshift,
+# the two markersure values and relhaplo; then the priors where present
+_DUMP_ROW = "%f\t%d\t%d\t\t%f\t%.6f %.6f %.6f"
+_DUMP_PRIOR = "\t%d\t%d\t%.6f\t%.6f"
+
+
+def _ints(col):
+    """Integer codes as Python ints (int() of each, as a row's f-string
+    took them)."""
+    return np.asarray(col).astype(np.int64)
+
+
+def _write_columns(out: TextIO, fmt: str, cols):
+    """Writes one line a row of the equal-length ``cols`` through the
+    %-format ``fmt`` (one conversion a column), in one formatting call:
+    the same text as formatting each value on its own, since tolist()
+    gives the exact Python float or int of each element."""
+    n = len(cols[0])
+    if n:
+        vals = tuple(itertools.chain.from_iterable(
+            zip(*(np.asarray(c).tolist() for c in cols))))
+        out.write((fmt * n) % vals)
+
+
+def _write_rows(out: TextIO, rows):
+    """A table's rows, each value to 5 decimals, tab-separated."""
+    rows = np.asarray(rows)
+    _write_columns(out, "\t".join(["%.5f"] * rows.shape[1]) + "\n",
+                   [rows[:, k] for k in range(rows.shape[1])])
 
 
 def deserialize(ped: Pedigree, stream: TextIO) -> Dict[int, int]:

@@ -271,11 +271,13 @@ def test_port_imports_nothing_of_jax():
              for f in fs if f.endswith(".py")]
     files.append(os.path.join(REPO, "chip_smoke.py"))
     assert len(files) > 20
-    # parity mode's copied flip stage, the extended engine and the
-    # families' blocked scan among them
+    # parity mode's copied flip stage, the extended engine, the
+    # families' blocked scan, the reference-parity harness and the
+    # imputation example among them
     for part in (("updates", "refflips.py"), ("engine_ext.py",),
                  ("models", "selfing.py"), ("models", "relskew_states.py"),
-                 ("blocked_families.py",)):
+                 ("blocked_families.py",), ("utils", "refparity.py"),
+                 ("examples", "impute_cohort.py")):
         assert os.path.join(REPO, "cnf2freq_tpu_torch", *part) in files
     bad = {f: sorted(_imported_modules(f) & {"jax", "jaxlib",
                                              "cnf2freq_tpu"})

@@ -298,6 +298,9 @@ def check_negshift_run(parent_swap, record_property):
 # -- the command lines ---------------------------------------------------
 # the CLIs' text outputs print 5-6 decimals
 CLI_ATOL = 2e-5
+# a haplotype dump prints six decimals: half a unit of the sixth, and the
+# binary rounding of the printed value
+DUMP_ATOL = 5.0000001e-7
 OUTPUTS = ("out", "lo", "dump")
 
 
