@@ -34,12 +34,25 @@ since the script started (t=); any failure exits non-zero:
            blocked family slices' cohorts, random boundary carries,
            float32 held to the plain twin's accuracy against float64:
            fb_small_init / fb_small_carry (ng2, NS = 2) and fb_ext_init /
-           fb_ext_carry (selfing, V = 3), each carry row timed per launch
+           fb_ext_carry (selfing, V = 3), each carry row timed per launch;
+           the update stage's kernels (capped_haplo, capped_infprob:
+           csrc/capped.cu; relskew: csrc/relskew.cu) on the arguments of
+           one real update of the slice's cohort (the default Driver's
+           early iteration, at its starting scalefactor 0.013; float32 as
+           captured, promoted to float64), the capped entries' values
+           within the tolerance with the same hits and their bound
+           reckoned from the lane-steps that the plain version took there
+           (plain_lane_steps), then compared on synthetic uniform lanes
+           with the edges (edge_update_lanes) at that scalefactor and at 0
   slice    simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20,
            seed=7) on cuda in float32 with adaptive_relhaplo=False (the
            v2 pipeline) on the host-gathered iteration (resident=False):
            preprocess(), iterate(early=True), iterate() x 2, with every
-           launch counter of the path > 0 and finite outputs
+           launch counter of the path > 0 and finite outputs; each update
+           launches capped_haplo and capped_infprob once and relskew once
+           a chromosome, and no synchronising call of a full iteration
+           lies in updates/capped.py (every slice and the example check
+           the same)
   slice_coherence
            the same cohort with adaptive relhaplo (the default; the
            classic pipeline with coherence), resident=False:
@@ -286,7 +299,9 @@ line gives their size.
 The launch counters are set to 0 just before each slice, scan, CLI and
 example run and read just after it; the kernels line takes the launches of the v2
 kernels from slice, of the classic ones from slice_resident, of the
-sweep kernel's two blocked entries from slice_blocked, of stats_rules
+sweep kernel's two blocked entries from slice_blocked, of the update
+stage's (capped_haplo, capped_infprob, relskew) from slice_resident, of
+stats_rules
 from slice_parity, of stats_bmns_rules from scan_parity, and of the
 4-state entry (fb_small at NS = 2, fb_small_nohaplo at NS = 1) from the
 resident slice_ng2 and slice_nohaplo, of the extended sweeps (fb_ext
@@ -386,7 +401,18 @@ KERNELS = {
     "fb_ext_carry": ("cnf2freq_tpu_torch/csrc/fb_ext.cu",
                      "cnf2freq_tpu/blocked_families.py:143",
                      "blocked_selfing"),
+    # the update stage, on every path that moves parameters: kernels for
+    # the JAX package's jitted XLA loops (no Pallas kernel lies there), the
+    # capped-gradient bisection's lax.while_loop (two lane-typed entries)
+    # and the relskew HMM's lax.scans (forward at :50, backward at :66)
+    "capped_haplo": ("cnf2freq_tpu_torch/csrc/capped.cu",
+                     "cnf2freq_tpu/updates/capped.py:145", "update"),
+    "capped_infprob": ("cnf2freq_tpu_torch/csrc/capped.cu",
+                       "cnf2freq_tpu/updates/capped.py:145", "update"),
+    "relskew": ("cnf2freq_tpu_torch/csrc/relskew.cu",
+                "cnf2freq_tpu/updates/relskew.py:50", "update"),
 }
+UPDATE_KERNELS = tuple(k for k, v in KERNELS.items() if v[2] == "update")
 # operations per unit of work, counted from each kernel's arithmetic (for
 # the bound; every kernel here is far below the card's compute balance):
 # emission per (marker, unit): four threads' separable tables (~20 slot
@@ -411,9 +437,22 @@ OPS = {"emission": 2880, "fb_sweep": 2 * 1152, "stats": 19800,
        # the blocked entries: both directions, or one (carry-only)
        "fb_small_init": 2 * 41, "fb_small_carry": 41,
        "fb_ext_init": 2 * (3 * 64 * (18 + 2 * 3) + 1),
-       "fb_ext_carry": 3 * 64 * (18 + 2 * 3) + 1}
+       "fb_ext_carry": 3 * 64 * (18 + 2 * 3) + 1,
+       # per (row, marker): forward (emission 3, mass 2, transition 7) and
+       # backward (the same and the ratio's 4)
+       "relskew": 28}
+# the capped entries' operations per lane-step and per lane, counting a
+# log as one: a step is 16 gradient evaluations (the pseudo-likelihood
+# term's 48 and two logs, then 11 for the entropy and relskew terms of a
+# haploweight, 6 for the entropy and prior terms of a genotype) and ~124
+# for the bisection and quadrature around them; a lane ~3 caps and one
+# evaluation more.  Their work is the lane-steps that the plain version
+# took on the same inputs (plain_lane_steps).
+CAPPED_OPS = {"capped_haplo": (16 * 61 + 124, 61 + 75),
+              "capped_infprob": (16 * 56 + 124, 56 + 75)}
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12       # float32 outside the tensor cores
+FP64_OPS_PER_S = 34e12       # float64 outside the tensor cores
 # (rtol, atol) per dtype; f32 sweeps compound rounding over 192 markers
 TOL = {torch.float64: (1e-9, 1e-12), torch.float32: (1e-3, 1e-5)}
 # turn weights are log-ratios of xor-correlations: entries whose reference
@@ -510,6 +549,8 @@ def wrappers():
     from cnf2freq_tpu_torch.ops import fb as pfb
     from cnf2freq_tpu_torch.ops import scan as ps
     from cnf2freq_tpu_torch.ops import stats as pst
+    from cnf2freq_tpu_torch.updates import capped as pcap
+    from cnf2freq_tpu_torch.updates import relskew as prs
     return {"emission": ps.emission, "fb_sweep": ps.fb_sweeps,
             "stats": pst.stats, "turn": ps.turn_weights,
             "fb_classic": pfb.fb_sweeps, "stats_bmns": pst.stats_pallas,
@@ -521,7 +562,10 @@ def wrappers():
             "fb_ext": pfb.fb_ext, "fb_ext_relskewstates": pfb.fb_ext,
             "fb_small_init": pfb.fb_small_block,
             "fb_small_carry": pfb.fb_small_carry,
-            "fb_ext_init": pfb.fb_ext_block, "fb_ext_carry": pfb.fb_ext_carry}
+            "fb_ext_init": pfb.fb_ext_block, "fb_ext_carry": pfb.fb_ext_carry,
+            "capped_haplo": pcap.capped_haplo,
+            "capped_infprob": pcap.capped_infprob,
+            "relskew": prs.relskew_ratio}
 
 
 def cuda_rounds(fn, rounds, reps, warm=True):
@@ -565,11 +609,12 @@ def nbytes(*xs):
     return total
 
 
-def bound(name, moved, work):
+def bound(name, moved, work, dtype, ops=None):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the float32 rate."""
+    operations (OPS[name] * work, or ``ops``) over the dtype's rate."""
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = OPS[name] * work / FP32_OPS_PER_S * 1e3
+    rate = FP64_OPS_PER_S if dtype == torch.float64 else FP32_OPS_PER_S
+    t_ops = (OPS[name] * work if ops is None else ops) / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -659,6 +704,221 @@ def kernel_inputs(dtype, n_markers=192, spacing_cm=1.0, n_variants=1):
     return fbt, dists, ModelConfig(), RuntimeParams()
 
 
+@functools.lru_cache(maxsize=1)
+def update_kernel_inputs():
+    """The arguments of each update kernel's first call in one real
+    update, on the card in float32: the slice's cohort (1000 x 192)
+    through the default Driver's preprocess() and early iteration, which
+    updates at the Driver's starting scalefactor (0.013); recorded as
+    recording_updates records whole updates, copied."""
+    from cnf2freq_tpu_torch import Driver, resident
+    from cnf2freq_tpu_torch.updates import parameter_updates as pu
+    from cnf2freq_tpu_torch.utils.simulate import simulate_f2
+    ped = simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20, seed=7)
+    drv = Driver(ped, dtype=torch.float32, device="cuda")
+    drv.preprocess()
+    sites = {"capped_haplo": pu, "capped_infprob": pu, "relskew": resident}
+    attrs = {"capped_haplo": "capped_haplo",
+             "capped_infprob": "capped_infprob", "relskew": "relskew_ratio"}
+    real = {k: getattr(m, attrs[k]) for k, m in sites.items()}
+    seen = {}
+
+    def recording(name):
+        def call(*args):
+            seen.setdefault(name, tuple(
+                x.clone() if torch.is_tensor(x) else x for x in args))
+            return real[name](*args)
+        return call
+    for k, m in sites.items():
+        setattr(m, attrs[k], recording(k))
+    try:
+        drv.iterate(early=True)
+    finally:
+        for k, m in sites.items():
+            setattr(m, attrs[k], real[k])
+    torch.cuda.synchronize()
+    return seen
+
+
+def plain_lane_steps(reference, args):
+    """``reference(*args)``, a capped entry's plain version, with the loop
+    of capped.cappedgd re-run beside it on the same lanes, counting for
+    each lane the steps in which it was not yet done (done lanes are
+    frozen, so these are the steps its result needed): (the plain result,
+    the steps per lane, in the entry's lane order).  The re-run must give
+    the plain version's values and hits bit for bit."""
+    from cnf2freq_tpu_torch.updates import capped as pc
+    real, runs = pc.cappedgd, []
+
+    def counting(gradient, orig, epsilon, scalefactor, breakathalf=False,
+                 iters=pc.ITERS):
+        sf = float(scalefactor)
+        eps = epsilon.expand(orig.shape)
+        brk = torch.as_tensor(breakathalf, device=orig.device).expand(
+            orig.shape)
+
+        def clip(x):
+            return torch.minimum(torch.maximum(x, eps), 1.0 - eps)
+        lolim, _ = pc.caplogitchange(eps, orig, eps, brk)
+        hilim, _ = pc.caplogitchange(1.0 - eps, orig, eps, brk)
+        origc, _ = pc.caplogitchange(orig, orig, eps, brk)
+        g0 = 1.0 / gradient(clip(origc))
+        done = ~torch.isfinite(g0) | pc.flat_lanes(g0) | (sf == 0)
+        low = g0 < 0
+        lo = torch.where(done | ~low, origc, lolim - eps * 0.125)
+        hi = torch.where(done | low, origc, hilim + eps * 0.125)
+        steps = torch.zeros(orig.shape, dtype=torch.int32, device=orig.device)
+        for _ in range(iters if sf != 0.0 else 0):
+            if bool(done.all()):
+                break
+            steps += (~done).int()
+            done = done | (lo > hilim) | (hi < lolim)
+            mid = 0.5 * (lo + hi)
+            gv = 1.0 / gradient(clip(mid))
+            bad = ((gv < 0) ^ low) | ~torch.isfinite(gv)
+            start, end = torch.minimum(origc, mid), torch.maximum(origc, mid)
+            done = done | (((end - start) < 1e-10) & ~bad)
+            qm, qh = 0.5 * (start + end), 0.5 * (end - start)
+            acc = torch.zeros_like(qm)
+            for x, w in zip(pc._GL_X, pc._GL_W):
+                acc = acc + float(w) / gradient(clip(qm + qh * float(x)))
+            prel = acc * qh
+            prel = torch.where(end != mid, -prel, prel)
+            prel = torch.where(bad | ~torch.isfinite(prel), (sf + 0.1) * 1.1,
+                               prel)
+            done = done | ((prel - sf).abs() < sf * 1e-3)
+            up = (prel < sf) ^ low
+            lo = torch.where(done, lo, torch.where(up, mid, lo))
+            hi = torch.where(done, hi, torch.where(up, hi, mid))
+        runs.append((pc.caplogitchange(0.5 * (lo + hi), orig, eps, brk),
+                     real(gradient, orig, epsilon, scalefactor, breakathalf,
+                          iters), steps))
+        return runs[-1][1]
+    pc.cappedgd = counting
+    try:
+        out = reference(*args)
+    finally:
+        pc.cappedgd = real
+    (mine, plain, steps), = runs
+    if not all(torch.equal(a, b) for a, b in zip(mine, plain)):
+        fail("plain_lane_steps: the counted loop departs from cappedgd")
+    return out, steps
+
+
+def compare_capped(got, ref, dtype):
+    """compare() of the new values, and the same hits."""
+    a, r, ok = compare(got[0], ref[0], dtype)
+    return a, r, ok and bool(torch.equal(got[1], ref[1]))
+
+
+def edge_update_lanes(dtype, M=16, seed=11):
+    """Synthetic uniform lanes with the capped entries' and the relskew
+    HMM's edges, on the card: {entry: arguments but the scalefactor}.
+    capped_haplo rows: 0 at eps, 1 at 1 - eps, 2 flat (no count, neutral
+    relskew, off 0.5 by a rounding-floor amount), 3 NaN gradients, 4 and 5
+    breakathalf pulled across 0.5; capped_infprob rows: 0 at eps / 1 -
+    eps, 1 flat (symmetric masses but for a rounding-floor amount, no
+    prior), 2 a NaN mass (a NaN total beside it), about a fifth of the
+    lanes without mass; relskew rows 0 and 1 rescaled, read as a column
+    slice of wider tensors."""
+    from cnf2freq_tpu_torch.config import RuntimeParams
+    rng = np.random.default_rng(seed)
+    N = 64
+    flat = 1e-13 if dtype == torch.float64 else 2e-7
+    children = rng.integers(0, 4, N).astype(float)
+    eps = RuntimeParams().maxdiff / (children + 1.0)
+    w = rng.uniform(0.02, 0.98, (N, M))
+    C = rng.integers(0, 4, (N, M)).astype(float)
+    B = C * rng.uniform(0, 1, (N, M))
+    sim = rng.uniform(0, 0.99, (N, M))
+    rel = rng.uniform(0.1, 0.9, (N, M))
+    brk = rng.random((N, M)) < 0.3
+    w[0], w[1] = eps[0], 1.0 - eps[1]
+    w[2], C[2], B[2], rel[2], sim[2] = 0.5 + flat, 1.0, 0.5 + flat, 0.5, 1.0
+    rel[3] = np.nan
+    brk[4:6], w[4], w[5], C[4:6], B[4], B[5] = True, 0.49, 0.51, 4, 4, 0
+    desc = rng.integers(1, 5, N).astype(float)
+    cp = rng.uniform(0, 1, (N, M, 2, 2))
+    a = rng.uniform(0, 2, (N, M, 2, 2))
+    a[rng.random(a.shape) < 0.2] = 0.0
+    prior = np.where(rng.random(a.shape) < 0.5, 0.0,
+                     rng.uniform(-3, 3, a.shape))
+    cp[0, ..., 0], cp[0, ..., 1] = eps[0], 1.0 - eps[0]
+    cp[1], a[1, ..., 0], a[1, ..., 1], prior[1] = 0.5, 1.0 + flat, 1.0, 0.0
+    a[2, ..., 0], a[2, ..., 1] = np.nan, 1.0
+    t = a.sum(axis=-1, keepdims=True)
+    hw = rng.uniform(0, 1, (N, M + 4))
+    rh = rng.uniform(1e-4, 1 - 1e-4, (N, M + 4))
+    alt = np.where(np.arange(M + 4) % 2 == 0, 1e-6, 1 - 1e-6)
+    hw[0], hw[1], rh[0:2] = alt, 1.0 - alt, 1 - 1e-6
+
+    def dev(x, dt=dtype):
+        return torch.as_tensor(x, dtype=dt, device="cuda")
+    ef = RuntimeParams().entropyfactor
+    return {"capped_haplo": tuple(dev(x) for x in (w, B, C, sim, rel, desc,
+                                                   eps)) +
+            (dev(brk, torch.bool), ef),
+            "capped_infprob": tuple(dev(x) for x in (cp, a, t, prior, eps)) +
+            (ef,),
+            "relskew": (dev(hw)[:, 2:2 + M], dev(rh)[:, 2:2 + M])}
+
+
+def check_update_kernels(dtype, record):
+    """The update stage's kernels against their plain versions: timed on
+    one real update of the slice's cohort (update_kernel_inputs, promoted
+    to float64 for the float64 rows), the capped entries' bound reckoned
+    from the lane-steps that the plain version took there; then compared
+    on edge_update_lanes at the real update's scalefactor and at 0.
+    Returns {name: edges ok}."""
+    from cnf2freq_tpu_torch.updates import capped as pc
+    from cnf2freq_tpu_torch.updates import relskew as prs
+    w = wrappers()
+
+    def cast(args):
+        return tuple(x.to(dtype) if torch.is_tensor(x) and
+                     x.is_floating_point() else x for x in args)
+    real = {k: cast(v) for k, v in update_kernel_inputs().items()}
+    plain = {"capped_haplo": pc.capped_haplo_reference,
+             "capped_infprob": pc.capped_infprob_reference,
+             "relskew": prs.relskew_ratio_reference}
+    for name in ("capped_haplo", "capped_infprob"):
+        args = real[name]
+        got = w[name](*args)
+        ref, steps = plain_lane_steps(plain[name], args)
+        torch.cuda.synchronize()
+        if name == "capped_infprob":
+            # the kernel skips the lanes without mass
+            steps = steps[(args[1] > 0).reshape(-1)]
+        per_step, per_lane = CAPPED_OPS[name]
+        lane_steps = int(steps.sum())
+        say("kernels", dtype=str(dtype).split(".")[-1], kernel=name,
+            scalefactor=args[-1], lanes=steps.numel(), lane_steps=lane_steps,
+            steps_max=int(steps.max()), hits=int(ref[1].sum()),
+            hits_kernel=int(got[1].sum()))
+        record(name, got, ref, lambda: w[name](*args),
+               lambda: plain[name](*args), nbytes(args, got), None,
+               cmp=compare_capped,
+               ops=per_step * lane_steps + per_lane * steps.numel())
+        del got, ref
+    hw, rh = real["relskew"]
+    got = w["relskew"](hw, rh)
+    record("relskew", got, plain["relskew"](hw, rh),
+           lambda: w["relskew"](hw, rh), lambda: plain["relskew"](hw, rh),
+           nbytes(hw, rh, got), hw.numel())
+    edges, ok = edge_update_lanes(dtype), {}
+    sf = real["capped_haplo"][-1]
+    for name, args in edges.items():
+        cases = [()] if name == "relskew" else [(sf,), (0.0,)]
+        res = [(compare_capped if name != "relskew" else compare)(
+            w[name](*args, *c), plain[name](*args, *c), dtype)
+            for c in cases]
+        ok[name] = all(r[2] for r in res)
+        say("kernels", dtype=str(dtype).split(".")[-1], kernel=name,
+            edge_lanes=True, scalefactors=[c[0] for c in cases if c],
+            max_abs_err=f"{max(r[0] for r in res):.3e}", ok=ok[name])
+    return ok
+
+
 def check_kernels(dtype):
     """Each kernel vs its plain version; returns {name: record}."""
     from cnf2freq_tpu_torch.hmm.emission import assemble_e_all, build_blocks
@@ -678,13 +938,13 @@ def check_kernels(dtype):
     out = {}
 
     def record(name, got, ref, kernel, plain, moved, work, cmp=compare,
-               launches_per_call=1, **tol):
+               launches_per_call=1, ops=None, **tol):
         a, r, ok = cmp(got, ref, dtype)
         rounds, p_ms = in_turns(plain, kernel)
         rounds = [x / launches_per_call for x in rounds]
         p_ms /= launches_per_call
         k_ms = statistics.median(rounds)
-        b_ms, b_by = bound(name, moved, work)
+        b_ms, b_by = bound(name, moved, work, dtype, ops)
         out[name] = dict(max_abs_err=a, max_rel_err=r, ok=ok, ms=k_ms,
                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
         rtol, atol = TOL[dtype]
@@ -942,6 +1202,11 @@ def check_kernels(dtype):
                **extra)
         del got, ref64_carry, x, e
         torch.cuda.empty_cache()
+
+    # -- the update stage (capped.cu, relskew.cu)
+    for name, edges_ok in check_update_kernels(dtype, record).items():
+        out[name]["ok"] = out[name]["ok"] and edges_ok
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1133,6 +1398,37 @@ def sync_counter(sites):
             sites[f"{os.path.basename(w.filename)}:{w.lineno}"] += 1
 
 
+def check_update_launches(phase, launches, updates, chromosomes):
+    """Each update launches each capped entry once and the relskew HMM
+    once a chromosome."""
+    want = {"capped_haplo": updates, "capped_infprob": updates,
+            "relskew": updates * chromosomes}
+    got = {k: launches[k] for k in want}
+    say(phase, update_launches=json.dumps(got), updates=updates,
+        chromosomes=chromosomes)
+    if got != want:
+        fail(f"{phase}: update kernel launches {got}, expected {want}")
+
+
+def check_no_capped_syncs(phase, sites):
+    """The capped bisection runs on the card: no synchronising call of a
+    full iteration lies in updates/capped.py."""
+    capped = {k: v for k, v in sites.items() if k.startswith("capped.py:")}
+    say(phase, capped_py_syncs=json.dumps(capped),
+        full_iteration_sites=json.dumps(sites.most_common()))
+    if capped:
+        fail(f"{phase}: a full iteration synchronised in capped.py: "
+             f"{capped}")
+
+
+def other_launches(w, mine):
+    """The launches of the kernels in ``w`` that are neither in ``mine``
+    nor of the update stage (which runs on every path that moves
+    parameters)."""
+    return {k: fn.launches for k, fn in w.items()
+            if k not in mine and k not in UPDATE_KERNELS and fn.launches}
+
+
 def run_slice(phase, adaptive, tracer=False, **driver_attrs):
     """The slice at 1000 x 192 in float32 through Driver.preprocess() and
     Driver.iterate(), with ``driver_attrs`` set on the Driver and, with
@@ -1154,7 +1450,7 @@ def run_slice(phase, adaptive, tracer=False, **driver_attrs):
         drv.tracer = Tracer(sink=sink)
     pipeline = "classic" if adaptive else "v2"
     wr = {k: fn for k, fn in wrappers().items()
-          if KERNELS[k][2] == pipeline}
+          if KERNELS[k][2] in (pipeline, "update")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in wrappers().values():
@@ -1207,6 +1503,9 @@ def run_slice(phase, adaptive, tracer=False, **driver_attrs):
         fail(f"{phase}: non-finite or out-of-range outputs")
     if min(launches.values()) <= 0:
         fail(f"{phase}: a kernel of the path never launched: {launches}")
+    check_update_launches(phase, launches, updates=3,
+                          chromosomes=ped.num_chromosomes)
+    check_no_capped_syncs(phase, sites)
     if adaptive:
         if moved == 0:
             fail(f"{phase}: no relhaplo moved from its loaded value")
@@ -1255,7 +1554,8 @@ def run_slice_blocked():
     drv.marker_block = BLOCK
     nblk = -(-M // BLOCK)
     w = wrappers()
-    names = ("emission", "fb_sweep_init", "fb_carry", "stats", "turn")
+    names = ("emission", "fb_sweep_init", "fb_carry", "stats",
+             "turn") + UPDATE_KERNELS
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in w.values():
@@ -1308,6 +1608,8 @@ def run_slice_blocked():
     if chunks != 1 or launches["fb_carry"] != 2 * launches["fb_sweep_init"]:
         fail(f"slice_blocked: the cohort did not run as one batch chunk: "
              f"{launches}")
+    check_update_launches("slice_blocked", launches, updates=2,
+                          chromosomes=ped.num_chromosomes)
     if max(peaks.values()) >= BLOCKED_PEAK_LIMIT:
         fail(f"slice_blocked: peak memory {max(peaks.values()) / 1e9:.3f} "
              f"GB")
@@ -1365,8 +1667,8 @@ def run_slice_blocked_family(model):
                 torch.cuda.reset_peak_memory_stats()
     peaks["iterations"] = torch.cuda.max_memory_allocated()
     launches = {k: w[k].launches for k in names}
-    others = {k: fn.launches for k, fn in w.items()
-              if k not in names and fn.launches}
+    others = other_launches(w, names)
+    updates = {k: w[k].launches for k in UPDATE_KERNELS}
     hw = np.stack([ind.haploweight for ind in ped.inds[1:]])
     tabs = np.stack(list(drv.pair_tables.values()))
     finite = bool(np.isfinite(hw).all() and np.isfinite(tabs).all())
@@ -1376,8 +1678,9 @@ def run_slice_blocked_family(model):
     chunks = launches[names[0]] / (2 * nblk)
     say(phase, markers=M, block=BLOCK, blocks=nblk,
         n_variants=drv._n_variants(), resident=drv._use_resident(),
-        launches=json.dumps(launches), other_kernel_launches=json.dumps(
-            others), batch_chunks=chunks, finite=finite,
+        launches=json.dumps(launches), update_launches=json.dumps(updates),
+        other_kernel_launches=json.dumps(others), batch_chunks=chunks,
+        finite=finite,
         haploweights_in_range=hw_ok,
         peak_memory_gb_preprocess=f"{peaks['preprocess'] / 1e9:.3f}",
         peak_memory_gb_iterations=f"{peaks['iterations'] / 1e9:.3f}",
@@ -1386,6 +1689,8 @@ def run_slice_blocked_family(model):
         fail(f"{phase}: a blocked entry never launched: {launches}")
     if others:
         fail(f"{phase}: another kernel launched: {others}")
+    if min(updates[k] for k in ("capped_haplo", "capped_infprob")) <= 0:
+        fail(f"{phase}: a capped entry never launched: {updates}")
     if chunks != 1 or launches[names[1]] != 2 * (2 * nblk - 1):
         fail(f"{phase}: the cohort did not run as one batch chunk: "
              f"{launches}")
@@ -1742,8 +2047,8 @@ def run_family_slice(model, resident=None):
         if out is not None:
             loglik = out["loglik"]
     small = w["fb_small"].launches
-    others = {k: fn.launches for k, fn in w.items()
-              if fn is not w["fb_small"] and fn.launches}
+    others = other_launches(w, ("fb_small", "fb_small_nohaplo"))
+    updates = {k: w[k].launches for k in UPDATE_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     hw = np.stack([ind.haploweight for ind in ped.inds[1:]])
     tabs = np.stack(list(drv.pair_tables.values()))
@@ -1752,6 +2057,7 @@ def run_family_slice(model, resident=None):
     row_dev = float(np.abs(tabs.sum(axis=(-1, -2)) - 1).max())
     row_tol = family_row_tol(ped.num_markers, loglik / len(ped.dous))
     say(phase, resident=drv._use_resident(), fb_small_launches=small,
+        update_launches=json.dumps(updates),
         other_kernel_launches=json.dumps(others), finite=finite,
         haploweights_in_range=hw_ok, pair_tables=len(drv.pair_tables),
         pair_row_sum_max_dev=f"{row_dev:.3e}",
@@ -1768,6 +2074,10 @@ def run_family_slice(model, resident=None):
         fail(f"{phase}: the 4-state sweep entry never launched")
     if others:
         fail(f"{phase}: a 64-state kernel launched: {others}")
+    check_no_capped_syncs(phase, sites)
+    if ped.config.haplotyping and min(updates[k] for k in (
+            "capped_haplo", "capped_infprob")) <= 0:
+        fail(f"{phase}: a capped entry never launched: {updates}")
     return small
 
 
@@ -1819,8 +2129,8 @@ def run_ext_slice(model, resident=None, split=True):
         if out is not None and not math.isfinite(out["loglik"]):
             fail(f"{phase}: non-finite log-likelihood after {name}")
     launches = w["fb_ext"].launches
-    others = {k: fn.launches for k, fn in w.items()
-              if fn is not w["fb_ext"] and fn.launches}
+    others = other_launches(w, ("fb_ext", "fb_ext_relskewstates"))
+    updates = {k: w[k].launches for k in UPDATE_KERNELS}
     chunk = drv._chunk_size(len(ped.dous), ped.num_markers, True)
     if split:
         with stage_timers() as acc:
@@ -1843,6 +2153,7 @@ def run_ext_slice(model, resident=None, split=True):
     hw_ok = bool((hw >= 0).all() and (hw <= 1).all())
     moved = int((rh != rh0).sum())
     say(phase, resident=drv._use_resident(), fb_ext_launches=launches,
+        update_launches=json.dumps(updates),
         other_kernel_launches=json.dumps(others), chunk_units=chunk,
         n_variants=drv._n_variants(), finite=finite,
         haploweights_in_range=hw_ok, pair_tables=len(drv.pair_tables),
@@ -1862,6 +2173,9 @@ def run_ext_slice(model, resident=None, split=True):
         fail(f"{phase}: fb_ext never launched")
     if others:
         fail(f"{phase}: another kernel launched: {others}")
+    check_no_capped_syncs(phase, sites)
+    if min(updates[k] for k in ("capped_haplo", "capped_infprob")) <= 0:
+        fail(f"{phase}: a capped entry never launched: {updates}")
     return launches
 
 
@@ -1891,7 +2205,8 @@ def run_impute_example(tmp, card):
         traceback.print_exc()
         fail(f"impute_example: the example raised {e!r}")
     peak = torch.cuda.max_memory_allocated()
-    launches = {k: w[k].launches for k in ("fb_classic", "stats_bmns")}
+    launches = {k: w[k].launches for k in ("fb_classic", "stats_bmns") +
+                UPDATE_KERNELS}
     secs = {"simulate_mask": sum(sec for st, sec, _ in record
                                  if st in ("simulate", "mask"))}
     n_iter = 0
@@ -1915,6 +2230,8 @@ def run_impute_example(tmp, card):
             launches["stats_bmns"] < IMPUTE_ITERS:
         fail(f"impute_example: launches {launches} in {IMPUTE_ITERS} "
              f"iterations and a line-origin pass")
+    check_update_launches("impute_example", launches, updates=IMPUTE_ITERS,
+                          chromosomes=drv.ped.num_chromosomes)
     with open(paths["dump"]) as f:
         blocks = parse_dump(f.read(), drv.ped.num_markers)
     dev = compare(blocks[-1], state_from_pedigree(drv.ped))
@@ -2020,12 +2337,14 @@ def run_cli_models(tmp, n_f2=1000):
         mine = {k: w[k].launches for k in kernels}
         ours = [w[k] for k in kernels]
         others = {k: fn.launches for k, fn in w.items()
-                  if all(fn is not o for o in ours) and fn.launches}
+                  if all(fn is not o for o in ours) and fn.launches
+                  and k not in UPDATE_KERNELS}
+        updates = {k: w[k].launches for k in UPDATE_KERNELS}
         secs = collections.defaultdict(float)
         for stage, sec, _ in record:
             secs[stage] += sec
         say("cli_models", model=model, extra=" ".join(extra) or None, rc=rc,
-            launches=json.dumps(mine),
+            launches=json.dumps(mine), update_launches=json.dumps(updates),
             other_kernel_launches=json.dumps(others),
             seconds=json.dumps({k: round(v, 3) for k, v in secs.items()}))
         if rc != 0:
@@ -2976,6 +3295,7 @@ def main():
 
     checks = {dt: check_kernels(dt) for dt in (torch.float64, torch.float32)}
     _ext_sweep_inputs64.cache_clear()
+    update_kernel_inputs.cache_clear()
     torch.cuda.empty_cache()
     bad = [(str(dt), k) for dt, c in checks.items()
            for k, v in c.items() if not v["ok"]]

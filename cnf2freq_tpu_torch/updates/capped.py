@@ -8,6 +8,14 @@ quadrature), then cap the implied odds change at 3x.  All lanes step
 together; the loop stops early once every lane is done (done lanes are
 frozen, so the early stop is exact).  Unlike the JAX form, a lane whose
 starting gradient is at the rounding floor stays where it is.
+
+``cappedgd`` is the plain version over any gradient closure.  The two
+lane-typed entries ``capped_haplo`` (haploweights) and ``capped_infprob``
+(inferred genotypes) are the wrappers of ``csrc/capped.cu``: a CPU tensor
+runs the entry's plain version (``capped_haplo_reference`` /
+``capped_infprob_reference``: ``cappedgd`` with the entry's gradient
+closure); a CUDA tensor launches the kernel (one thread a lane, the whole
+bisection on the card, no host wait) and counts the launch, or raises.
 """
 
 from __future__ import annotations
@@ -17,8 +25,12 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from .. import _build
+
 _GL_X, _GL_W = np.polynomial.legendre.leggauss(15)
 _CAP_ODDS = 3.0
+# bisection steps at most
+ITERS = 51
 
 
 def caplogitchange(intended, orig, epsilon, breakathalf
@@ -51,13 +63,17 @@ def flat_lanes(g0: torch.Tensor) -> torch.Tensor:
     is at the rounding floor: a flat objective there (an unknown allele
     with symmetric evidence and no prior makes it flat everywhere).
     Integrating 1/noise would move such a lane by noise, so it stays."""
-    return torch.isfinite(g0) & \
-        (g0.abs() > 1.0 / (1e-2 * torch.finfo(g0.dtype).eps ** 0.5))
+    return torch.isfinite(g0) & (g0.abs() > flat_limit(g0.dtype))
+
+
+def flat_limit(dtype) -> float:
+    """The bound on |1 / gradient| above which a lane is flat."""
+    return 1.0 / (1e-2 * torch.finfo(dtype).eps ** 0.5)
 
 
 def cappedgd(gradient: Callable[[torch.Tensor], torch.Tensor],
              orig: torch.Tensor, epsilon, scalefactor: float,
-             breakathalf=False, iters: int = 51
+             breakathalf=False, iters: int = ITERS
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Vectorized cappedgd over [N] lanes.  gradient maps values [N] to
     gradients [N].  Returns (new_value, hit)."""
@@ -123,3 +139,153 @@ def cappedgd(gradient: Callable[[torch.Tensor], torch.Tensor],
             lo = torch.where(done, lo, torch.where(go_up, mid, lo))
             hi = torch.where(done, hi, torch.where(go_up, hi, mid))
     return caplogitchange(0.5 * (lo + hi), orig, epsilon, breakathalf)
+
+
+def pseudo_likelihood_grad(y, g, h, x):
+    """The expanded gradient with (y, g, h) = (current probability,
+    posterior-weighted count, total count)."""
+    lx = torch.log(x)
+    l1x = torch.log(1.0 - x)
+    num = (-(y * g) ** 2 * lx + (y * g) ** 2 * l1x
+           + y * y * g * h * lx - y * y * g * h * l1x - y * y * g * h
+           - (y * h) ** 2 * x + (y * h) ** 2
+           + y * g * g * lx - y * g * g * l1x + y * g * g
+           + 2 * y * g * h * x - y * g * h * lx + y * g * h * l1x
+           - y * g * h
+           - g * g * x)
+    den = (y * g + y * h * x - y * h - g * x) ** 2
+    return -num / den
+
+
+def haplo_gradient(w, B, C, sim, rel, desc, ef):
+    """The haploweight lanes' gradient closure: the pseudo-likelihood term
+    with (current weight, base, count), the entropy term damped by the
+    similarity and the relskew pull weighted by the descendants."""
+    def gradient(x):
+        base = pseudo_likelihood_grad(w, B, C, x)
+        ent = (1.0 - sim) * ef * torch.log(1.0 / x - 1.0)
+        skew = (rel - x) / (x - x * x) * desc
+        return base + ent + skew
+    return gradient
+
+
+def infprob_gradient(cp, a, t, prior, ef):
+    """The genotype lanes' gradient closure: the pseudo-likelihood term
+    with (current probability, allele mass, total mass), the entropy term
+    and the prior's log odds."""
+    def gradient(x):
+        base = pseudo_likelihood_grad(cp, a, t, x)
+        return base + ef * (torch.log(1.0 / x - 1.0) + prior)
+    return gradient
+
+
+def _step_scalars(sf: float, dtype):
+    """The kernel's scalars after its lane pointers and counts: the
+    scalefactor, the plain form's tolerance and bad-step substitute (both
+    in double, as the plain form reckons them), the flat limit, whether
+    every lane is frozen, and the steps."""
+    sf = float(sf)
+    return (sf, sf * 1e-3, (sf + 0.1) * 1.1, flat_limit(dtype),
+            int(sf == 0.0), ITERS)
+
+
+def _lane_count(n: int) -> int:
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} lanes: the kernel indexes lanes in 32 bits")
+    return n
+
+
+def capped_haplo_reference(w, B, C, sim, rel, desc, eps, brk, ef: float,
+                           sf: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``capped_haplo``: ``cappedgd`` with
+    ``haplo_gradient`` over the [N, M] lanes."""
+    N, M = w.shape
+
+    def lanes(x):
+        return x.expand(N, M).reshape(-1)
+    grad = haplo_gradient(lanes(w), lanes(B), lanes(C), lanes(sim),
+                          lanes(rel), lanes(desc[:, None]), ef)
+    v, h = cappedgd(grad, lanes(w), lanes(eps[:, None]), sf,
+                    breakathalf=lanes(brk))
+    return v.reshape(N, M), h.reshape(N, M)
+
+
+def capped_haplo(w, B, C, sim, rel, desc, eps, brk, ef: float, sf: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The capped step of the haploweight lanes: w, B, C, sim, rel and
+    brk (bool, breakathalf) [N, M], desc and eps [N] per individual.
+    Returns (new weights, hit) [N, M]: ``capped_haplo_reference`` on the
+    CPU, ``csrc/capped.cu`` on the card."""
+    if w.device.type == "cpu":
+        return capped_haplo_reference(w, B, C, sim, rel, desc, eps, brk, ef,
+                                      sf)
+    N, M = w.shape
+    dt = w.dtype
+    w, B, C, sim, rel, desc, eps, brk = (
+        x.contiguous() for x in (w, B, C, sim, rel, desc, eps, brk))
+    for x, name in ((w, "w"), (B, "B"), (C, "C"), (sim, "sim"),
+                    (rel, "rel")):
+        _build.check(x, dt, (N, M), name)
+    _build.check(desc, dt, (N,), "desc")
+    _build.check(eps, dt, (N,), "eps")
+    _build.check(brk, torch.bool, (N, M), "brk")
+    out = torch.empty_like(w)
+    hit = torch.empty((N, M), dtype=torch.bool, device=w.device)
+    if w.numel():
+        _build.launch("capped_haplo", dt, w, B, C, sim, rel, desc, eps, brk,
+                      out, hit, _lane_count(w.numel()), M, float(ef),
+                      *_step_scalars(sf, dt))
+        capped_haplo.launches += 1
+    return out, hit
+
+
+def capped_infprob_reference(cp, a, t, prior, eps, ef: float, sf: float
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``capped_infprob``: ``cappedgd`` with
+    ``infprob_gradient`` over every lane, then the lanes whose mass is not
+    above 0 set to 0 and no hit."""
+    shape = a.shape
+
+    def lanes(x):
+        return x.expand(shape).reshape(-1)
+    grad = infprob_gradient(lanes(cp), lanes(a), lanes(t), lanes(prior), ef)
+    v, h = cappedgd(grad, lanes(cp),
+                    eps.reshape((-1,) + (1,) * (len(shape) - 1))
+                    .expand(shape).reshape(-1), sf)
+    live = a > 0
+    return torch.where(live, v.reshape(shape), 0.0), h.reshape(shape) & live
+
+
+def capped_infprob(cp, a, t, prior, eps, ef: float, sf: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The capped step of the genotype lanes: cp (current probability), a
+    (allele mass) and prior (log odds) [N, M, 2, 2], t (total mass)
+    [N, M, 2, 1], eps [N] per individual.  A lane with a not above 0 is
+    not updated: its value is 0 and it does not hit.  Returns (new
+    probabilities, hit) [N, M, 2, 2]: ``capped_infprob_reference`` on the
+    CPU, ``csrc/capped.cu`` on the card."""
+    if a.device.type == "cpu":
+        return capped_infprob_reference(cp, a, t, prior, eps, ef, sf)
+    shape = a.shape
+    N = shape[0]
+    dt = a.dtype
+    cp, a, t, prior, eps = (x.contiguous() for x in (cp, a, t, prior, eps))
+    if shape[-1] != 2:
+        raise ValueError(f"a: shape {tuple(shape)}, expected [..., 2]")
+    _build.check(a, dt, shape, "a")
+    _build.check(cp, dt, shape, "cp")
+    _build.check(prior, dt, shape, "prior")
+    _build.check(t, dt, tuple(shape[:-1]) + (1,), "t")
+    _build.check(eps, dt, (N,), "eps")
+    out = torch.empty_like(a)
+    hit = torch.empty(shape, dtype=torch.bool, device=a.device)
+    if a.numel():
+        _build.launch("capped_infprob", dt, cp, a, t, prior, eps, out, hit,
+                      _lane_count(a.numel()), a[0].numel(), float(ef),
+                      *_step_scalars(sf, dt))
+        capped_infprob.launches += 1
+    return out, hit
+
+
+capped_haplo.launches = 0
+capped_infprob.launches = 0

@@ -17,23 +17,9 @@ import torch
 from ..config import RuntimeParams
 from ..utils.transfer import constant
 
-from .capped import cappedgd
-
-
-def pseudo_likelihood_grad(y, g, h, x):
-    """The expanded gradient with (y, g, h) = (current probability,
-    posterior-weighted count, total count)."""
-    lx = torch.log(x)
-    l1x = torch.log(1.0 - x)
-    num = (-(y * g) ** 2 * lx + (y * g) ** 2 * l1x
-           + y * y * g * h * lx - y * y * g * h * l1x - y * y * g * h
-           - (y * h) ** 2 * x + (y * h) ** 2
-           + y * g * g * lx - y * g * g * l1x + y * g * g
-           + 2 * y * g * h * x - y * g * h * lx + y * g * h * l1x
-           - y * g * h
-           - g * g * x)
-    den = (y * g + y * h * x - y * h - g * x) ** 2
-    return -num / den
+# pseudo_likelihood_grad (the shared gradient) is importable from here
+from .capped import (capped_haplo, capped_infprob,  # noqa: F401
+                     pseudo_likelihood_grad)
 
 
 class HaploUpdateResult(NamedTuple):
@@ -74,28 +60,15 @@ def update_haploweights(hw, haplobase, haplocount, markerdata, markersure,
     C = torch.where(plain, C_plain, C0)
     simeff = torch.where(plain, sim, simc)
 
-    ef = params.entropyfactor
-    desc = (descendants.to(w.dtype)[:, None] *
-            torch.ones_like(w)).reshape(-1)
-    wf, Bf, Cf = w.reshape(-1), B.reshape(-1), C.reshape(-1)
-    simf, relf = simeff.reshape(-1), relterm.reshape(-1)
-
-    def gradient(x):
-        base = pseudo_likelihood_grad(wf, Bf, Cf, x)
-        ent = (1.0 - simf) * ef * torch.log(1.0 / x - 1.0)
-        rel = (relf - x) / (x - x * x) * desc
-        return base + ent + rel
-
-    eps = (params.maxdiff / (children.to(w.dtype)[:, None] + 1.0)) * \
-        torch.ones_like(w)
+    eps = params.maxdiff / (children.to(w.dtype) + 1.0)
     brk = lastinved_active if lastinved_active.dim() == 2 else \
         lastinved_active[:, None]
-    newv, hit = cappedgd(gradient, wf, eps.reshape(-1), scalefactor,
-                         breakathalf=brk.expand(w.shape).reshape(-1))
-    newv = newv.reshape(w.shape)
-    hit = hit.reshape(w.shape) & active
+    newv, hit = capped_haplo(w, B, C, simeff, relterm,
+                             descendants.to(w.dtype), eps,
+                             brk.expand(w.shape), params.entropyfactor,
+                             scalefactor)
     return HaploUpdateResult(haploweight=torch.where(active, newv, hw),
-                             hits=hit.sum())
+                             hits=(hit & active).sum())
 
 
 class InfprobsUpdateResult(NamedTuple):
@@ -129,21 +102,7 @@ def update_infprobs(accum, markerdata, markersure, priordata, priorsure,
     priord = torch.where((pv != 0) & has_prior[:, None, None, None],
                          priord, 0.0)
 
-    ef = params.entropyfactor
-    shape = accum.shape
-    cp = curprob.expand(shape).reshape(-1)
-    af = accum.reshape(-1)
-    tf = total.expand(shape).reshape(-1)
-    pf = priord.expand(shape).reshape(-1)
-
-    def gradient(x):
-        base = pseudo_likelihood_grad(cp, af, tf, x)
-        return base + ef * (torch.log(1.0 / x - 1.0) + pf)
-
-    eps = (params.maxdiff /
-           (children.to(dtype)[:, None, None, None] + 1.0)).expand(shape)
-    newv, hit = cappedgd(gradient, cp, eps.reshape(-1), scalefactor)
-    newv = newv.reshape(shape)
-    live = accum > 0
-    return InfprobsUpdateResult(newprob=torch.where(live, newv, 0.0),
-                                hits=(hit.reshape(shape) & live).sum())
+    eps = params.maxdiff / (children.to(dtype) + 1.0)
+    newprob, hit = capped_infprob(curprob, accum, total, priord, eps,
+                                  params.entropyfactor, scalefactor)
+    return InfprobsUpdateResult(newprob=newprob, hits=hit.sum())

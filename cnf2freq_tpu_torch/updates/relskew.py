@@ -3,13 +3,19 @@
 A 2-state HMM per individual per chromosome over adjacent-marker phase
 coherence: emissions are the haplotype weights, transitions the
 ``relhaplo`` coherence weights.  Its per-marker state-1 posterior feeds
-the haploweight gradient as ``relskewterm``.  One loop over markers with
-all individuals on the batch axis.
+the haploweight gradient as ``relskewterm``.
+
+``relskew_ratio_reference`` is the plain version, one loop over markers
+with all individuals on the batch axis; ``relskew_ratio`` is its wrapper,
+which launches ``csrc/relskew.cu`` (one thread a row, both passes on the
+card) on a CUDA tensor and counts the launch.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .. import _build
 
 
 def _renorm(s):
@@ -38,7 +44,8 @@ def _inputs(hw, relhaplo):
     return em, rh
 
 
-def relskew_ratio(hw: torch.Tensor, relhaplo: torch.Tensor) -> torch.Tensor:
+def relskew_ratio_reference(hw: torch.Tensor,
+                            relhaplo: torch.Tensor) -> torch.Tensor:
     """ratio[n, m] = posterior of phase-state 1 at marker m; hw, relhaplo
     [N, M].  Forward pass (emission at m, then transition relhaplo[m])
     and an emission-inclusive backward pass that rescales only when the
@@ -58,6 +65,45 @@ def relskew_ratio(hw: torch.Tensor, relhaplo: torch.Tensor) -> torch.Tensor:
     rf = torch.stack(rf, dim=1)                          # [N, M-1, 2]
     ratios = rf[..., 1] / (rf[..., 0] + rf[..., 1])
     return torch.cat([ratios, ratios_last], dim=1)
+
+
+def _row_view(x: torch.Tensor, shape, dtype, name: str) -> None:
+    """Raises unless x is a CUDA [N, M] tensor of ``dtype`` whose rows are
+    contiguous (a column slice of a contiguous tensor is)."""
+    if not torch.is_tensor(x) or x.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected "
+                         f"{tuple(shape)}")
+    if shape[1] > 1 and x.stride(1) != 1:
+        raise ValueError(f"{name}: its rows are not contiguous")
+    if x.stride(0) >= 2 ** 31:
+        raise ValueError(f"{name}: row stride {x.stride(0)} over 32 bits")
+
+
+def relskew_ratio(hw: torch.Tensor, relhaplo: torch.Tensor) -> torch.Tensor:
+    """``relskew_ratio_reference`` on the CPU; on the card
+    ``csrc/relskew.cu``, which reads hw and relhaplo [N, M] in place
+    through their row strides (so the columns of one chromosome need no
+    copy)."""
+    if hw.device.type == "cpu":
+        return relskew_ratio_reference(hw, relhaplo)
+    N, M = hw.shape
+    dt = hw.dtype
+    _row_view(hw, (N, M), dt, "hw")
+    _row_view(relhaplo, (N, M), dt, "relhaplo")
+    ratio = torch.empty((N, M), dtype=dt, device=hw.device)
+    if N and M:
+        fw = torch.empty((M, N, 2), dtype=dt, device=hw.device)
+        _build.launch("relskew_ratio", dt, hw, relhaplo, fw, ratio, N, M,
+                      hw.stride(0), relhaplo.stride(0))
+        relskew_ratio.launches += 1
+    return ratio
+
+
+relskew_ratio.launches = 0
 
 
 def relskew_weight(hw: torch.Tensor, relhaplo: torch.Tensor):

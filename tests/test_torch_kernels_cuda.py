@@ -22,6 +22,13 @@ their inputs a tile of markers ahead and run several rows a block or a
 warp, so their cases include a marker count that is no multiple of a
 tile, zeroed emission rows on tile boundaries, fewer rows than a block
 or a warp takes, and float64 carries below the XLA scan's 1e-300 clip.
+``test_capped_matches_plain`` and ``test_relskew_matches_plain`` hold the
+update stage's kernels (csrc/capped.cu's two entries, csrc/relskew.cu)
+against their plain versions on the lanes and rows of
+tests/torch_update_util.py, edge lanes included (float64 and float32,
+M in {1, 2, 11}, scalefactor 0.013 and 0); the kernels take the plain
+versions' roundings operation for operation, and their hits must be the
+same.
 
 Run on a machine with the card (tests/conftest.py imports JAX):
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
@@ -756,3 +763,94 @@ def test_fb_ext_carries_match_plain(card, case, V, dtype):
             unclipped = pfb.fb_ext_carry_reference(e, lam_pad, C_pad, *fwd,
                                                    0.0)
             assert not torch.equal(unclipped[1], carries[1])
+
+
+def _update_lanes(card, monkeypatch, entry, dtype, M, sf):
+    """The lane arguments that update_haploweights / update_infprobs hand
+    ``entry`` on the card, from torch_update_util's inputs with their edge
+    lanes (the kernel's own results discarded)."""
+    from torch_update_util import haplo_inputs, infprob_inputs
+
+    from cnf2freq_tpu_torch.config import RuntimeParams
+    from cnf2freq_tpu_torch.updates import capped as pcap
+    from cnf2freq_tpu_torch.updates import parameter_updates as ppu
+    seen = []
+    real = getattr(pcap, entry)
+    monkeypatch.setattr(ppu, entry, lambda *a: seen.append(a) or real(*a))
+    make, update = ((haplo_inputs, ppu.update_haploweights)
+                    if entry == "capped_haplo" else
+                    (infprob_inputs, ppu.update_infprobs))
+
+    def dev(x):
+        x = torch.as_tensor(np.array(x))
+        return x.to(card, dtype) if x.is_floating_point() else x.to(card)
+    update(*(dev(x) for x in make(M=M)), RuntimeParams(), sf)
+    return seen[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("sf", [0.013, 0.0])
+@pytest.mark.parametrize("M", [1, 2, 11])
+@pytest.mark.parametrize("entry", ["capped_haplo", "capped_infprob"])
+def test_capped_matches_plain(card, monkeypatch, entry, M, sf, dtype):
+    """csrc/capped.cu against the plain version on the card, on the edge
+    lanes of torch_update_util (flat, NaN gradients, eps and 1 - eps,
+    breakathalf, no mass): values within TOL, the same hits, one
+    launch."""
+    from cnf2freq_tpu_torch.updates import capped as pcap
+    args = _update_lanes(card, monkeypatch, entry, dtype, M, sf)
+    fn = getattr(pcap, entry)
+    before = fn.launches
+    v, hit = fn(*args)
+    assert fn.launches == before + 1
+    rv, rhit = getattr(pcap, entry + "_reference")(*args)
+    torch.cuda.synchronize()
+    _close([v], [rv], dtype)
+    assert torch.equal(hit, rhit)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("M", [1, 2, 11])
+def test_relskew_matches_plain(card, M, dtype):
+    """csrc/relskew.cu against the plain version on the card, reading a
+    chromosome's columns of wider tensors in place, with rows whose mass
+    is rescaled."""
+    from torch_update_util import relskew_inputs
+
+    from cnf2freq_tpu_torch.updates import relskew as prs
+    hw, rh = relskew_inputs(N=45, M=M)
+    wide = [torch.as_tensor(np.concatenate([x, np.full((45, 5), 0.3)], 1),
+                            dtype=dtype, device=card) for x in (hw, rh)]
+    before = prs.relskew_ratio.launches
+    got = prs.relskew_ratio(wide[0][:, 2:2 + M], wide[1][:, 2:2 + M])
+    assert prs.relskew_ratio.launches == before + 1
+    ref = prs.relskew_ratio_reference(wide[0][:, 2:2 + M],
+                                      wide[1][:, 2:2 + M])
+    torch.cuda.synchronize()
+    _close([got], [ref], dtype)
+
+
+def test_update_wrappers_check(card):
+    """The update kernels' wrappers raise on what their kernels do not
+    take, before any launch."""
+    from cnf2freq_tpu_torch.updates import capped as pcap
+    from cnf2freq_tpu_torch.updates import relskew as prs
+    z = torch.rand((3, 4), dtype=torch.float64, device=card)
+    brk = torch.zeros((3, 4), dtype=torch.bool, device=card)
+    row = torch.rand(3, dtype=torch.float64, device=card)
+    before = (pcap.capped_haplo.launches, pcap.capped_infprob.launches,
+              prs.relskew_ratio.launches)
+    with pytest.raises(TypeError):
+        pcap.capped_haplo(z, z.float(), z, z, z, row, row, brk, 0.1, 0.013)
+    with pytest.raises(ValueError):
+        pcap.capped_haplo(z, z, z, z, z, row[:2], row, brk, 0.1, 0.013)
+    a = torch.rand((3, 4, 2, 2), dtype=torch.float64, device=card)
+    with pytest.raises(ValueError):
+        pcap.capped_infprob(a, a, a, a, row, 0.1, 0.013)
+    with pytest.raises(ValueError):
+        prs.relskew_ratio(z.t(), z.t())
+    with pytest.raises(TypeError):
+        prs.relskew_ratio(z, z.float())
+    assert before == (pcap.capped_haplo.launches,
+                      pcap.capped_infprob.launches,
+                      prs.relskew_ratio.launches)

@@ -85,11 +85,31 @@ def state(ped):
 def _flips(w):
     return None if w is None else sorted(w.flips)
 
+
+def freezing_flat(jax_capped):
+    """The JAX package's ``jax_capped.cappedgd`` with the port's rule 2: a
+    lane whose starting inverse gradient is finite and above FLAT_LIMIT
+    (``capped.flat_lanes``) keeps its capped starting value."""
+    import jax.numpy as jnp
+    cappedgd = jax_capped.cappedgd
+
+    def cappedgd_freezing_flat(gradient, orig, epsilon, scalefactor,
+                               breakathalf=False, iters=51):
+        new, hit = cappedgd(gradient, orig, epsilon, scalefactor,
+                            breakathalf, iters)
+        eps = jnp.broadcast_to(jnp.asarray(epsilon, orig.dtype), orig.shape)
+        brk = jnp.broadcast_to(jnp.asarray(breakathalf, bool), orig.shape)
+        origc, _ = jax_capped.caplogitchange(orig, orig, eps, brk)
+        g0 = 1.0 / gradient(jnp.clip(origc, eps, 1.0 - eps))
+        flat = jnp.isfinite(g0) & (jnp.abs(g0) > FLAT_LIMIT)
+        still, still_hit = jax_capped.caplogitchange(origc, orig, eps, brk)
+        return jnp.where(flat, still, new), jnp.where(flat, still_hit, hit)
+    return cappedgd_freezing_flat
+
+
 def patch_jax_with_port_rules(mp, seen):
     """The JAX Driver with the port's four rules, recording each choice
     in which a rule departs from the JAX package's own."""
-    import jax.numpy as jnp
-
     import cnf2freq_tpu.updates.capped as jax_capped
     import cnf2freq_tpu.updates.negshift as jax_negshift
     import cnf2freq_tpu.updates.parameter_updates as jax_updates
@@ -117,20 +137,6 @@ def patch_jax_with_port_rules(mp, seen):
                   chrom)
         seen["winners"].append(_flips(own) != _flips(w))
         return w
-
-    cappedgd = jax_capped.cappedgd
-
-    def cappedgd_freezing_flat(gradient, orig, epsilon, scalefactor,
-                               breakathalf=False, iters=51):
-        new, hit = cappedgd(gradient, orig, epsilon, scalefactor,
-                            breakathalf, iters)
-        eps = jnp.broadcast_to(jnp.asarray(epsilon, orig.dtype), orig.shape)
-        brk = jnp.broadcast_to(jnp.asarray(breakathalf, bool), orig.shape)
-        origc, _ = jax_capped.caplogitchange(orig, orig, eps, brk)
-        g0 = 1.0 / gradient(jnp.clip(origc, eps, 1.0 - eps))
-        flat = jnp.isfinite(g0) & (jnp.abs(g0) > FLAT_LIMIT)
-        still, still_hit = jax_capped.caplogitchange(origc, orig, eps, brk)
-        return jnp.where(flat, still, new), jnp.where(flat, still_hit, hit)
 
     real_scorer = JaxDriver._jitted_flip_scorer
 
@@ -192,7 +198,7 @@ def patch_jax_with_port_rules(mp, seen):
     mp.setattr(JaxDriver, "_jitted_flip_scorer", flip_scorer)
     mp.setattr(JaxDriver, "_lockhaplos", lockhaplos)
     mp.setattr(JaxDriver, "_solve_scored", solve_scored)
-    mp.setattr(jax_updates, "cappedgd", cappedgd_freezing_flat)
+    mp.setattr(jax_updates, "cappedgd", freezing_flat(jax_capped))
 
 def run_pair(base, adaptive: bool, jax_resident: bool = False,
              iters: int = 3, **driver_attrs):
