@@ -43,7 +43,11 @@ since the script started (t=); any failure exits non-zero:
            within the tolerance with the same hits and their bound
            reckoned from the lane-steps that the plain version took there
            (plain_lane_steps), then compared on synthetic uniform lanes
-           with the edges (edge_update_lanes) at that scalefactor and at 0
+           with the edges (edge_update_lanes) at that scalefactor and at 0;
+           the classic scan's coherence kernel (coherence:
+           csrc/coherence.cu, all seven slots in one launch) on the
+           classic sweeps of the slice's cohort, float32 held to the
+           plain twin's accuracy against float64
   slice    simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20,
            seed=7) on cuda in float32 with adaptive_relhaplo=False (the
            v2 pipeline) on the host-gathered iteration (resident=False):
@@ -59,7 +63,9 @@ since the script started (t=); any failure exits non-zero:
            preprocess(), iterate(early=True), iterate() x 2; fails on a
            launch counter of the path at 0, a non-finite output, a
            haploweight outside [0, 1], a relhaplo outside
-           [1e-4, 1 - 1e-4], or no relhaplo moved from its loaded value
+           [1e-4, 1 - 1e-4], no relhaplo moved from its loaded value, or
+           coherence launches other than stats_bmns's (one each a chunk
+           scan)
   slice_resident
            the same cohort through the default Driver (the
            device-resident iteration, adaptive relhaplo) with a live
@@ -116,9 +122,11 @@ since the script started (t=); any failure exits non-zero:
            blocks): preprocess(), iterate(early=True), iterate(); prints
            the seconds of passes A, B, C, the per-block follow-ups and
            the rest, the launches of emission, fb_sweep (pass C, with
-           boundary carries), fb_carry (passes A and B), stats and turn,
-           and the peak device memory of preprocess and of the
-           iterations; fails on a launch count at 0, on more than one
+           boundary carries), fb_carry (passes A and B), stats, turn and
+           coherence (one a block and one a block boundary, each
+           iteration), and the peak device memory of preprocess and of the
+           iterations; fails on a launch count at 0 or a coherence count
+           other than that, on more than one
            batch chunk, on a peak of 20 GB or more (either), on a
            non-finite output or if no relhaplo moved
   parity   a 24 x 32 cohort, float64, on cuda and on the CPU, two
@@ -411,6 +419,11 @@ KERNELS = {
                        "cnf2freq_tpu/updates/capped.py:145", "update"),
     "relskew": ("cnf2freq_tpu_torch/csrc/relskew.cu",
                 "cnf2freq_tpu/updates/relskew.py:50", "update"),
+    # the classic scan's adjacent-phase coherence, a kernel for the JAX
+    # package's XLA program (hmm/probes.py:662-776, its phase_coherence
+    # at :765): all seven slots' pair chains and their total in one launch
+    "coherence": ("cnf2freq_tpu_torch/csrc/coherence.cu",
+                  "cnf2freq_tpu/hmm/probes.py:765", "classic"),
 }
 UPDATE_KERNELS = tuple(k for k, v in KERNELS.items() if v[2] == "update")
 # operations per unit of work, counted from each kernel's arithmetic (for
@@ -440,7 +453,13 @@ OPS = {"emission": 2880, "fb_sweep": 2 * 1152, "stats": 19800,
        "fb_ext_carry": 3 * 64 * (18 + 2 * 3) + 1,
        # per (row, marker): forward (emission 3, mass 2, transition 7) and
        # backward (the same and the ratio's 4)
-       "relskew": 28}
+       "relskew": 28,
+       # per (unit, marker pair): the path-sum tables (2 markers x 2
+       # blocks x 32 entries x 8 paths x 4 sums) and, for each of 8
+       # emissions x 8 shifts, both markers' emissions (2 x 64 x 3), two
+       # 6-stage FWHTs (2 x 384), the product, scalings and dot product
+       # (64 + 128 + 64 + 128)
+       "coherence": 4096 + 64 * (384 + 768 + 64 + 128 + 64 + 128)}
 # the capped entries' operations per lane-step and per lane, counting a
 # log as one: a step is 16 gradient evaluations (the pseudo-likelihood
 # term's 48 and two logs, then 11 for the entropy and relskew terms of a
@@ -546,6 +565,7 @@ def release(tmp, phase, keep=()):
 
 
 def wrappers():
+    from cnf2freq_tpu_torch.ops import coherence as pcoh
     from cnf2freq_tpu_torch.ops import fb as pfb
     from cnf2freq_tpu_torch.ops import scan as ps
     from cnf2freq_tpu_torch.ops import stats as pst
@@ -565,7 +585,7 @@ def wrappers():
             "fb_ext_init": pfb.fb_ext_block, "fb_ext_carry": pfb.fb_ext_carry,
             "capped_haplo": pcap.capped_haplo,
             "capped_infprob": pcap.capped_infprob,
-            "relskew": prs.relskew_ratio}
+            "relskew": prs.relskew_ratio, "coherence": pcoh.coherence}
 
 
 def cuda_rounds(fn, rounds, reps, warm=True):
@@ -921,6 +941,7 @@ def check_update_kernels(dtype, record):
 
 def check_kernels(dtype):
     """Each kernel vs its plain version; returns {name: record}."""
+    from cnf2freq_tpu_torch.hmm import probes
     from cnf2freq_tpu_torch.hmm.emission import assemble_e_all, build_blocks
     from cnf2freq_tpu_torch.hmm.forward_backward import (FBResult,
                                                          combined_loglik)
@@ -1007,7 +1028,8 @@ def check_kernels(dtype):
     torch.cuda.empty_cache()
 
     # -- the classic pipeline ([B, M, NS, S] layout) --------------------
-    e = assemble_e_all(build_blocks(fbt, cfg, dtype=dtype), cfg)
+    blocks = build_blocks(fbt, cfg, dtype=dtype)
+    e = assemble_e_all(blocks, cfg)
     lam = transition_eigenvalues(cfg, interval_recomb(cfg, params, dists))
     fbc = pfb.fb_sweeps(e, lam)
     ref = pfb.fb_sweeps_reference(e, lam)
@@ -1039,7 +1061,28 @@ def check_kernels(dtype):
            lambda: plain_bmns_rules(1),
            nbytes(bmns_slots, fbt.emptyslot.int(), fbt.dup_flip[:, 1].int(),
                   args[1:6], got[1]), M * B, cmp=compare_all)
-    del e, fbc, fbres, got, args
+    del e, got, args
+    torch.cuda.empty_cache()
+
+    # the coherence of the same sweeps (csrc/coherence.cu); in float32
+    # held to the plain twin's accuracy against float64 on the same
+    # inputs promoted (C divides parity-signed chains by their total)
+    coh_args = (fbres, blocks, fbt, cfg, lam)
+    got = probes.phase_coherence(*coh_args)
+    ref = probes.phase_coherence_reference(*coh_args)
+    ref64 = [probes.phase_coherence_reference(
+        FBResult(*(None if x is None else x.double() for x in fbres)),
+        blocks._replace(froot=blocks.froot.double(),
+                        pb=tuple(x.double() for x in blocks.pb)),
+        fbt, cfg, lam.double())] if dtype == torch.float32 else None
+    torch.cuda.synchronize()
+    record("coherence", [got], [ref],
+           lambda: probes.phase_coherence(*coh_args),
+           lambda: probes.phase_coherence_reference(*coh_args),
+           nbytes(fbres.fw_pre, fbres.bw, fbres.fw_pre_f, fbres.bw_f, lam,
+                  blocks.froot, blocks.pb, fbt.flag2ignore, got),
+           B * (M - 1), cmp=as_accurate(ref64))
+    del fbc, fbres, blocks, got, ref, ref64, coh_args
     torch.cuda.empty_cache()
 
     # -- the marker-blocked scan's sweeps: one block of the blocked slice
@@ -1507,6 +1550,10 @@ def run_slice(phase, adaptive, tracer=False, **driver_attrs):
                           chromosomes=ped.num_chromosomes)
     check_no_capped_syncs(phase, sites)
     if adaptive:
+        # one coherence launch a chunk scan, as the classic statistics
+        if launches["coherence"] != launches["stats_bmns"]:
+            fail(f"{phase}: coherence launches {launches['coherence']}, "
+                 f"stats_bmns {launches['stats_bmns']}")
         if moved == 0:
             fail(f"{phase}: no relhaplo moved from its loaded value")
         if rh.min() < RELHAPLO_CLIP or rh.max() > 1 - RELHAPLO_CLIP:
@@ -1555,7 +1602,7 @@ def run_slice_blocked():
     nblk = -(-M // BLOCK)
     w = wrappers()
     names = ("emission", "fb_sweep_init", "fb_carry", "stats",
-             "turn") + UPDATE_KERNELS
+             "turn", "coherence") + UPDATE_KERNELS
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in w.values():
@@ -1608,6 +1655,11 @@ def run_slice_blocked():
     if chunks != 1 or launches["fb_carry"] != 2 * launches["fb_sweep_init"]:
         fail(f"slice_blocked: the cohort did not run as one batch chunk: "
              f"{launches}")
+    # coherence: one launch a block and one a block boundary, in each of
+    # the two iterations
+    if launches["coherence"] != 2 * (2 * nblk - 1):
+        fail(f"slice_blocked: coherence launches {launches['coherence']}, "
+             f"expected {2 * (2 * nblk - 1)}")
     check_update_launches("slice_blocked", launches, updates=2,
                           chromosomes=ped.num_chromosomes)
     if max(peaks.values()) >= BLOCKED_PEAK_LIMIT:

@@ -129,14 +129,24 @@ def check_config(cfg) -> None:
             "the CUDA kernels cover the default F2 haplotyping model only")
 
 
-def check(t: torch.Tensor, dtype, shape, name: str) -> None:
-    if not torch.is_tensor(t) or t.device.type != "cuda":
+def check_form(t: torch.Tensor, dtype, shape, name: str) -> None:
+    """Raise unless ``t`` is a tensor of ``dtype`` and ``shape``, on any
+    device."""
+    if not torch.is_tensor(t):
         raise ValueError(f"{name}: expected a CUDA tensor")
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
+
+
+def check(t: torch.Tensor, dtype, shape, name: str) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape``."""
+    check_form(t, dtype, shape, name)
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
 

@@ -27,42 +27,18 @@
 #include <cuda_runtime.h>
 
 #include "blocks.cuh"
+#include "warp.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
-constexpr unsigned kFull = 0xffffffffu;
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// unnormalised 64-point Walsh-Hadamard transform of the warp's row
-template <typename T>
-__device__ __forceinline__ void fwht64(T& lo, T& hi, int lane) {
-  const T a = lo + hi, b = lo - hi;
-  lo = a;
-  hi = b;
-#pragma unroll
-  for (int h = 16; h > 0; h >>= 1) {
-    const T olo = __shfl_xor_sync(kFull, lo, h);
-    const T ohi = __shfl_xor_sync(kFull, hi, h);
-    const bool upper = (lane & h) != 0;
-    lo = upper ? olo - lo : lo + olo;
-    hi = upper ? ohi - hi : hi + ohi;
-  }
-}
-
 // clip, emit, renormalise (adjustprobs with the TPU kernel's 1e-30 clip)
 template <typename T>
 __device__ __forceinline__ void emit_norm(T& lo, T& hi, T& f, T elo, T ehi) {
   const T clip = T(1e-30);
   lo = (lo < clip ? T(0) : lo) * elo;
   hi = (hi < clip ? T(0) : hi) * ehi;
-  const T s = warp_sum(lo + hi);  // the same value in every lane
+  const T s = cnf::warp_sum(lo + hi);  // the same value in every lane
   if (s > T(0)) {
     lo = lo / s;
     hi = hi / s;
@@ -77,10 +53,10 @@ __device__ __forceinline__ void emit_norm(T& lo, T& hi, T& f, T elo, T ehi) {
 template <typename T>
 __device__ __forceinline__ void transition(T& lo, T& hi, const T* lam,
                                            int lane) {
-  fwht64(lo, hi, lane);
+  cnf::fwht64(lo, hi, lane);
   lo *= lam[lane];
   hi *= lam[lane + 32];
-  fwht64(lo, hi, lane);
+  cnf::fwht64(lo, hi, lane);
   lo *= T(1.0 / 64.0);
   hi *= T(1.0 / 64.0);
 }

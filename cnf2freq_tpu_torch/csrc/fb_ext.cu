@@ -94,36 +94,11 @@
 #include "blocks.cuh"
 #include "pipeline.cuh"
 #include "renorm.cuh"
+#include "warp.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
-constexpr unsigned kFull = 0xffffffffu;
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// unnormalised 64-point Walsh-Hadamard transform of one row held by the
-// warp (lane l: states l and l + 32)
-template <typename T>
-__device__ __forceinline__ void fwht64(T& lo, T& hi, int lane) {
-  const T a = lo + hi, b = lo - hi;
-  lo = a;
-  hi = b;
-#pragma unroll
-  for (int h = 16; h > 0; h >>= 1) {
-    const T olo = __shfl_xor_sync(kFull, lo, h);
-    const T ohi = __shfl_xor_sync(kFull, hi, h);
-    const bool upper = (lane & h) != 0;
-    lo = upper ? olo - lo : lo + olo;
-    hi = upper ? ohi - hi : hi + ohi;
-  }
-}
-
 // clip, emit, renormalise over the V rows jointly (adjustprobs over the
 // extended state)
 template <typename T, int V>
@@ -137,7 +112,7 @@ __device__ __forceinline__ void emit_norm(T (&lo)[V], T (&hi)[V], T& f,
     hi[v] = (hi[v] < clip ? T(0) : hi[v]) * ehi[v];
     part += lo[v] + hi[v];
   }
-  const T s = warp_sum(part);  // the same value in every lane
+  const T s = cnf::warp_sum(part);  // the same value in every lane
   if (s > T(0)) {
 #pragma unroll
     for (int v = 0; v < V; ++v) {
@@ -163,10 +138,10 @@ __device__ __forceinline__ void transition(T (&lo)[V], T (&hi)[V],
   const T llo = lam[lane], lhi = lam[lane + 32];
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    fwht64(lo[v], hi[v], lane);
+    cnf::fwht64(lo[v], hi[v], lane);
     lo[v] *= llo;
     hi[v] *= lhi;
-    fwht64(lo[v], hi[v], lane);
+    cnf::fwht64(lo[v], hi[v], lane);
     lo[v] *= T(1.0 / 64.0);
     hi[v] *= T(1.0 / 64.0);
   }

@@ -12,7 +12,10 @@ plain XLA in the JAX package, so they are plain PyTorch here: the
 Walsh-Hadamard products are butterflies (``transition.fwht``), and each
 multi-operand einsum of the coherence emissions is written as pairwise
 contractions, so that no [B, M, ...] intermediate is larger than the
-[B, M, NS, S] result.
+[B, M, NS, S] result.  The all-slot coherence is the exception on the
+card: ``phase_coherence`` launches csrc/coherence.cu there
+(``ops.coherence``), and ``phase_coherence_reference`` is its plain
+twin.
 
 Conventions: the state axis g decomposes into (fp1, fp0) and the shift
 axis s into (s2, s1, s0); parent-block path bits are summed with the
@@ -27,6 +30,7 @@ import torch
 from typing import NamedTuple
 
 from ..config import MINFACTOR, ModelConfig
+from ..ops.coherence import coherence as coherence_kernel
 from ..ops.scan import turn_offsets
 from ..utils.transfer import constant
 from .emission import EmissionBlocks
@@ -549,15 +553,28 @@ def phase_coherence_slot(fbres: FBResult, blocks: EmissionBlocks,
     return pair_coherence_from_parity(fbres, e_par, lam, tot)
 
 
-def phase_coherence(fbres: FBResult, blocks: EmissionBlocks,
-                    fb: FamilyBatch, cfg: ModelConfig,
-                    lam: torch.Tensor) -> torch.Tensor:
+def phase_coherence_reference(fbres: FBResult, blocks: EmissionBlocks,
+                              fb: FamilyBatch, cfg: ModelConfig,
+                              lam: torch.Tensor) -> torch.Tensor:
     """All-slot coherence [b, m, slot] (shared pair total), one slot's
-    temporaries live at a time."""
+    temporaries live at a time: the plain twin of csrc/coherence.cu."""
     tot = phase_pair_total(fbres, blocks, fb, cfg, lam)
     cols = [phase_coherence_slot(fbres, blocks, fb, cfg, lam, slot, tot=tot)
             for slot in range(cfg.numslots)]
     return torch.stack(cols, dim=-1)
+
+
+def phase_coherence(fbres: FBResult, blocks: EmissionBlocks,
+                    fb: FamilyBatch, cfg: ModelConfig,
+                    lam: torch.Tensor) -> torch.Tensor:
+    """All-slot coherence [b, m, slot]: ``phase_coherence_reference`` on
+    the CPU; on the card one launch of csrc/coherence.cu
+    (``ops.coherence.coherence``), which stores no emission tensor."""
+    if fbres.fw_pre.device.type == "cpu":
+        return phase_coherence_reference(fbres, blocks, fb, cfg, lam)
+    return coherence_kernel(fbres.fw_pre, fbres.bw, fbres.fw_pre_f,
+                            fbres.bw_f, lam, blocks.froot, blocks.pb[0],
+                            blocks.pb[1], fb.flag2ignore, cfg)
 
 
 # ---------------------------------------------------------------------------

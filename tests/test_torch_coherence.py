@@ -9,14 +9,26 @@ functions at rtol 1e-10.  The port's sweeps clip at 1e-30 as the TPU
 kernel does, the JAX package's CPU scan at 1e-300; the probabilities get
 atol 1e-14 for that.  Turn weights are compared where finite (impossible
 turns carry MINFACTOR on both sides).
+
+The coherence kernel (csrc/coherence.cu) cannot run here, so its
+arithmetic is emulated lane for lane (``_kernel_form``: the warp's path-sum
+tables, the emissions built from them, the warp-shuffle FWHT's stage
+order) and held to the JAX ``phase_coherence`` at rtol 1e-10 on the same
+case, and to the plain twin at its edges (a shift with no mass, a marker
+with none, a zero backward row, an untyped unit) and on the marker-blocked
+scan's boundary span.  On the CPU ``phase_coherence`` is the plain twin;
+the wrapper's checks refuse a wrong type or shape before any launch.
+These tests reuse ``_case`` and compile no JAX program of their own.
 """
 import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
-from torch_port_util import cohort, jax_batch, t, torch_batch
+from torch_port_util import (boundary_span, coherence_edge_sweeps, cohort,
+                             flat_unit, jax_batch, t, torch_batch)
 
 from cnf2freq_tpu.engine import chromosome_scan as jax_chromosome_scan
 from cnf2freq_tpu.hmm import probes as jax_probes
@@ -26,9 +38,13 @@ from cnf2freq_tpu.hmm.transition import (interval_recomb as jax_recomb,
                                          transition_eigenvalues as jax_eig)
 from cnf2freq_tpu.updates.scatter import (scatter_coherence as
                                           jax_scatter_coherence)
+from cnf2freq_tpu_torch import _build
+from cnf2freq_tpu_torch.config import ModelConfig
 from cnf2freq_tpu_torch.engine import chromosome_scan
 from cnf2freq_tpu_torch.hmm import probes
 from cnf2freq_tpu_torch.hmm.emission import build_blocks
+from cnf2freq_tpu_torch.ops import coherence as ocoh
+from cnf2freq_tpu_torch.ops.scan import marker_slice
 from cnf2freq_tpu_torch.updates.scatter import scatter_coherence
 
 RTOL = 1e-10
@@ -156,3 +172,185 @@ def test_chromosome_scan_with_coherence_matches():
     np.testing.assert_array_equal(finite, tw2 > -1e14)
     np.testing.assert_allclose(tw2[finite], tw[finite], rtol=RTOL,
                                atol=1e-12)
+
+
+def _fwht64_lanes(lo, hi):
+    """csrc/warp.cuh's fwht64 on [P, 32] lane arrays (lane l: states l
+    and l + 32): the stride-32 stage in the thread, then strides 16..1
+    across lanes."""
+    lane = torch.arange(32)
+    lo, hi = lo + hi, lo - hi
+    for h in (16, 8, 4, 2, 1):
+        upper = (lane & h) != 0
+        olo, ohi = lo[:, lane ^ h], hi[:, lane ^ h]
+        lo = torch.where(upper, olo - lo, lo + olo)
+        hi = torch.where(upper, ohi - hi, hi + ohi)
+    return lo, hi
+
+
+def _kernel_form(fbres, blocks, flag2ignore, lam):
+    """csrc/coherence.cu's arithmetic lane for lane, every (unit, marker
+    pair) a row of P: the eight path-sum tables of each marker (lane
+    (r, fp, sk)), the emissions built from them per (table, shift), the
+    sweeps' FWHT, the shift-weighted chains and the slot quotients."""
+    B, M = fbres.fw_pre.shape[:2]
+    lane = torch.arange(32)
+    fp, sk = (lane >> 1) & 7, lane & 1
+    p = torch.arange(8)
+    x = p[None, :] ^ fp[:, None]                             # [lane, path]
+
+    def sign(cond):
+        return torch.where(cond, -1.0, 1.0).double()
+    tabs = [None] * 8
+    for k, slots in enumerate(((0, 2, 3, 4), (1, 5, 6, 7))):
+        f2 = (flag2ignore.long() >> (1 + 3 * k)) & 7
+        rows = blocks.pb[k].permute(0, 1, 2, 3, 5, 4).reshape(B, M, 32, 8)
+        rows = torch.where(((p[None, :] & f2[:, None]) == 0)[:, None, None],
+                           rows, 0.0)
+        for i, sg in zip(slots, (None, sign(((x & 1) ^ sk[:, None]) != 0),
+                                 sign((x & 2) != 0), sign((x & 4) != 0))):
+            tabs[i] = (rows if sg is None else rows * sg).sum(-1)
+
+    def pairs(z, q):
+        return z[:, q:M - 1 + q].reshape((B * (M - 1),) + z.shape[2:])
+    tab = [[pairs(tb, q) for tb in tabs] for q in range(2)]
+    froot = [pairs(blocks.froot.reshape(B, M, 4), q) for q in range(2)]
+    logw = pairs(fbres.fw_pre_f, 0) + pairs(fbres.bw_f, 1)
+    w = torch.exp(logw - logw.max(dim=-1, keepdim=True).values)
+    X, Y = pairs(fbres.fw_pre, 0), pairs(fbres.bw, 1)
+    lam_p = lam[None].expand(B, -1, -1).reshape(-1, 64)
+    a, blo = lane & 7, lane >> 3
+    chains = []
+    for v in range(8):
+        lt = v if 2 <= v <= 4 else 0
+        rt = v if v >= 5 else 1
+        acc = 0.0
+        for s in range(8):
+            t_, u, vv = s & 1, (s >> 1) & 1, s >> 2
+            e = [[0.0, 0.0], [0.0, 0.0]]
+            for q in range(2):
+                for h, bb in enumerate((blo, blo + 4)):
+                    for r in range(2):
+                        f = froot[q][:, r * 2 + t_, None]
+                        if v == 1 and r ^ t_:
+                            f = -f
+                        e[q][h] = e[q][h] + \
+                            (f * tab[q][lt][:, r * 16 + a * 2 + u]) * \
+                            tab[q][rt][:, r * 16 + bb * 2 + vv]
+            lo, hi = _fwht64_lanes(X[:, s, :32] * e[0][0],
+                                   X[:, s, 32:] * e[0][1])
+            lo, hi = _fwht64_lanes(lo * lam_p[:, :32], hi * lam_p[:, 32:])
+            lo, hi = lo * (1.0 / 64.0), hi * (1.0 / 64.0)
+            acc = acc + w[:, s, None] * (lo * (e[1][0] * Y[:, s, :32]) +
+                                         hi * (e[1][1] * Y[:, s, 32:]))
+        chains.append(acc.sum(dim=-1))
+    tot = chains[0]
+    ok = tot > 0
+    cols = [torch.where(ok, 0.5 + 0.5 * c / torch.where(ok, tot, 1.0), 0.5)
+            for c in chains[1:]]
+    coh = torch.stack(cols, dim=-1).reshape(B, M - 1, 7)
+    return torch.cat([coh, torch.full((B, 1, 7), 0.5, dtype=coh.dtype)],
+                     dim=1)
+
+
+def test_coherence_kernel_form_matches_jax():
+    (_, fb, _, cfg, _), _, sweeps, (_, ref, lam) = _case()
+    fbt = torch_batch(fb)
+    got = _kernel_form(sweeps, build_blocks(fbt, cfg), fbt.flag2ignore,
+                       t(lam))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL)
+
+
+@pytest.mark.parametrize("case", ["edges", "flat_unit", "boundary_span"])
+def test_coherence_kernel_form_edges(case):
+    """The emulated kernel against the plain twin (held to the JAX
+    function above) where totals vanish, on an untyped unit, and on the
+    blocked scan's two-column stitch."""
+    (_, fb, dists, cfg, params), _, sweeps, (_, _, lam) = _case()
+    lam = t(lam)
+    if case == "flat_unit":
+        fb = flat_unit(fb, 3)
+        sweeps = _sweeps(fb, dists, cfg, params)
+    fbt = torch_batch(fb)
+    if case == "edges":
+        sweeps = coherence_edge_sweeps(sweeps)
+    if case == "boundary_span":
+        sweeps = boundary_span(sweeps, 4)
+        fbt, lam = marker_slice(fbt, slice(4, 6)), lam[4:5]
+    blocks = build_blocks(fbt, cfg)
+    ref = probes.phase_coherence_reference(sweeps, blocks, fbt, cfg, lam)
+    got = _kernel_form(sweeps, blocks, fbt.flag2ignore, lam)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=RTOL,
+                               atol=1e-15)
+    if case == "edges":
+        # the zero totals give the neutral 0.5 in every slot
+        assert (ref[1, 5] == 0.5).all() and (ref[2, 6] == 0.5).all()
+    if case == "flat_unit":
+        assert (ref[3, :-1] != 0.5).any()
+
+
+def test_phase_coherence_cpu_is_plain_twin():
+    (_, fb, _, cfg, _), _, sweeps, (_, _, lam) = _case()
+    fbt = torch_batch(fb)
+    blocks = build_blocks(fbt, cfg)
+    before = ocoh.coherence.launches
+    got = probes.phase_coherence(sweeps, blocks, fbt, cfg, t(lam))
+    ref = probes.phase_coherence_reference(sweeps, blocks, fbt, cfg, t(lam))
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    assert ocoh.coherence.launches == before
+
+
+def _meta_args(B=3, M=4, dtype=torch.float32, **shapes):
+    """The wrapper's arguments as meta tensors (types and shapes, no
+    data), with ``shapes`` overriding a named argument's shape."""
+    want = dict(fw_pre=(B, M, 8, 64), bw=(B, M, 8, 64), fw_pre_f=(B, M, 8),
+                bw_f=(B, M, 8), lam=(M - 1, 64), froot=(B, M, 2, 2),
+                pb0=(B, M, 2, 8, 8, 2), pb1=(B, M, 2, 8, 8, 2))
+    want.update(shapes)
+    args = {k: torch.empty(v, dtype=dtype, device="meta")
+            for k, v in want.items()}
+    args["flag2ignore"] = torch.empty((B,), dtype=torch.int32, device="meta")
+    return args
+
+
+BAD_ARGS = {"fw_pre_shape": dict(fw_pre=(3, 4, 8, 32)),
+            "lam_rows": dict(lam=(4, 64)),
+            "pb1_shape": dict(pb1=(3, 4, 2, 8, 8))}
+
+
+@pytest.mark.parametrize("bad", ["fw_pre_shape", "lam_rows", "pb1_shape",
+                                 "bw_dtype", "froot_dtype", "not_cuda",
+                                 "via_probes"])
+def test_coherence_wrapper_checks(monkeypatch, bad):
+    """Every refusal comes before a launch (and before the kernels are
+    built); a tensor that is not on the card is refused, not routed to
+    the plain twin."""
+    from cnf2freq_tpu_torch.hmm.emission import EmissionBlocks
+    from cnf2freq_tpu_torch.hmm.forward_backward import FBResult
+
+    def no_launch(*a, **k):
+        raise AssertionError("launched")
+    monkeypatch.setattr(_build, "launch", no_launch)
+    monkeypatch.setattr(_build, "load_kernels", no_launch)
+    cfg = ModelConfig()
+    args = _meta_args(**BAD_ARGS.get(bad, {}))
+    if bad == "bw_dtype":
+        args["bw"] = args["bw"].double()
+    if bad == "froot_dtype":
+        args["froot"] = args["froot"].half()
+    before = ocoh.coherence.launches
+    if bad == "via_probes":
+        fbres = FBResult(args["fw_pre"], None, args["bw"], args["fw_pre_f"],
+                         None, args["bw_f"])
+        blocks = EmissionBlocks(froot=args["froot"], top=None,
+                                pb=(args["pb0"], args["pb1"]),
+                                focal_attop=None)
+        fb = type("Batch", (), {"flag2ignore": args["flag2ignore"]})
+        with pytest.raises(ValueError, match="CUDA"):
+            probes.phase_coherence(fbres, blocks, fb, cfg, args["lam"])
+    else:
+        err, msg = ((TypeError, "dtype") if bad.endswith("dtype") else
+                    (ValueError, "CUDA" if bad == "not_cuda" else "shape"))
+        with pytest.raises(err, match=msg):
+            ocoh.coherence(**args, cfg=cfg)
+    assert ocoh.coherence.launches == before

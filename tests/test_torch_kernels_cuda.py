@@ -28,7 +28,15 @@ against their plain versions on the lanes and rows of
 tests/torch_update_util.py, edge lanes included (float64 and float32,
 M in {1, 2, 11}, scalefactor 0.013 and 0); the kernels take the plain
 versions' roundings operation for operation, and their hits must be the
-same.
+same.  ``test_coherence_matches_plain`` holds csrc/coherence.cu (all seven
+slots' coherence in one launch) against its plain twin on the classic
+sweeps, on the edge batch (random canonical-path masks), where the totals
+vanish (a shift with no mass, a marker with none, a zero backward row), on
+an untyped unit, on the marker-blocked scan's two-column boundary span and
+at M = 2 and 1; in float32 held to the plain twin's accuracy against
+float64 on the same inputs promoted (its worst error in units of the
+tolerance within twice the plain float32 version's, or within the
+tolerance).
 
 Run on a machine with the card (tests/conftest.py imports JAX):
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
@@ -44,12 +52,15 @@ import copy
 import numpy as np
 import pytest
 import torch
-from torch_port_util import cohort, torch_batch
+from torch_port_util import (boundary_span, coherence_edge_sweeps, cohort,
+                             flat_unit, torch_batch)
 
+from cnf2freq_tpu_torch.hmm import probes
 from cnf2freq_tpu_torch.hmm.emission import assemble_e_all, build_blocks
 from cnf2freq_tpu_torch.hmm.forward_backward import FBResult, combined_loglik
 from cnf2freq_tpu_torch.hmm.transition import (interval_recomb,
                                                transition_eigenvalues)
+from cnf2freq_tpu_torch.ops import coherence as pcoh
 from cnf2freq_tpu_torch.ops import fb as pfb
 from cnf2freq_tpu_torch.ops import scan as ps
 from cnf2freq_tpu_torch.ops import stats as pst
@@ -854,3 +865,88 @@ def test_update_wrappers_check(card):
     assert before == (pcap.capped_haplo.launches,
                       pcap.capped_infprob.launches,
                       prs.relskew_ratio.launches)
+
+
+COHERENCE_CASES = ["sweeps", "edge_batch", "edges", "flat_unit",
+                   "boundary_span", "M2", "M1"]
+
+
+def _coherence_inputs(card, dtype, case):
+    """(fbres, blocks, family batch, cfg, lam) of the coherence kernel on
+    the card: the classic sweeps of the _inputs cohort (or of _edge_batch,
+    or with unit 3 untyped), edited or cut to the case."""
+    if case == "edge_batch":
+        fb, dists, cfg, params = _edge_batch()
+    else:
+        _, fb, dists, cfg, params = cohort(B=37, M=11, seed=9,
+                                           with_vacant=True)
+    if case == "flat_unit":
+        fb = flat_unit(fb, 3)
+    fbt = torch_batch(fb).to(card, dtype)
+    d = torch.as_tensor(dists, dtype=dtype, device=card)
+    lam = transition_eigenvalues(cfg, interval_recomb(cfg, params, d))
+    blocks = build_blocks(fbt, cfg, dtype=dtype)
+    fbres = FBResult(*pfb.fb_sweeps(assemble_e_all(blocks, cfg), lam))
+    if case == "edges":
+        fbres = coherence_edge_sweeps(fbres)
+    cut = {"boundary_span": slice(4, 6), "M2": slice(0, 2),
+           "M1": slice(0, 1)}.get(case)
+    if cut is not None:
+        if case == "boundary_span":
+            fbres = boundary_span(fbres, 4)
+        else:
+            fbres = FBResult(*(None if x is None else x[:, cut]
+                               for x in fbres))
+        fbt = ps.marker_slice(fbt, cut)
+        lam = lam[cut.start:cut.stop - 1]
+        blocks = build_blocks(fbt, cfg, dtype=dtype)
+    return fbres, blocks, fbt, cfg, lam
+
+
+def _promoted(fbres, blocks, lam):
+    return (FBResult(*(None if x is None else x.double() for x in fbres)),
+            blocks._replace(froot=blocks.froot.double(),
+                            pb=tuple(x.double() for x in blocks.pb)),
+            lam.double())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", COHERENCE_CASES)
+def test_coherence_matches_plain(card, case, dtype):
+    fbres, blocks, fbt, cfg, lam = _coherence_inputs(card, dtype, case)
+    before = pcoh.coherence.launches
+    got = probes.phase_coherence(fbres, blocks, fbt, cfg, lam)
+    assert pcoh.coherence.launches == before + 1
+    ref = probes.phase_coherence_reference(fbres, blocks, fbt, cfg, lam)
+    assert got.shape == ref.shape and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    assert (got[:, -1] == 0.5).all()
+    if case == "edges":
+        assert (got[1, 5] == 0.5).all() and (got[2, 6] == 0.5).all()
+    if dtype == torch.float64:
+        _close([got], [ref], dtype)
+        return
+    f64, b64, l64 = _promoted(fbres, blocks, lam)
+    ref64 = probes.phase_coherence_reference(f64, b64, fbt, cfg, l64)
+
+    def worst(x):
+        return float(((x.double() - ref64).abs() /
+                      (TOL[dtype]["atol"] + TOL[dtype]["rtol"] *
+                       ref64.abs())).max())
+    assert worst(got) <= 2.0 * max(worst(ref), 1.0)
+
+
+def test_coherence_wrapper_refuses_on_card(card):
+    """A wrong shape or type on the card raises before any launch."""
+    fbres, blocks, fbt, cfg, lam = _coherence_inputs(card, torch.float64,
+                                                     "sweeps")
+    args = (fbres.fw_pre, fbres.bw, fbres.fw_pre_f, fbres.bw_f, lam,
+            blocks.froot, blocks.pb[0], blocks.pb[1], fbt.flag2ignore, cfg)
+    before = pcoh.coherence.launches
+    with pytest.raises(ValueError):
+        pcoh.coherence(*args[:4], lam[1:], *args[5:])
+    with pytest.raises(TypeError):
+        pcoh.coherence(args[0], args[1].float(), *args[2:])
+    with pytest.raises(ValueError):
+        pcoh.coherence(*args[:4], lam.cpu(), *args[5:])
+    assert pcoh.coherence.launches == before

@@ -55,6 +55,45 @@ def cohort(B=6, M=9, seed=3, with_vacant=False):
     return ped, fb, dists, ModelConfig(), RuntimeParams()
 
 
+def flat_unit(fb_np, unit: int):
+    """A copy of a numpy batch with every slot of ``unit`` untyped (its
+    emission blocks carry no genotype information)."""
+    fb = dataclasses.replace(fb_np, md=fb_np.md.copy())
+    fb.md[unit] = 0
+    return fb
+
+
+def coherence_edge_sweeps(fbres):
+    """The classic sweeps (B >= 3 units, M >= 8 markers) edited at the
+    coherence kernel's edges: unit 0's shift 3 carries no mass at any
+    marker, unit 1 carries none in any shift at marker 5 (so pair (5, 6)
+    has a zero total), and unit 2's backward row at marker 7 is zero
+    (pair (6, 7))."""
+    from cnf2freq_tpu_torch.config import MINFACTOR
+    fw_pre, fw_pre_f = fbres.fw_pre.clone(), fbres.fw_pre_f.clone()
+    bw = fbres.bw.clone()
+    fw_pre[0, :, 3] = 0.0
+    fw_pre_f[0, :, 3] = MINFACTOR
+    fw_pre[1, 5] = 0.0
+    fw_pre_f[1, 5] = MINFACTOR
+    bw[2, 7] = 0.0
+    return fbres._replace(fw_pre=fw_pre, fw_pre_f=fw_pre_f, bw=bw)
+
+
+def boundary_span(fbres, m: int):
+    """The marker-blocked scan's stitch of markers (m, m + 1), as
+    ``Driver._blocked_followups`` builds it: the forward column of m
+    beside a zero one, the backward column of m + 1 beside a ones one."""
+    from cnf2freq_tpu_torch.hmm.forward_backward import FBResult
+    pfp, pff = fbres.fw_pre[:, m], fbres.fw_pre_f[:, m]
+    zero, zero_f = torch.zeros_like(pfp), torch.zeros_like(pff)
+    return FBResult(
+        fw_pre=torch.stack([pfp, zero], dim=1), fw_post=None,
+        bw=torch.stack([torch.ones_like(pfp), fbres.bw[:, m + 1]], dim=1),
+        fw_pre_f=torch.stack([pff, zero_f], dim=1), fw_post_f=None,
+        bw_f=torch.stack([zero_f, fbres.bw_f[:, m + 1]], dim=1))
+
+
 def torch_batch(fb_np, dtype=torch.float64) -> FamilyBatch:
     """CPU tensors of a numpy batch."""
     return fb_np.to("cpu", dtype)
