@@ -40,9 +40,10 @@ since the script started (t=); any failure exits non-zero:
            one real update of the slice's cohort (the default Driver's
            early iteration, at its starting scalefactor 0.013; float32 as
            captured, promoted to float64), the capped entries' values
-           within the tolerance with the same hits and their bound
-           reckoned from the lane-steps that the plain version took there
-           (plain_lane_steps), then compared on synthetic uniform lanes
+           and hits bit for bit the plain version's, their bound reckoned
+           from the lane-steps that the plain version took there
+           (plain_lane_steps) and their divergence factors from the same
+           steps (capped_divergence), then compared on synthetic lanes
            with the edges (edge_update_lanes) at that scalefactor and at 0;
            the classic scan's coherence kernel (coherence:
            csrc/coherence.cu, all seven slots in one launch) on the
@@ -328,6 +329,7 @@ import contextlib
 import dataclasses
 import datetime
 import functools
+import glob
 import io
 import json
 import math
@@ -462,13 +464,14 @@ OPS = {"emission": 2880, "fb_sweep": 2 * 1152, "stats": 19800,
        "coherence": 4096 + 64 * (384 + 768 + 64 + 128 + 64 + 128)}
 # the capped entries' operations per lane-step and per lane, counting a
 # log as one: a step is 16 gradient evaluations (the pseudo-likelihood
-# term's 48 and two logs, then 11 for the entropy and relskew terms of a
+# term's 34 and two logs once its 13 products of (y, g, h) alone are
+# formed a lane, then 11 for the entropy and relskew terms of a
 # haploweight, 6 for the entropy and prior terms of a genotype) and ~124
-# for the bisection and quadrature around them; a lane ~3 caps and one
-# evaluation more.  Their work is the lane-steps that the plain version
-# took on the same inputs (plain_lane_steps).
-CAPPED_OPS = {"capped_haplo": (16 * 61 + 124, 61 + 75),
-              "capped_infprob": (16 * 56 + 124, 56 + 75)}
+# for the bisection and quadrature around them; a lane ~3 caps, those
+# products and one evaluation more.  Their work is the lane-steps that the
+# plain version took on the same inputs (plain_lane_steps).
+CAPPED_OPS = {"capped_haplo": (16 * 47 + 124, 47 + 88),
+              "capped_infprob": (16 * 42 + 124, 42 + 88)}
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12       # float32 outside the tensor cores
 FP64_OPS_PER_S = 34e12       # float64 outside the tensor cores
@@ -826,9 +829,114 @@ def plain_lane_steps(reference, args):
 
 
 def compare_capped(got, ref, dtype):
-    """compare() of the new values, and the same hits."""
-    a, r, ok = compare(got[0], ref[0], dtype)
-    return a, r, ok and bool(torch.equal(got[1], ref[1]))
+    """compare()'s errors of the new values; ok only where the values (NaN
+    where NaN) and the hits are the plain version's bit for bit."""
+    a, r, _ = compare(got[0], ref[0], dtype)
+    v, rv = got[0], ref[0]
+    same = torch.equal(v.isnan(), rv.isnan()) and \
+        torch.equal(v.nan_to_num(0.0), rv.nan_to_num(0.0))
+    return a, r, bool(same and torch.equal(got[1], ref[1]))
+
+
+def capped_divergence(name, dtype, lane_steps):
+    """A capped entry's divergence factors on lanes of ``lane_steps``
+    steps each (0 for a dead lane or one the kernel skips): the issue
+    slots of the warps over the useful lane-steps, sum over warps of (its
+    steps x 32) / lane-steps.  For one thread a lane, 32 consecutive lanes
+    a warp, a warp's steps are its slowest lane's.  For the kernel's shared
+    queue (its resident warps take the lanes in order, a thread the next
+    one as soon as its own is done or dead, a step of a warp one slot
+    however many of its threads step), they are modelled with every warp
+    stepping in lockstep.  Returns (factor a lane, factor of the queue,
+    the launch's threads)."""
+    import ctypes
+
+    from cnf2freq_tpu_torch import _build
+    s = lane_steps.reshape(-1).long().cpu().numpy()
+    threads = ctypes.c_int(0)
+    fn = _build.load_kernels().cnf_capped_threads
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    err = fn(int(name == "capped_infprob"), int(dtype == torch.float64),
+             len(s), ctypes.byref(threads))
+    if err != 0:
+        fail(f"{name}: cnf_capped_threads returned {err}")
+    total = float(s.sum())
+    by_lane = np.pad(s, (0, (-len(s)) % 32)).reshape(-1, 32).max(axis=1)
+    rem = np.zeros((threads.value // 32, 32), dtype=np.int64)
+    flat = rem.reshape(-1)
+    taken, slots = 0, 0
+    while True:
+        while taken < len(s):
+            free = np.flatnonzero(flat == 0)
+            if len(free) == 0:
+                break
+            n = min(len(free), len(s) - taken)
+            flat[free[:n]] = s[taken:taken + n]
+            taken += n
+        live = (rem > 0).any(axis=1)
+        if not live.any():
+            break
+        slots += int(live.sum())
+        rem -= rem > 0
+    return float(by_lane.sum()) * 32 / total, slots * 32 / total, \
+        threads.value
+
+
+@functools.lru_cache(maxsize=None)
+def capped_step_sass():
+    """SASS instructions of one bisection step of each capped entry, from
+    ``cuobjdump -sass`` of the built library: {(entry, type): count}.  A
+    step's loop holds the evaluation loop (16 evaluations, as many a trip
+    as csrc/capped.cu unrolls it) and the warp's lane-taking loop (VOTE);
+    the count is the evaluation loop's instructions times its trips plus
+    the step loop's other instructions.  Static counts of the fast path:
+    the quotients' slow paths are calls out of the loops.  An entry whose
+    loops are not found is left out (its line says "not measured")."""
+    from cnf2freq_tpu_torch import _build
+    lib = glob.glob(os.path.join(_build.build_dir(),
+                                 "libcnf2freq_kernels_*.so"))
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not lib or not os.path.exists(cuobjdump):
+        return {}
+    src = open(os.path.join(os.path.dirname(_build.__file__), "csrc",
+                            "capped.cu")).read()
+    unroll = int(re.search(r"#pragma unroll (\d+)\n\s+for \(int k = 0; "
+                           r"k <= kNodes", src).group(1))
+    text = subprocess.run([cuobjdump, "-sass"] + lib, capture_output=True,
+                          text=True, timeout=300).stdout
+    out = {}
+    for part in re.split(r"\n\s+Function : ", text)[1:]:
+        m = re.search(r"capped_(haplo|infprob)_kernelI([fd])", part)
+        if not m:
+            continue
+        ins = [(int(a, 16), t) for a, t in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+        loops = [(int(t, 16), a) for a, x in ins
+                 for t in re.findall(r"\bBRA\b[^;]*?0x([0-9a-f]+)", x)
+                 if int(t, 16) < a]
+
+        def body(lo, hi):
+            return [x for a, x in ins if lo <= a <= hi]
+
+        def has(lo, hi, op):
+            return any(op in x for x in body(lo, hi))
+        evals = max((lp for lp in loops if not has(*lp, "VOTE")),
+                    key=lambda lp: sum("MUFU" in x for x in body(*lp)),
+                    default=None)
+        take = evals and max((lp for lp in loops if lp[1] < evals[0] and
+                              has(*lp, "VOTE")),
+                             key=lambda lp: lp[1] - lp[0], default=None)
+        step = take and min((lp for lp in loops if lp[0] <= take[0] and
+                             lp[1] >= evals[1]),
+                            key=lambda lp: lp[1] - lp[0], default=None)
+        if step is None:
+            continue
+        n_evals, n_step, n_take = (len(body(*lp)) for lp in
+                                   (evals, step, take))
+        out[("capped_" + m.group(1),
+             "float32" if m.group(2) == "f" else "float64")] = \
+            n_evals * 16 // unroll + n_step - n_evals - n_take
+    return out
 
 
 def edge_update_lanes(dtype, M=16, seed=11):
@@ -908,13 +1016,24 @@ def check_update_kernels(dtype, record):
         torch.cuda.synchronize()
         if name == "capped_infprob":
             # the kernel skips the lanes without mass
-            steps = steps[(args[1] > 0).reshape(-1)]
+            live = (args[1] > 0).reshape(-1)
+            lane_work = torch.where(live, steps, 0)
+            steps = steps[live]
+        else:
+            lane_work = steps
         per_step, per_lane = CAPPED_OPS[name]
         lane_steps = int(steps.sum())
+        by_lane, by_queue, threads = capped_divergence(name, dtype,
+                                                       lane_work)
         say("kernels", dtype=str(dtype).split(".")[-1], kernel=name,
             scalefactor=args[-1], lanes=steps.numel(), lane_steps=lane_steps,
             steps_max=int(steps.max()), hits=int(ref[1].sum()),
-            hits_kernel=int(got[1].sum()))
+            hits_kernel=int(got[1].sum()),
+            divergence_lane_warps=f"{by_lane:.3f}",
+            divergence_queue_modelled=f"{by_queue:.3f}",
+            grid_threads=threads,
+            sass_per_lane_step=capped_step_sass().get(
+                (name, str(dtype).split(".")[-1]), "not measured"))
         record(name, got, ref, lambda: w[name](*args),
                lambda: plain[name](*args), nbytes(args, got), None,
                cmp=compare_capped,
@@ -3336,12 +3455,14 @@ def main():
         sources=len(_build.sources()), entry_functions=len(regs),
         max_registers=max(regs, default=None), spill_store_bytes=spills,
         ptxas_report=report)
-    # the statistics kernel's instantiations: (type, layout, probe rules)
-    for m in re.finditer(r"Compiling entry function '(\w*stats_kernel\w*)'"
+    # the statistics kernel's instantiations (type, layout, probe rules),
+    # the capped entries' and the coherence kernel's
+    for m in re.finditer(r"Compiling entry function '(\w*(?:stats|capped_"
+                         r"haplo|capped_infprob|coherence)_kernel\w*)'"
                          r"(.*?)Used (\d+) registers", text, re.S):
         sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                        m.group(2))
-        say("build", stats_entry=m.group(1), registers=m.group(3),
+        say("build", entry=m.group(1), registers=m.group(3),
             spill_stores=sp.group(1) if sp else None,
             spill_loads=sp.group(2) if sp else None)
 

@@ -14,8 +14,9 @@ lane-typed entries ``capped_haplo`` (haploweights) and ``capped_infprob``
 (inferred genotypes) are the wrappers of ``csrc/capped.cu``: a CPU tensor
 runs the entry's plain version (``capped_haplo_reference`` /
 ``capped_infprob_reference``: ``cappedgd`` with the entry's gradient
-closure); a CUDA tensor launches the kernel (one thread a lane, the whole
-bisection on the card, no host wait) and counts the launch, or raises.
+closure); a CUDA tensor launches the kernel (the whole bisection on the
+card, its lanes one queue that the resident warps share, no host wait)
+and counts the launch, or raises.
 """
 
 from __future__ import annotations

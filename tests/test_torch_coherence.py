@@ -11,10 +11,11 @@ atol 1e-14 for that.  Turn weights are compared where finite (impossible
 turns carry MINFACTOR on both sides).
 
 The coherence kernel (csrc/coherence.cu) cannot run here, so its
-arithmetic is emulated lane for lane (``_kernel_form``: the warp's path-sum
-tables, the emissions built from them, the warp-shuffle FWHT's stage
-order) and held to the JAX ``phase_coherence`` at rtol 1e-10 on the same
-case, and to the plain twin at its edges (a shift with no mass, a marker
+arithmetic is emulated lane for lane (``_kernel_form``: the block's
+path-sum tables, the emissions built from them, a row in four lanes of 16
+states, the FWHT's stage order, lam / 64 between the transforms) and held
+to the JAX ``phase_coherence`` at rtol 1e-10 on the same case, and to the
+plain twin at its edges (a shift with no mass, a marker
 with none, a zero backward row, an untyped unit) and on the marker-blocked
 scan's boundary span.  On the CPU ``phase_coherence`` is the plain twin;
 the wrapper's checks refuse a wrong type or shape before any launch.
@@ -174,25 +175,31 @@ def test_chromosome_scan_with_coherence_matches():
                                atol=1e-12)
 
 
-def _fwht64_lanes(lo, hi):
-    """csrc/warp.cuh's fwht64 on [P, 32] lane arrays (lane l: states l
-    and l + 32): the stride-32 stage in the thread, then strides 16..1
-    across lanes."""
-    lane = torch.arange(32)
-    lo, hi = lo + hi, lo - hi
-    for h in (16, 8, 4, 2, 1):
-        upper = (lane & h) != 0
-        olo, ohi = lo[:, lane ^ h], hi[:, lane ^ h]
-        lo = torch.where(upper, olo - lo, lo + olo)
-        hi = torch.where(upper, ohi - hi, hi + ohi)
-    return lo, hi
+def _fwht64_by4(x):
+    """csrc/coherence.cu's fwht64_by4 on [P, 4, 16] rows (lane j of a
+    row's four holds states 16 j + i): strides 1, 2, 4 and 8 inside the
+    thread, then 16 and 32 across lanes (partner + sign * own)."""
+    i = torch.arange(16)
+    for h in (1, 2, 4, 8):
+        lo = i[(i & h) == 0]
+        a, b = x[..., lo], x[..., lo + h]
+        x = x.clone()
+        x[..., lo], x[..., lo + h] = a + b, a - b
+    j = torch.arange(4)
+    for o in (1, 2):
+        sgn = torch.where((j & o) != 0, -1.0, 1.0).double()[:, None]
+        x = x[:, j ^ o] + sgn * x
+    return x
 
 
 def _kernel_form(fbres, blocks, flag2ignore, lam):
     """csrc/coherence.cu's arithmetic lane for lane, every (unit, marker
-    pair) a row of P: the eight path-sum tables of each marker (lane
-    (r, fp, sk)), the emissions built from them per (table, shift), the
-    sweeps' FWHT, the shift-weighted chains and the slot quotients."""
+    pair) a row of P: the eight path-sum tables of each marker (entry
+    (r, fp, sk)), a shift's row in four lanes of 16 states (state 16 j + i
+    = (b', a) with b' = 2 j + i // 8, a = i % 8), each emission value as
+    (F L) R summed over r, the FWHT's stage order, lam / 64 between the
+    transforms, a row's sum before its shift weight, the chains and the
+    slot quotients."""
     B, M = fbres.fw_pre.shape[:2]
     lane = torch.arange(32)
     fp, sk = (lane >> 1) & 7, lane & 1
@@ -217,9 +224,13 @@ def _kernel_form(fbres, blocks, flag2ignore, lam):
     froot = [pairs(blocks.froot.reshape(B, M, 4), q) for q in range(2)]
     logw = pairs(fbres.fw_pre_f, 0) + pairs(fbres.bw_f, 1)
     w = torch.exp(logw - logw.max(dim=-1, keepdim=True).values)
-    X, Y = pairs(fbres.fw_pre, 0), pairs(fbres.bw, 1)
-    lam_p = lam[None].expand(B, -1, -1).reshape(-1, 64)
-    a, blo = lane & 7, lane >> 3
+    P = B * (M - 1)
+    X = pairs(fbres.fw_pre, 0).reshape(P, 8, 4, 16)
+    Y = pairs(fbres.bw, 1).reshape(P, 8, 4, 16)
+    lam_p = (lam * (1.0 / 64.0))[None].expand(B, -1, -1).reshape(P, 4, 16)
+    i = torch.arange(16)
+    a = i & 7                                                 # [i]
+    bp = 2 * torch.arange(4)[:, None] + (i >> 3)[None, :]     # [j, i]
     chains = []
     for v in range(8):
         lt = v if 2 <= v <= 4 else 0
@@ -227,23 +238,24 @@ def _kernel_form(fbres, blocks, flag2ignore, lam):
         acc = 0.0
         for s in range(8):
             t_, u, vv = s & 1, (s >> 1) & 1, s >> 2
-            e = [[0.0, 0.0], [0.0, 0.0]]
-            for q in range(2):
-                for h, bb in enumerate((blo, blo + 4)):
-                    for r in range(2):
-                        f = froot[q][:, r * 2 + t_, None]
-                        if v == 1 and r ^ t_:
-                            f = -f
-                        e[q][h] = e[q][h] + \
-                            (f * tab[q][lt][:, r * 16 + a * 2 + u]) * \
-                            tab[q][rt][:, r * 16 + bb * 2 + vv]
-            lo, hi = _fwht64_lanes(X[:, s, :32] * e[0][0],
-                                   X[:, s, 32:] * e[0][1])
-            lo, hi = _fwht64_lanes(lo * lam_p[:, :32], hi * lam_p[:, 32:])
-            lo, hi = lo * (1.0 / 64.0), hi * (1.0 / 64.0)
-            acc = acc + w[:, s, None] * (lo * (e[1][0] * Y[:, s, :32]) +
-                                         hi * (e[1][1] * Y[:, s, 32:]))
-        chains.append(acc.sum(dim=-1))
+
+            def emission(q):
+                """[P, 4, 16]: (F L) R summed over r, the twin's order"""
+                e = 0.0
+                for r in range(2):
+                    f = froot[q][:, r * 2 + t_]
+                    if v == 1 and r ^ t_:
+                        f = -f
+                    fl = f[:, None, None] * \
+                        tab[q][lt][:, r * 16 + a * 2 + u][:, None, :]
+                    e = e + fl * tab[q][rt][:, r * 16 + bp * 2 + vv]
+                return e
+            xs = _fwht64_by4(X[:, s] * emission(0))
+            xs = _fwht64_by4(xs * lam_p)
+            # a row's 64 states summed before its shift weight
+            part = (xs * emission(1) * Y[:, s]).sum(dim=(-1, -2))
+            acc = acc + w[:, s] * part
+        chains.append(acc)
     tot = chains[0]
     ok = tot > 0
     cols = [torch.where(ok, 0.5 + 0.5 * c / torch.where(ok, tot, 1.0), 0.5)

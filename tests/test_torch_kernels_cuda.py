@@ -27,16 +27,20 @@ update stage's kernels (csrc/capped.cu's two entries, csrc/relskew.cu)
 against their plain versions on the lanes and rows of
 tests/torch_update_util.py, edge lanes included (float64 and float32,
 M in {1, 2, 11}, scalefactor 0.013 and 0); the kernels take the plain
-versions' roundings operation for operation, and their hits must be the
-same.  ``test_coherence_matches_plain`` holds csrc/coherence.cu (all seven
-slots' coherence in one launch) against its plain twin on the classic
-sweeps, on the edge batch (random canonical-path masks), where the totals
-vanish (a shift with no mass, a marker with none, a zero backward row), on
-an untyped unit, on the marker-blocked scan's two-column boundary span and
-at M = 2 and 1; in float32 held to the plain twin's accuracy against
-float64 on the same inputs promoted (its worst error in units of the
-tolerance within twice the plain float32 version's, or within the
-tolerance).
+versions' roundings operation for operation: csrc/capped.cu's values and
+hits must be the plain version's bit for bit, csrc/relskew.cu's within
+the tolerance.  ``test_capped_divergent_lanes`` puts lanes that stop at
+very different steps (all 51, or none) side by side in one warp, at lane
+counts that fill no whole block.  ``test_coherence_matches_plain`` holds
+csrc/coherence.cu (all seven slots' coherence in one launch) against its
+plain twin on the classic sweeps, on the edge batch (random
+canonical-path masks), where the totals vanish (a shift with no mass, a
+marker with none, a zero backward row), on an untyped unit, on the
+marker-blocked scan's two-column boundary span, at M = 2 and 1 and at a
+pair count that fills no whole block (ragged); in float32 held to the
+plain twin's accuracy against float64 on the same inputs promoted (its
+worst error in units of the tolerance within twice the plain float32
+version's, or within the tolerance).
 
 Run on a machine with the card (tests/conftest.py imports JAX):
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
@@ -776,7 +780,7 @@ def test_fb_ext_carries_match_plain(card, case, V, dtype):
             assert not torch.equal(unclipped[1], carries[1])
 
 
-def _update_lanes(card, monkeypatch, entry, dtype, M, sf):
+def _update_lanes(card, monkeypatch, entry, dtype, M, sf, N=12):
     """The lane arguments that update_haploweights / update_infprobs hand
     ``entry`` on the card, from torch_update_util's inputs with their edge
     lanes (the kernel's own results discarded)."""
@@ -795,8 +799,14 @@ def _update_lanes(card, monkeypatch, entry, dtype, M, sf):
     def dev(x):
         x = torch.as_tensor(np.array(x))
         return x.to(card, dtype) if x.is_floating_point() else x.to(card)
-    update(*(dev(x) for x in make(M=M)), RuntimeParams(), sf)
+    update(*(dev(x) for x in make(N=N, M=M)), RuntimeParams(), sf)
     return seen[0]
+
+
+def _same(got, ref):
+    """Bit for bit, NaN where NaN."""
+    return torch.equal(got.isnan(), ref.isnan()) and \
+        torch.equal(got.nan_to_num(0.0), ref.nan_to_num(0.0))
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -806,7 +816,7 @@ def _update_lanes(card, monkeypatch, entry, dtype, M, sf):
 def test_capped_matches_plain(card, monkeypatch, entry, M, sf, dtype):
     """csrc/capped.cu against the plain version on the card, on the edge
     lanes of torch_update_util (flat, NaN gradients, eps and 1 - eps,
-    breakathalf, no mass): values within TOL, the same hits, one
+    breakathalf, no mass): the same values bit for bit, the same hits, one
     launch."""
     from cnf2freq_tpu_torch.updates import capped as pcap
     args = _update_lanes(card, monkeypatch, entry, dtype, M, sf)
@@ -816,7 +826,58 @@ def test_capped_matches_plain(card, monkeypatch, entry, M, sf, dtype):
     assert fn.launches == before + 1
     rv, rhit = getattr(pcap, entry + "_reference")(*args)
     torch.cuda.synchronize()
-    _close([v], [rv], dtype)
+    assert _same(v, rv)
+    assert torch.equal(hit, rhit)
+
+
+# torch_update_util's edge rows: haploweights 0 eps, 1 1 - eps, 2-3 flat,
+# 4 NaN gradients, 5-6 breakathalf; genotypes 0 eps and 1 - eps, 1-2 flat,
+# 3 a NaN mass, 4 no mass
+EDGE_ROWS = {"capped_haplo": 7, "capped_infprob": 5}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("sf", [0.013, 0.0])
+@pytest.mark.parametrize("rows", [1, 33, 4097])
+@pytest.mark.parametrize("entry", ["capped_haplo", "capped_infprob"])
+def test_capped_divergent_lanes(card, monkeypatch, entry, rows, sf, dtype):
+    """csrc/capped.cu walks each thread's lanes one bisection step at a
+    time, so lanes that stop at very different steps share a warp: rows of
+    one lane (genotypes: one row's 4 lanes) drawn from a pool of 4,096
+    (torch_update_util's edge rows and random ones), every other row one
+    whose plain bisection runs the pool's most steps (all 51 where the
+    pool has such rows: a lane beside a near-double root of its gradient,
+    rare in float64 genotypes), between them the edge rows (eps, 1 - eps,
+    flat, NaN gradients, breakathalf, no mass) and random ones; lane
+    counts of 1, 33 and 4,097 (genotypes 4, 132 and 4,100, at most 1,025
+    rows), no multiple of a block or of the grid's threads.  Values and
+    hits bit for bit the plain version's, one launch."""
+    import chip_smoke
+
+    from cnf2freq_tpu_torch.updates import capped as pcap
+    pool = _update_lanes(card, monkeypatch, entry, dtype, 1, 0.013, N=4096)
+    reference = getattr(pcap, entry + "_reference")
+    _, steps = chip_smoke.plain_lane_steps(reference, pool)
+    per_row = steps.reshape(4096, -1).amax(dim=1).cpu()
+    long_rows = torch.nonzero(per_row == per_row.max()).flatten()
+    edge_rows = torch.arange(EDGE_ROWS[entry])
+    other = torch.arange(EDGE_ROWS[entry], 4096)
+    n = min(rows, 1025) if entry == "capped_infprob" else rows
+    k = torch.arange(n)
+    idx = torch.where(k % 2 == 0, long_rows[(k // 2) % len(long_rows)],
+                      torch.where(k % 4 == 1, edge_rows[(k // 4) %
+                                                        len(edge_rows)],
+                                  other[(k * 37) % len(other)])).to(card)
+    args = tuple(x[idx] if torch.is_tensor(x) else x for x in pool[:-1]) + \
+        (sf,)
+    fn = getattr(pcap, entry)
+    before = fn.launches
+    v, hit = fn(*args)
+    assert fn.launches == before + 1
+    rv, rhit = reference(*args)
+    torch.cuda.synchronize()
+    assert v.numel() == (n if entry == "capped_haplo" else 4 * n)
+    assert _same(v, rv)
     assert torch.equal(hit, rhit)
 
 
@@ -868,7 +929,7 @@ def test_update_wrappers_check(card):
 
 
 COHERENCE_CASES = ["sweeps", "edge_batch", "edges", "flat_unit",
-                   "boundary_span", "M2", "M1"]
+                   "boundary_span", "M2", "M1", "ragged"]
 
 
 def _coherence_inputs(card, dtype, case):
@@ -889,8 +950,10 @@ def _coherence_inputs(card, dtype, case):
     fbres = FBResult(*pfb.fb_sweeps(assemble_e_all(blocks, cfg), lam))
     if case == "edges":
         fbres = coherence_edge_sweeps(fbres)
+    # ragged: 39 units x 6 markers, 234 pairs (195 with a chain), neither
+    # a multiple of the kernel's 4 pairs a block
     cut = {"boundary_span": slice(4, 6), "M2": slice(0, 2),
-           "M1": slice(0, 1)}.get(case)
+           "M1": slice(0, 1), "ragged": slice(0, 6)}.get(case)
     if cut is not None:
         if case == "boundary_span":
             fbres = boundary_span(fbres, 4)
