@@ -18,7 +18,9 @@ since the script started (t=); any failure exits non-zero:
            marker-blocked scan at its block's shape (K=256 markers, 1000
            units, 0.05 cM apart): with seeded boundary carries
            (fb_sweep_init) and carry-only, forward and backward (fb_carry,
-           timed per launch); in float32 there the kernel is held to its
+           timed per launch, and bare: a CUDA graph of the launches
+           replayed, the device work without the wrapper's Python); in
+           float32 there the kernel is held to its
            plain twin's accuracy against float64 (ACCURACY_SLACK); the
            statistics kernel's probe-rule entries (stats_rules,
            stats_bmns_rules: parity mode's form, one launch per dup-flip
@@ -44,7 +46,15 @@ since the script started (t=); any failure exits non-zero:
            from the lane-steps that the plain version took there
            (plain_lane_steps) and their divergence factors from the same
            steps (capped_divergence), then compared on synthetic lanes
-           with the edges (edge_update_lanes) at that scalefactor and at 0;
+           with the edges (edge_update_lanes) at that scalefactor and at 0,
+           and each capped entry launched on two streams at once (the real
+           lanes and the same rows reversed), each launch bit for bit the
+           plain version's (capped_two_streams); relskew's ratios bit for
+           bit, and its bare time, on the real update (192 markers: the
+           body with its stored states in shared memory) and on its rows
+           at slice_blocked's 2048 markers (their columns repeated: the
+           body with its stored states in a device scratch,
+           relskew_scratch_body);
            the classic scan's coherence kernel (coherence:
            csrc/coherence.cu, all seven slots in one launch) on the
            classic sweeps of the slice's cohort, float32 held to the
@@ -621,6 +631,22 @@ def in_turns(plain, kernel):
     return k, (p1[0] + p2[0]) / 2
 
 
+def bare_rounds(fn, rounds=6, reps=20):
+    """Milliseconds of fn()'s device work per call, without the wrapper's
+    Python: one CUDA graph of ``reps`` calls (captured after a warm-up on
+    a side stream), replayed in ``rounds`` rounds."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return [x / reps for x in cuda_rounds(graph.replay, rounds, 1)]
+
+
 def nbytes(*xs):
     """Bytes of tensors (nested tuples allowed), each counted once."""
     total = 0
@@ -826,6 +852,15 @@ def plain_lane_steps(reference, args):
     if not all(torch.equal(a, b) for a, b in zip(mine, plain)):
         fail("plain_lane_steps: the counted loop departs from cappedgd")
     return out, steps
+
+
+def compare_exact(got, ref, dtype):
+    """compare()'s errors; ok only where the values (NaN where NaN) are the
+    plain version's bit for bit."""
+    a, r, _ = compare(got, ref, dtype)
+    same = torch.equal(got.isnan(), ref.isnan()) and \
+        torch.equal(got.nan_to_num(0.0), ref.nan_to_num(0.0))
+    return a, r, bool(same)
 
 
 def compare_capped(got, ref, dtype):
@@ -1043,19 +1078,67 @@ def check_update_kernels(dtype, record):
     got = w["relskew"](hw, rh)
     record("relskew", got, plain["relskew"](hw, rh),
            lambda: w["relskew"](hw, rh), lambda: plain["relskew"](hw, rh),
-           nbytes(hw, rh, got), hw.numel())
+           nbytes(hw, rh, got), hw.numel(), cmp=compare_exact, bare=True)
+    del got
+    scratch_ok = relskew_scratch_body(hw, rh, dtype)
     edges, ok = edge_update_lanes(dtype), {}
     sf = real["capped_haplo"][-1]
     for name, args in edges.items():
         cases = [()] if name == "relskew" else [(sf,), (0.0,)]
-        res = [(compare_capped if name != "relskew" else compare)(
+        res = [(compare_capped if name != "relskew" else compare_exact)(
             w[name](*args, *c), plain[name](*args, *c), dtype)
             for c in cases]
         ok[name] = all(r[2] for r in res)
         say("kernels", dtype=str(dtype).split(".")[-1], kernel=name,
             edge_lanes=True, scalefactors=[c[0] for c in cases if c],
             max_abs_err=f"{max(r[0] for r in res):.3e}", ok=ok[name])
+    for name in ("capped_haplo", "capped_infprob"):
+        ok[name] = ok[name] and capped_two_streams(name, real[name],
+                                                   plain[name], dtype)
+    ok["relskew"] = ok["relskew"] and scratch_ok
     return ok
+
+
+def relskew_scratch_body(hw, rh, dtype, M=2048):
+    """relskew at slice_blocked's shape, the real update's rows with their
+    columns repeated to M markers, where the kernel keeps its stored
+    states in a device scratch (fails if it would not): its ratios bit for
+    bit the plain version's, and its bare time."""
+    from cnf2freq_tpu_torch.updates import relskew as prs
+    if not prs._needs_scratch(M, dtype):
+        fail(f"relskew: {M} markers no longer take the scratch body")
+    cols = torch.arange(M, device=hw.device) % hw.shape[1]
+    hw, rh = hw[:, cols].contiguous(), rh[:, cols].contiguous()
+    got = prs.relskew_ratio(hw, rh)
+    a, _, ok = compare_exact(got, prs.relskew_ratio_reference(hw, rh), dtype)
+    br = bare_rounds(lambda: prs.relskew_ratio(hw, rh))
+    say("kernels", dtype=str(dtype).split(".")[-1], kernel="relskew",
+        rows=hw.shape[0], markers=M, scratch_body=True,
+        max_abs_err=f"{a:.3e}", bare_ms=f"{statistics.median(br):.4f}",
+        bare_min=f"{min(br):.4f}", bare_max=f"{max(br):.4f}", ok=ok)
+    return ok
+
+
+def capped_two_streams(name, args, reference, dtype):
+    """A capped entry launched on two streams with both launches in flight
+    at once, on the real update's lanes and on the same rows reversed:
+    each launch takes its lanes from a counter of its own, so both give
+    the plain version's values and hits bit for bit."""
+    flipped = tuple(x.flip(0) if torch.is_tensor(x) else x for x in args)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    fn = wrappers()[name]
+    torch.cuda.synchronize()
+    got = []
+    for stream, a in zip(streams, (args, flipped)):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            got.append(fn(*a))
+    torch.cuda.synchronize()
+    same = [compare_capped(g, reference(*a), dtype)[2]
+            for g, a in zip(got, (args, flipped))]
+    say("kernels", dtype=str(dtype).split(".")[-1], kernel=name,
+        two_streams=True, same_as_plain=same, ok=all(same))
+    return all(same)
 
 
 def check_kernels(dtype):
@@ -1078,7 +1161,7 @@ def check_kernels(dtype):
     out = {}
 
     def record(name, got, ref, kernel, plain, moved, work, cmp=compare,
-               launches_per_call=1, ops=None, **tol):
+               launches_per_call=1, ops=None, bare=False, **tol):
         a, r, ok = cmp(got, ref, dtype)
         rounds, p_ms = in_turns(plain, kernel)
         rounds = [x / launches_per_call for x in rounds]
@@ -1087,6 +1170,10 @@ def check_kernels(dtype):
         b_ms, b_by = bound(name, moved, work, dtype, ops)
         out[name] = dict(max_abs_err=a, max_rel_err=r, ok=ok, ms=k_ms,
                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+        if bare:  # the device work alone, a graph of the kernel's calls
+            br = [x / launches_per_call for x in bare_rounds(kernel)]
+            tol.update(bare_ms=f"{statistics.median(br):.4f}",
+                       bare_min=f"{min(br):.4f}", bare_max=f"{max(br):.4f}")
         rtol, atol = TOL[dtype]
         say("kernels", dtype=str(dtype).split(".")[-1], kernel=name,
             max_abs_err=f"{a:.3e}", max_rel_err=f"{r:.3e}", rtol=rtol,
@@ -1248,7 +1335,7 @@ def check_kernels(dtype):
     # one launch moves e, the eigenvalue rows and one carry in and out
     record("fb_carry", got, plain_carries(), carries, plain_carries,
            nbytes(e, lam_pad, init_fwd, got[:2]), R * 8 * K,
-           cmp=as_accurate(ref64), launches_per_call=2)
+           cmp=as_accurate(ref64), launches_per_call=2, bare=True)
     del e, got, ref64, e64
     torch.cuda.empty_cache()
 
@@ -3456,9 +3543,11 @@ def main():
         max_registers=max(regs, default=None), spill_store_bytes=spills,
         ptxas_report=report)
     # the statistics kernel's instantiations (type, layout, probe rules),
-    # the capped entries' and the coherence kernel's
+    # the capped entries', the coherence kernel's, the carry-only sweep's
+    # and the relskew HMM's
     for m in re.finditer(r"Compiling entry function '(\w*(?:stats|capped_"
-                         r"haplo|capped_infprob|coherence)_kernel\w*)'"
+                         r"haplo|capped_infprob|coherence|fb_carry|relskew)"
+                         r"_kernel\w*)'"
                          r"(.*?)Used (\d+) registers", text, re.S):
         sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                        m.group(2))

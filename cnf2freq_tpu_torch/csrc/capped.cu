@@ -52,8 +52,10 @@
 // would issue 2.2 (genotypes) to 4.1 (float64 haploweights) times the
 // lane-steps a real update needs.  So the lanes of a launch form one
 // queue: the grid is persistent (as many threads as the card holds at
-// once); each warp takes kChunk lanes at a time from a counter that the
-// launch zeroes on its stream, and its threads run one bisection step an
+// once); each warp takes kChunk lanes at a time from the launch's own
+// counter word (the wrapper allocates it zeroed on the launch's stream,
+// so launches in flight at once on one card share nothing), and its
+// threads run one bisection step an
 // iteration, a thread whose lane ends (done, dead or skipped) taking the
 // warp's next lane before the following step.  A warp then waits only for
 // the tail of the whole queue (modelled from the real update's steps:
@@ -74,11 +76,6 @@ constexpr int kThreads = 128;
 constexpr int kNodes = 15;
 constexpr int kChunk = 32;  // lanes a warp takes from the counter at once
 constexpr unsigned kFullMask = 0xffffffffu;
-
-// the lanes taken so far of each entry's launch: [infprob][f64]; a
-// launch of one entry and type runs alone on its device (the port
-// launches on one stream)
-__device__ unsigned long long g_taken[2][2];
 
 // np.polynomial.legendre.leggauss(15), the plain twin's nodes and weights
 // (17 significant digits: each is the twin's double exactly, and its
@@ -285,8 +282,8 @@ struct Bisection {
 };
 
 // The lanes of one launch, shared by its persistent grid: each warp takes
-// kChunk lanes at a time from the launch's counter (zeroed on its stream
-// before the launch) and hands them to its threads in lane order, one
+// kChunk lanes at a time from the launch's counter (a word of its own,
+// zero at the launch) and hands them to its threads in lane order, one
 // step at a time: a thread whose lane is done (or dead, or skipped) takes
 // the warp's next lane before the following step.  ``lanes.open(i, b)``
 // loads lane i into b and returns whether it needs a step (else it has
@@ -413,19 +410,6 @@ __global__ void __launch_bounds__(kThreads)
   walk_lanes(lanes, L, st, counter);
 }
 
-// the counter of an entry's launch, zeroed on the launch's stream
-template <typename T>
-cudaError_t zeroed_counter(int infprob, void* stream,
-                           unsigned long long** counter) {
-  void* base = nullptr;
-  cudaError_t err = cudaGetSymbolAddress(&base, g_taken);
-  if (err != cudaSuccess) return err;
-  *counter = static_cast<unsigned long long*>(base) + infprob * 2 +
-             (sizeof(T) == 8 ? 1 : 0);
-  return cudaMemsetAsync(*counter, 0, sizeof(unsigned long long),
-                         (cudaStream_t)stream);
-}
-
 // blocks of the persistent grid for L lanes: as many as the card holds at
 // once (the SMs times the kernel's resident blocks an SM, queried once a
 // device), fewer if the lanes fill fewer (a lane a thread)
@@ -461,15 +445,15 @@ Step<T> make_step(T sf, T tol, T subst, T flat_limit, int frozen,
 template <typename T>
 int launch_haplo(const T* w, const T* B, const T* C, const T* sim,
                  const T* rel, const T* desc, const T* eps,
-                 const unsigned char* brk, T* out, unsigned char* hit, int L,
-                 int per_row, T ef, T sf, T tol, T subst, T flat_limit,
-                 int frozen, int iters, void* stream) {
-  if (L < 0 || per_row <= 0 || iters < 0) return (int)cudaErrorInvalidValue;
+                 const unsigned char* brk, T* out, unsigned char* hit,
+                 unsigned long long* counter, int L, int per_row, T ef, T sf,
+                 T tol, T subst, T flat_limit, int frozen, int iters,
+                 void* stream) {
+  if (L < 0 || per_row <= 0 || iters < 0 || counter == nullptr)
+    return (int)cudaErrorInvalidValue;
   if (L == 0) return 0;
   int grid = 0;
-  unsigned long long* counter = nullptr;
-  cudaError_t err = grid_for(capped_haplo_kernel<T>, L, &grid);
-  if (err == cudaSuccess) err = zeroed_counter<T>(0, stream, &counter);
+  const cudaError_t err = grid_for(capped_haplo_kernel<T>, L, &grid);
   if (err != cudaSuccess) return (int)err;
   capped_haplo_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       HaploLanes<T>{w, B, C, sim, rel, desc, eps, brk, out, hit, per_row,
@@ -480,16 +464,16 @@ int launch_haplo(const T* w, const T* B, const T* C, const T* sim,
 
 template <typename T>
 int launch_infprob(const T* cp, const T* a, const T* t, const T* prior,
-                   const T* eps, T* out, unsigned char* hit, int L,
-                   int per_row, T ef, T sf, T tol, T subst, T flat_limit,
-                   int frozen, int iters, void* stream) {
-  if (L < 0 || L % 2 != 0 || per_row <= 0 || iters < 0)
+                   const T* eps, T* out, unsigned char* hit,
+                   unsigned long long* counter, int L, int per_row, T ef,
+                   T sf, T tol, T subst, T flat_limit, int frozen, int iters,
+                   void* stream) {
+  if (L < 0 || L % 2 != 0 || per_row <= 0 || iters < 0 ||
+      counter == nullptr)
     return (int)cudaErrorInvalidValue;
   if (L == 0) return 0;
   int grid = 0;
-  unsigned long long* counter = nullptr;
-  cudaError_t err = grid_for(capped_infprob_kernel<T>, L, &grid);
-  if (err == cudaSuccess) err = zeroed_counter<T>(1, stream, &counter);
+  const cudaError_t err = grid_for(capped_infprob_kernel<T>, L, &grid);
   if (err != cudaSuccess) return (int)err;
   capped_infprob_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       InfprobLanes<T>{cp, a, t, prior, eps, out, hit, per_row, ef}, L,
@@ -515,52 +499,55 @@ int cnf_capped_threads(int infprob, int f64, int L, int* threads) {
   return (int)err;
 }
 
+// counter: the launch's own lane counter, one unsigned 64-bit word that
+// is zero when the launch starts (the wrapper zeroes it on the stream)
 int cnf_capped_haplo_f32(const float* w, const float* B, const float* C,
                          const float* sim, const float* rel,
                          const float* desc, const float* eps,
                          const unsigned char* brk, float* out,
-                         unsigned char* hit, int L, int per_row, float ef,
-                         float sf, float tol, float subst, float flat_limit,
-                         int frozen, int iters, void* stream) {
-  return launch_haplo<float>(w, B, C, sim, rel, desc, eps, brk, out, hit, L,
-                             per_row, ef, sf, tol, subst, flat_limit, frozen,
-                             iters, stream);
+                         unsigned char* hit, unsigned long long* counter,
+                         int L, int per_row, float ef, float sf, float tol,
+                         float subst, float flat_limit, int frozen, int iters,
+                         void* stream) {
+  return launch_haplo<float>(w, B, C, sim, rel, desc, eps, brk, out, hit,
+                             counter, L, per_row, ef, sf, tol, subst,
+                             flat_limit, frozen, iters, stream);
 }
 
 int cnf_capped_haplo_f64(const double* w, const double* B, const double* C,
                          const double* sim, const double* rel,
                          const double* desc, const double* eps,
                          const unsigned char* brk, double* out,
-                         unsigned char* hit, int L, int per_row, double ef,
-                         double sf, double tol, double subst,
-                         double flat_limit, int frozen, int iters,
-                         void* stream) {
+                         unsigned char* hit, unsigned long long* counter,
+                         int L, int per_row, double ef, double sf,
+                         double tol, double subst, double flat_limit,
+                         int frozen, int iters, void* stream) {
   return launch_haplo<double>(w, B, C, sim, rel, desc, eps, brk, out, hit,
-                              L, per_row, ef, sf, tol, subst, flat_limit,
-                              frozen, iters, stream);
+                              counter, L, per_row, ef, sf, tol, subst,
+                              flat_limit, frozen, iters, stream);
 }
 
 int cnf_capped_infprob_f32(const float* cp, const float* a, const float* t,
                            const float* prior, const float* eps, float* out,
-                           unsigned char* hit, int L, int per_row, float ef,
-                           float sf, float tol, float subst,
-                           float flat_limit, int frozen, int iters,
-                           void* stream) {
-  return launch_infprob<float>(cp, a, t, prior, eps, out, hit, L, per_row,
-                               ef, sf, tol, subst, flat_limit, frozen, iters,
-                               stream);
+                           unsigned char* hit, unsigned long long* counter,
+                           int L, int per_row, float ef, float sf, float tol,
+                           float subst, float flat_limit, int frozen,
+                           int iters, void* stream) {
+  return launch_infprob<float>(cp, a, t, prior, eps, out, hit, counter, L,
+                               per_row, ef, sf, tol, subst, flat_limit,
+                               frozen, iters, stream);
 }
 
 int cnf_capped_infprob_f64(const double* cp, const double* a,
                            const double* t, const double* prior,
                            const double* eps, double* out,
-                           unsigned char* hit, int L, int per_row, double ef,
-                           double sf, double tol, double subst,
-                           double flat_limit, int frozen, int iters,
-                           void* stream) {
-  return launch_infprob<double>(cp, a, t, prior, eps, out, hit, L, per_row,
-                                ef, sf, tol, subst, flat_limit, frozen,
-                                iters, stream);
+                           unsigned char* hit, unsigned long long* counter,
+                           int L, int per_row, double ef, double sf,
+                           double tol, double subst, double flat_limit,
+                           int frozen, int iters, void* stream) {
+  return launch_infprob<double>(cp, a, t, prior, eps, out, hit, counter, L,
+                                per_row, ef, sf, tol, subst, flat_limit,
+                                frozen, iters, stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
-// Asynchronous 16-byte copies from device memory into shared memory
-// (cp.async, sm_80 and later), for the sweeps that stage their inputs a
-// tile of markers ahead of the dependent chain (csrc/fb_small.cu, and the
-// interval rows of csrc/fb_ext.cu's carry-only entry).
+// Asynchronous copies from device memory into shared memory (cp.async,
+// sm_80 and later), for the kernels that stage their inputs a tile of
+// markers ahead of the dependent chain (csrc/fb_small.cu, the interval
+// rows of csrc/fb_ext.cu's carry-only entry, csrc/fb_sweep.cu's
+// carry-only entry, csrc/relskew.cu).
 //
 // A tile's copies are one commit group.  A ring of NT tiles keeps NT - 1
 // groups in flight: before tile t is read, wait_groups<NT - 2>() waits
@@ -21,6 +22,21 @@ __device__ __forceinline__ void copy16_async(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src)
                : "memory");
+}
+
+// B bytes (4, 8 or 16) from global `src` into shared `dst`, both B-byte
+// aligned; 16 bytes bypass L1
+template <int B>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  static_assert(B == 4 || B == 8 || B == 16, "cp.async copies 4, 8 or 16");
+  if constexpr (B == 16) {
+    copy16_async(dst, src);
+  } else {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(src), "n"(B)
+                 : "memory");
+  }
 }
 
 __device__ __forceinline__ void commit_group() {

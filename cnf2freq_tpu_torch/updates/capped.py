@@ -15,8 +15,8 @@ lane-typed entries ``capped_haplo`` (haploweights) and ``capped_infprob``
 runs the entry's plain version (``capped_haplo_reference`` /
 ``capped_infprob_reference``: ``cappedgd`` with the entry's gradient
 closure); a CUDA tensor launches the kernel (the whole bisection on the
-card, its lanes one queue that the resident warps share, no host wait)
-and counts the launch, or raises.
+card, its lanes one queue that the resident warps share through a counter
+word of the launch's own, no host wait) and counts the launch, or raises.
 """
 
 from __future__ import annotations
@@ -190,6 +190,13 @@ def _step_scalars(sf: float, dtype):
             int(sf == 0.0), ITERS)
 
 
+def _lane_counter(device) -> torch.Tensor:
+    """The lane counter of one launch: a zeroed 64-bit word of its own,
+    filled on the current stream, so that launches in flight at once on
+    other streams take their lanes apart."""
+    return torch.zeros(1, dtype=torch.int64, device=device)
+
+
 def _lane_count(n: int) -> int:
     if n >= 2 ** 31:
         raise ValueError(f"{n} lanes: the kernel indexes lanes in 32 bits")
@@ -234,7 +241,8 @@ def capped_haplo(w, B, C, sim, rel, desc, eps, brk, ef: float, sf: float
     hit = torch.empty((N, M), dtype=torch.bool, device=w.device)
     if w.numel():
         _build.launch("capped_haplo", dt, w, B, C, sim, rel, desc, eps, brk,
-                      out, hit, _lane_count(w.numel()), M, float(ef),
+                      out, hit, _lane_counter(w.device),
+                      _lane_count(w.numel()), M, float(ef),
                       *_step_scalars(sf, dt))
         capped_haplo.launches += 1
     return out, hit
@@ -282,7 +290,8 @@ def capped_infprob(cp, a, t, prior, eps, ef: float, sf: float
     hit = torch.empty(shape, dtype=torch.bool, device=a.device)
     if a.numel():
         _build.launch("capped_infprob", dt, cp, a, t, prior, eps, out, hit,
-                      _lane_count(a.numel()), a[0].numel(), float(ef),
+                      _lane_counter(a.device), _lane_count(a.numel()),
+                      a[0].numel(), float(ef),
                       *_step_scalars(sf, dt))
         capped_infprob.launches += 1
     return out, hit

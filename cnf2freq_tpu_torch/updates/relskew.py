@@ -7,11 +7,14 @@ the haploweight gradient as ``relskewterm``.
 
 ``relskew_ratio_reference`` is the plain version, one loop over markers
 with all individuals on the batch axis; ``relskew_ratio`` is its wrapper,
-which launches ``csrc/relskew.cu`` (one thread a row, both passes on the
-card) on a CUDA tensor and counts the launch.
+which launches ``csrc/relskew.cu`` (a row's forward and backward passes
+at once, in two warps, meeting in the middle) on a CUDA tensor and counts
+the launch.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -83,11 +86,20 @@ def _row_view(x: torch.Tensor, shape, dtype, name: str) -> None:
         raise ValueError(f"{name}: row stride {x.stride(0)} over 32 bits")
 
 
+@functools.lru_cache(maxsize=None)
+def _needs_scratch(M: int, dtype) -> bool:
+    """Whether the kernel's stored states at M markers go to a device
+    scratch (they do not fit in shared memory beside its tiles)."""
+    lib = _build.load_kernels()
+    return bool(lib.cnf_relskew_scratch(M, int(dtype == torch.float64)))
+
+
 def relskew_ratio(hw: torch.Tensor, relhaplo: torch.Tensor) -> torch.Tensor:
     """``relskew_ratio_reference`` on the CPU; on the card
     ``csrc/relskew.cu``, which reads hw and relhaplo [N, M] in place
     through their row strides (so the columns of one chromosome need no
-    copy)."""
+    copy), with a [M - 1, N, 2] scratch only where its stored states do
+    not fit on chip."""
     if hw.device.type == "cpu":
         return relskew_ratio_reference(hw, relhaplo)
     N, M = hw.shape
@@ -96,9 +108,10 @@ def relskew_ratio(hw: torch.Tensor, relhaplo: torch.Tensor) -> torch.Tensor:
     _row_view(relhaplo, (N, M), dt, "relhaplo")
     ratio = torch.empty((N, M), dtype=dt, device=hw.device)
     if N and M:
-        fw = torch.empty((M, N, 2), dtype=dt, device=hw.device)
-        _build.launch("relskew_ratio", dt, hw, relhaplo, fw, ratio, N, M,
-                      hw.stride(0), relhaplo.stride(0))
+        scratch = (torch.empty((M - 1, N, 2), dtype=dt, device=hw.device)
+                   if _needs_scratch(M, dt) else None)
+        _build.launch("relskew_ratio", dt, hw, relhaplo, scratch, ratio, N,
+                      M, hw.stride(0), relhaplo.stride(0))
         relskew_ratio.launches += 1
     return ratio
 

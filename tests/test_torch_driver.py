@@ -32,7 +32,8 @@ import boundary.
   ``python -m cnf2freq_tpu_torch --device cpu --count 1`` on a tiny
   written file set — the card's machine has no JAX, and the port imports
   nothing of the JAX package;
-  no module of the port (nor chip_smoke.py) imports either, by its AST;
+  no module of the port (nor chip_smoke.py, nor kernel_ab.py) imports
+  either, by its AST;
 * Driver(ped) runs on the card by default and raises on a machine
   without one instead of running on the CPU.
 """
@@ -262,14 +263,15 @@ def _imported_modules(path):
 
 
 def test_port_imports_nothing_of_jax():
-    """No module of the port, and not chip_smoke.py, imports jax or the
-    JAX package (read from the AST, so comments and docstrings do not
-    count)."""
+    """No module of the port, and neither chip_smoke.py nor kernel_ab.py,
+    imports jax or the JAX package (read from the AST, so comments and
+    docstrings do not count)."""
     files = [os.path.join(root, f)
              for root, _, fs in os.walk(os.path.join(REPO,
                                                      "cnf2freq_tpu_torch"))
              for f in fs if f.endswith(".py")]
-    files.append(os.path.join(REPO, "chip_smoke.py"))
+    files += [os.path.join(REPO, "chip_smoke.py"),
+              os.path.join(REPO, "kernel_ab.py")]
     assert len(files) > 20
     # parity mode's copied flip stage, the extended engine, the
     # families' blocked scan, the reference-parity harness and the

@@ -28,10 +28,17 @@ against their plain versions on the lanes and rows of
 tests/torch_update_util.py, edge lanes included (float64 and float32,
 M in {1, 2, 11}, scalefactor 0.013 and 0); the kernels take the plain
 versions' roundings operation for operation: csrc/capped.cu's values and
-hits must be the plain version's bit for bit, csrc/relskew.cu's within
-the tolerance.  ``test_capped_divergent_lanes`` puts lanes that stop at
+hits must be the plain version's bit for bit, and csrc/relskew.cu's
+ratios.  ``test_capped_divergent_lanes`` puts lanes that stop at
 very different steps (all 51, or none) side by side in one warp, at lane
-counts that fill no whole block.  ``test_coherence_matches_plain`` holds
+counts that fill no whole block; ``test_capped_two_streams`` launches each
+entry on two streams at once (each launch takes a lane counter of its
+own).  ``test_fb_carry_edges`` holds the sweep kernel's carry-only body
+(its own since the scaled-carry redesign) at one, nine and 2048 markers,
+with zeroed rows on its ring's slot edges, dead chains, carries below the
+clip and unit counts that fill no block or no 16-byte copy;
+``test_relskew_kernel_shapes`` holds csrc/relskew.cu bit for bit at 1, 2,
+192 (states in shared memory) and 2048 markers (states in a scratch).  ``test_coherence_matches_plain`` holds
 csrc/coherence.cu (all seven slots' coherence in one launch) against its
 plain twin on the classic sweeps, on the edge batch (random
 canonical-path masks), where the totals vanish (a shift with no mass, a
@@ -59,6 +66,7 @@ import torch
 from torch_port_util import (boundary_span, coherence_edge_sweeps, cohort,
                              flat_unit, torch_batch)
 
+from cnf2freq_tpu_torch.config import ModelConfig
 from cnf2freq_tpu_torch.hmm import probes
 from cnf2freq_tpu_torch.hmm.emission import assemble_e_all, build_blocks
 from cnf2freq_tpu_torch.hmm.forward_backward import FBResult, combined_loglik
@@ -886,7 +894,7 @@ def test_capped_divergent_lanes(card, monkeypatch, entry, rows, sf, dtype):
 def test_relskew_matches_plain(card, M, dtype):
     """csrc/relskew.cu against the plain version on the card, reading a
     chromosome's columns of wider tensors in place, with rows whose mass
-    is rescaled."""
+    is rescaled: the same ratios bit for bit."""
     from torch_update_util import relskew_inputs
 
     from cnf2freq_tpu_torch.updates import relskew as prs
@@ -899,7 +907,179 @@ def test_relskew_matches_plain(card, M, dtype):
     ref = prs.relskew_ratio_reference(wide[0][:, 2:2 + M],
                                       wide[1][:, 2:2 + M])
     torch.cuda.synchronize()
-    _close([got], [ref], dtype)
+    assert _same(got, ref)
+
+
+# the carry-only entry's cases: (K markers, R units); its ring holds 3
+# markers in float32 and 2 in float64 (csrc/fb_sweep.cu's CarryStages), a
+# block 32 units in either type
+CARRY_CASES = {"K1": (1, 64), "K9": (9, 64), "K2048": (2048, 64),
+               "zero_rows": (23, 64), "tiny": (23, 64), "dead": (23, 64),
+               "R36": (9, 36), "R37": (9, 37)}
+
+
+def _carry_case(card, dtype, case):
+    """e [K, 512, R] from U(0.05, 1), the eigenvalue rows of K + 1 random
+    intervals (the first the one below the block), random carries, all
+    drawn with numpy; the case's edits."""
+    from cnf2freq_tpu_torch.config import ModelConfig, RuntimeParams
+    K, R = CARRY_CASES[case]
+    cfg = ModelConfig()
+    rng = np.random.default_rng(31)
+    e = rng.uniform(0.05, 1.0, (K, 512, R))
+    dists = torch.as_tensor(rng.uniform(0.05, 2.0, K + 1), dtype=dtype,
+                            device=card)
+    rows = ps.sweep_eigenvalues(dists, cfg, RuntimeParams(), dtype)
+    carries = [[rng.uniform(0.0, 1.0, (512, R)),
+                rng.normal(0.0, 3.0, (8, R))] for _ in range(2)]
+    dead = []
+    if case == "zero_rows":
+        # zero states of some rows on the ring's slot edges (markers 0-3),
+        # and the last marker
+        for m in (0, 1, 2, 3, K - 1):
+            e[m, rng.choice(512, 40, replace=False), rng.integers(0, R)] = 0
+    elif case == "dead":
+        # whole shift blocks of e at zero: the (shift, unit) chain dies
+        # in both directions (zeros and MINFACTOR)
+        dead = [(0, 0, 0), (2, 3, 5), (7, R - 1, 2), (5, 17, K - 1)]
+        for n, r, m in dead:
+            e[m, n * 64:(n + 1) * 64, r] = 0
+    elif case == "tiny":
+        # carries entering with values below the clip (float64: 1e-300;
+        # float32: 0, negative rounding residue) beside large ones
+        low = TINY if dtype == torch.float64 else -1e-7
+        for p, _ in carries:
+            p[rng.choice(512, 100, replace=False), 1] = low
+            p[:64, 2] = low
+            p[0, 2] = 1.0
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=card)
+    return (t(e), rows[1:K + 1].contiguous(), rows[0].contiguous(),
+            [tuple(t(x) for x in c) for c in carries], dead)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", list(CARRY_CASES))
+def test_fb_carry_edges(card, case, dtype):
+    """The carry-only entry of csrc/fb_sweep.cu (passes A and B of the
+    blocked scan), forward and backward (through the interval below the
+    block), against fb_carry_fwd / fb_carry_bwd: one and nine markers; a
+    2048-marker block, whose scaled carry sums some 2,000 exponents into
+    its log-factor; zeroed e rows on the ring's slot edges; carries
+    entering below the clip; dead (unit, shift) chains, which end at
+    zeros and MINFACTOR; units that fill no whole block (36); rows of
+    units that fill no whole 16-byte copy (37), which the entry refuses
+    (it stages e by 16-byte copies), counting nothing."""
+    import chip_smoke
+    e, lam, below, (fwd, bwd), dead = _carry_case(card, dtype, case)
+    cfg = ModelConfig()
+    before = ps.fb_carry.launches
+    if case == "R37":
+        with pytest.raises(RuntimeError):
+            ps.fb_carry(e, lam, cfg, init=fwd)
+        with pytest.raises(RuntimeError):
+            ps.fb_carry(e, lam, cfg, init=bwd, backward=True,
+                        lam_below=below)
+        assert ps.fb_carry.launches == before
+        return
+    got = (ps.fb_carry(e, lam, cfg, init=fwd) +
+           ps.fb_carry(e, lam, cfg, init=bwd, backward=True,
+                       lam_below=below))
+    assert ps.fb_carry.launches == before + 2
+    ref = (ps.fb_carry_fwd(e, lam, *fwd, cfg) +
+           ps.fb_carry_bwd(e, lam, below, *bwd, cfg))
+    ref64 = None
+    if dtype == torch.float32:
+        d64 = [x.double() for x in (e, lam, below)]
+        ref64 = (ps.fb_carry_fwd(d64[0], d64[1],
+                                 *(x.double() for x in fwd), cfg) +
+                 ps.fb_carry_bwd(*d64, *(x.double() for x in bwd), cfg))
+    torch.cuda.synchronize()
+    # float64: the tolerance; float32: chip_smoke.py's rule, the kernel's
+    # worst error against float64 within twice the plain float32 twin's
+    assert chip_smoke.as_accurate(ref64)(got, ref, dtype)[2]
+    for n, r, _ in dead:
+        for p, f in (got[:2], got[2:]):
+            assert bool((p[n * 64:(n + 1) * 64, r] == 0).all())
+            assert bool(f[n, r] == -1e15)
+
+
+def test_fb_carry_refuses(card):
+    """The carry-only entry refuses misaligned eigenvalue rows and a
+    misaligned e (it stages both by 16-byte copies) and counts nothing
+    then."""
+    e, lam, below, (fwd, _), _ = _carry_case(card, torch.float32, "K9")
+    cfg = ModelConfig()
+    before = ps.fb_carry.launches
+    off = torch.empty(65, dtype=torch.float32, device=card)[1:]
+    off.copy_(below)
+    with pytest.raises(RuntimeError):
+        ps.fb_carry(e, lam, cfg, init=fwd, backward=True, lam_below=off)
+    e_off = torch.empty(e.numel() + 1, dtype=e.dtype, device=card)[1:]
+    e_off = e_off.view(e.shape).copy_(e)
+    with pytest.raises(RuntimeError):
+        ps.fb_carry(e_off, lam, cfg, init=fwd)
+    assert ps.fb_carry.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("M", [1, 2, 192, 2048])
+def test_relskew_kernel_shapes(card, M, dtype):
+    """csrc/relskew.cu (forward and backward at once, meeting in the
+    middle) at one and two markers, at the resident slice's 192 (stored
+    states in shared memory) and the blocked slice's 2048 (stored states
+    in a device scratch), on 77 rows (no multiple of a block's 32), read as
+    the columns 3 .. 3 + M of wider tensors, with rows whose mass falls
+    below 1e-10 (at 192 and 2048 markers): the plain version's ratios bit
+    for bit."""
+    from torch_update_util import forward_rescales, relskew_inputs
+
+    from cnf2freq_tpu_torch.updates import relskew as prs
+    hw, rh = relskew_inputs(N=77, M=M)
+    if M > 3:
+        assert forward_rescales(hw, rh)[:2].all()
+    wide = [torch.as_tensor(np.concatenate([np.full((77, 3), 0.7), x,
+                                            np.full((77, 5), 0.3)], 1),
+                            dtype=dtype, device=card) for x in (hw, rh)]
+    cols = [x[:, 3:3 + M] for x in wide]
+    assert cols[0].stride(0) == M + 8
+    before = prs.relskew_ratio.launches
+    got = prs.relskew_ratio(*cols)
+    assert prs.relskew_ratio.launches == before + 1
+    ref = prs.relskew_ratio_reference(*cols)
+    torch.cuda.synchronize()
+    assert _same(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_capped_two_streams(card, monkeypatch, dtype):
+    """csrc/capped.cu's launches each take their lanes from a counter of
+    their own: each entry launched on two streams at once, on different
+    lanes (4,096 rows and the same rows reversed), and the two entries on
+    two streams at once; every result the plain version's bit for bit."""
+    from cnf2freq_tpu_torch.updates import capped as pcap
+    pools = {entry: _update_lanes(card, monkeypatch, entry, dtype, 1,
+                                  0.013, N=4096)
+             for entry in ("capped_haplo", "capped_infprob")}
+
+    def flipped(args):
+        return tuple(x.flip(0) if torch.is_tensor(x) else x for x in args)
+    runs = [(entry, a) for entry in pools
+            for a in (pools[entry], flipped(pools[entry]))]
+    pairs = [(runs[0], runs[1]), (runs[2], runs[3]), (runs[0], runs[2])]
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for pair in pairs:
+        torch.cuda.synchronize()
+        got = []
+        for stream, (entry, args) in zip(streams, pair):
+            with torch.cuda.stream(stream):
+                got.append(getattr(pcap, entry)(*args))
+        torch.cuda.synchronize()
+        for (entry, args), (v, hit) in zip(pair, got):
+            rv, rhit = getattr(pcap, entry + "_reference")(*args)
+            assert _same(v, rv)
+            assert torch.equal(hit, rhit)
 
 
 def test_update_wrappers_check(card):
