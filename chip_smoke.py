@@ -133,11 +133,13 @@ since the script started (t=); any failure exits non-zero:
            blocks): preprocess(), iterate(early=True), iterate(); prints
            the seconds of passes A, B, C, the per-block follow-ups and
            the rest, the launches of emission, fb_sweep (pass C, with
-           boundary carries), fb_carry (passes A and B), stats, turn and
+           boundary carries), fb_carry (passes A and B), stats, turn,
            coherence (one a block and one a block boundary, each
-           iteration), and the peak device memory of preprocess and of the
-           iterations; fails on a launch count at 0 or a coherence count
-           other than that, on more than one
+           iteration) and emission_bmns (the blocks of each coherence
+           span), and the peak device memory of preprocess and of the
+           iterations; fails on a launch count at 0, a coherence count
+           other than that or an emission_bmns count other than
+           coherence's, on more than one
            batch chunk, on a peak of 20 GB or more (either), on a
            non-finite output or if no relhaplo moved
   parity   a 24 x 32 cohort, float64, on cuda and on the CPU, two
@@ -162,8 +164,10 @@ since the script started (t=); any failure exits non-zero:
            cnf2freq_tpu_torch.cli.main (cuda, float32) with --count 3
            --output --dump --lineorigin --checkpoint, and a resume to
            --count 4 from the checkpoint; prints the seconds of each stage,
-           the launches of fb_classic and stats_bmns (those of the
-           line-origin pass apart), peak device memory and the imputation
+           the launches of fb_classic, stats_bmns, turn_bmns and
+           emission_bmns (those of the line-origin pass apart: one
+           fb_classic and one emission_bmns a chunk), peak device memory
+           and the imputation
            accuracy (argmax of the table's three classes against the
            simulated truth) on the masked (code 9) and on the observed
            entries; fails on a nonzero return, a kernel of the path at 0
@@ -436,6 +440,14 @@ KERNELS = {
     # at :765): all seven slots' pair chains and their total in one launch
     "coherence": ("cnf2freq_tpu_torch/csrc/coherence.cu",
                   "cnf2freq_tpu/hmm/probes.py:765", "classic"),
+    # the classic scan's turn weights and its emission and blocks, kernels
+    # for the JAX package's XLA programs (probes.py:400 turn_weights_fast;
+    # emission.py:364 build_blocks + :409 assemble_e_all): the
+    # [B, M, NS, S] entries of #4's and #1's files
+    "turn_bmns": ("cnf2freq_tpu_torch/csrc/turn.cu",
+                  "cnf2freq_tpu/hmm/probes.py:400", "classic"),
+    "emission_bmns": ("cnf2freq_tpu_torch/csrc/emission.cu",
+                      "cnf2freq_tpu/hmm/emission.py:364", "classic"),
 }
 UPDATE_KERNELS = tuple(k for k, v in KERNELS.items() if v[2] == "update")
 # operations per unit of work, counted from each kernel's arithmetic (for
@@ -471,7 +483,10 @@ OPS = {"emission": 2880, "fb_sweep": 2 * 1152, "stats": 19800,
        # emissions x 8 shifts, both markers' emissions (2 x 64 x 3), two
        # 6-stage FWHTs (2 x 384), the product, scalings and dot product
        # (64 + 128 + 64 + 128)
-       "coherence": 4096 + 64 * (384 + 768 + 64 + 128 + 64 + 128)}
+       "coherence": 4096 + 64 * (384 + 768 + 64 + 128 + 64 + 128),
+       # per (unit, marker): as turn; the emission entry's four threads'
+       # tables (~400 each), 512 pathful entries x 3 and 512 e values x 5
+       "turn_bmns": 15872, "emission_bmns": 4 * 400 + 512 * 3 + 512 * 5}
 # the capped entries' operations per lane-step and per lane, counting a
 # log as one: a step is 16 gradient evaluations (the pseudo-likelihood
 # term's 34 and two logs once its 13 products of (y, g, h) alone are
@@ -598,7 +613,9 @@ def wrappers():
             "fb_ext_init": pfb.fb_ext_block, "fb_ext_carry": pfb.fb_ext_carry,
             "capped_haplo": pcap.capped_haplo,
             "capped_infprob": pcap.capped_infprob,
-            "relskew": prs.relskew_ratio, "coherence": pcoh.coherence}
+            "relskew": prs.relskew_ratio, "coherence": pcoh.coherence,
+            "turn_bmns": ps.turn_weights_bmns,
+            "emission_bmns": ps.emission_bmns}
 
 
 def cuda_rounds(fn, rounds, reps, warm=True):
@@ -1270,6 +1287,34 @@ def check_kernels(dtype):
     del e, got, args
     torch.cuda.empty_cache()
 
+    # the classic scan's turn weights (the [B, M, NS, S] entry of
+    # csrc/turn.cu, routed from probes.turn_weights_fast) on the same
+    # sweeps, and its emission and blocks (that of csrc/emission.cu: froot,
+    # top, pb0, pb1 and e in one launch) on the same batch
+    turn_args = (fbres, fbt, cfg)
+    got = probes.turn_weights_fast(*turn_args)
+    idx = torch.as_tensor(ps.turn_offsets(cfg), device="cuda")
+    record("turn_bmns", got, probes.turn_weights_fast_reference(*turn_args),
+           lambda: probes.turn_weights_fast(*turn_args),
+           lambda: probes.turn_weights_fast_reference(*turn_args),
+           nbytes(fbres.fw_post, fbres.bw, fbres.fw_post_f, fbres.bw_f,
+                  fbt.shiftignore, fbt.descendants, idx, got), M * B,
+           cmp=compare_turn, bare=True, **TURN[dtype])
+    del got
+
+    def plain_blocks():
+        b = build_blocks(fbt, cfg, dtype=dtype)
+        return [b.froot, b.top, *b.pb, assemble_e_all(b, cfg)]
+
+    def kernel_blocks():
+        return list(ps.emission_bmns(fbt, cfg, dtype))
+    got = kernel_blocks()
+    record("emission_bmns", got, plain_blocks(), kernel_blocks, plain_blocks,
+           nbytes(fbt.md, fbt.ms, fbt.hw, fbt.exists.int(), fbt.attop.int(),
+                  got), M * B, cmp=compare_all, bare=True)
+    del got
+    torch.cuda.empty_cache()
+
     # the coherence of the same sweeps (csrc/coherence.cu); in float32
     # held to the plain twin's accuracy against float64 on the same
     # inputs promoted (C divides parity-signed chains by their total)
@@ -1288,7 +1333,7 @@ def check_kernels(dtype):
            nbytes(fbres.fw_pre, fbres.bw, fbres.fw_pre_f, fbres.bw_f, lam,
                   blocks.froot, blocks.pb, fbt.flag2ignore, got),
            B * (M - 1), cmp=as_accurate(ref64))
-    del fbc, fbres, blocks, got, ref, ref64, coh_args
+    del fbc, fbres, blocks, got, ref, ref64, coh_args, turn_args
     torch.cuda.empty_cache()
 
     # -- the marker-blocked scan's sweeps: one block of the blocked slice
@@ -1756,10 +1801,12 @@ def run_slice(phase, adaptive, tracer=False, **driver_attrs):
                           chromosomes=ped.num_chromosomes)
     check_no_capped_syncs(phase, sites)
     if adaptive:
-        # one coherence launch a chunk scan, as the classic statistics
-        if launches["coherence"] != launches["stats_bmns"]:
-            fail(f"{phase}: coherence launches {launches['coherence']}, "
-                 f"stats_bmns {launches['stats_bmns']}")
+        # one coherence, turn-weight and emission launch a chunk scan, as
+        # the classic statistics
+        for k in ("coherence", "turn_bmns", "emission_bmns"):
+            if launches[k] != launches["stats_bmns"]:
+                fail(f"{phase}: {k} launches {launches[k]}, "
+                     f"stats_bmns {launches['stats_bmns']}")
         if moved == 0:
             fail(f"{phase}: no relhaplo moved from its loaded value")
         if rh.min() < RELHAPLO_CLIP or rh.max() > 1 - RELHAPLO_CLIP:
@@ -1808,7 +1855,7 @@ def run_slice_blocked():
     nblk = -(-M // BLOCK)
     w = wrappers()
     names = ("emission", "fb_sweep_init", "fb_carry", "stats",
-             "turn", "coherence") + UPDATE_KERNELS
+             "turn", "coherence", "emission_bmns") + UPDATE_KERNELS
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in w.values():
@@ -1866,6 +1913,11 @@ def run_slice_blocked():
     if launches["coherence"] != 2 * (2 * nblk - 1):
         fail(f"slice_blocked: coherence launches {launches['coherence']}, "
              f"expected {2 * (2 * nblk - 1)}")
+    # each coherence span's blocks come from one emission_bmns launch
+    if launches["emission_bmns"] != launches["coherence"]:
+        fail(f"slice_blocked: emission_bmns launches "
+             f"{launches['emission_bmns']}, coherence "
+             f"{launches['coherence']}")
     check_update_launches("slice_blocked", launches, updates=2,
                           chromosomes=ped.num_chromosomes)
     if max(peaks.values()) >= BLOCKED_PEAK_LIMIT:
@@ -2478,7 +2530,7 @@ def run_impute_example(tmp, card):
     say("impute_example", units=IMPUTE_UNITS, markers=IMPUTE_MARKERS,
         iterations=IMPUTE_ITERS, score=json.dumps(score),
         exit_code=ex.exit_code(score), launches=json.dumps(launches),
-        line_origin_fb_classic_launches=lo_launches,
+        line_origin_launches=json.dumps(lo_launches),
         peak_memory_gb=f"{peak / 1e9:.3f}", card=card)
     sizes = {k: os.path.getsize(p) if os.path.exists(p) else 0
              for k, p in paths.items()}
@@ -2721,14 +2773,16 @@ def table_blocks(path, width):
 @contextlib.contextmanager
 def counting_line_origin(lo_launches):
     """Within the block, each Driver.line_origin_tables call appends the
-    fb_classic launches it made to ``lo_launches``."""
+    fb_classic and emission_bmns launches it made to ``lo_launches``."""
     from cnf2freq_tpu_torch import Driver
     real = Driver.line_origin_tables
+    names = ("fb_classic", "emission_bmns")
 
     def counted(self):
-        before = wrappers()["fb_classic"].launches
+        w = wrappers()
+        before = {k: w[k].launches for k in names}
         out = real(self)
-        lo_launches.append(wrappers()["fb_classic"].launches - before)
+        lo_launches.append({k: w[k].launches - before[k] for k in names})
         return out
 
     Driver.line_origin_tables = counted
@@ -2748,7 +2802,8 @@ def run_cli_once(argv):
     with timed_stages(record), contextlib.redirect_stderr(Tee(sys.stderr,
                                                               err)):
         rc = cli.main(argv)
-    launches = {k: w[k].launches for k in ("fb_classic", "stats_bmns")}
+    launches = {k: w[k].launches for k in ("fb_classic", "stats_bmns",
+                                           "turn_bmns", "emission_bmns")}
     return rc, record, launches, err.getvalue()
 
 
@@ -2790,10 +2845,20 @@ def run_cli(tmp, card, n_f2=1000, n_markers=192):
         if min(launches.values()) <= 0:
             fail(f"cli {tag}: a kernel of the path never launched: "
                  f"{launches}")
-    say("cli", line_origin_fb_classic_launches=lo_launches,
+    say("cli", line_origin_launches=json.dumps(lo_launches),
         peak_memory_gb=f"{peak / 1e9:.3f}", card=card)
-    if not lo_launches or lo_launches[0] <= 0:
-        fail("cli: the line-origin pass launched no fb_classic")
+    # the line-origin pass: one fb_classic and one emission_bmns launch a
+    # chunk
+    if not lo_launches or lo_launches[0]["fb_classic"] <= 0 or \
+            lo_launches[0]["emission_bmns"] != lo_launches[0]["fb_classic"]:
+        fail(f"cli: the line-origin pass launched {lo_launches}")
+    for tag, (_, _, launches, _) in zip(("count3", "resume4"), runs):
+        lo = lo_launches[0]["emission_bmns"] if tag == "count3" else 0
+        if launches["turn_bmns"] != launches["stats_bmns"] or \
+                launches["emission_bmns"] != launches["stats_bmns"] + lo:
+            fail(f"cli {tag}: launches {launches} against "
+                 f"{launches['stats_bmns']} chunk scans and {lo} "
+                 f"line-origin chunks")
 
     err = runs[1][3]
     iters = [ln.split(":")[0] for ln in err.splitlines()
@@ -2912,9 +2977,10 @@ def run_cli_formats(tmp, card, n_f2=1000, n_markers=192):
         say("cli_formats", tracer="host clock, unsynchronised", **split)
     if len(its) != 3:
         fail(f"cli_formats: {len(its)} iteration records, expected 3")
-    if min(launches.values()) <= 0 or \
-            launches["fb_classic"] != len(scans) or \
-            launches["stats_bmns"] != len(scans):
+    if min(launches.values()) <= 0 or any(
+            launches[k] != len(scans) for k in ("fb_classic", "stats_bmns",
+                                                "turn_bmns",
+                                                "emission_bmns")):
         fail(f"cli_formats: launches {launches} against {len(scans)} "
              f"chunk scans")
     if not np.isfinite(numbers(os.path.join(d, "dump"))).all():

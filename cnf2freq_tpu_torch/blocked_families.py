@@ -215,14 +215,15 @@ def family_carries(fb: FamilyBatch, dists: torch.Tensor, ratemat,
 def _stats_ng2(em, fbres, fb_blk, total, cfg, with_turn):
     from .engine_ng2 import (haplo_stats_ng2, haplo_update_mask_ng2,
                              infprob_stats_ng2)
-    from .hmm.probes import posterior_weight, turn_weights_fast
+    from .hmm.probes import posterior_weight, turn_weights_fast_reference
     froot, P2, _, _ = em
     W = posterior_weight(fbres, total, fb_blk.shiftignore)
     b12 = haplo_stats_ng2(W, froot, P2, fb_blk, cfg)
     mask = haplo_update_mask_ng2(fb_blk, cfg)
     inf, pair = infprob_stats_ng2(W, froot, P2, fb_blk, cfg)
     del W
-    turn_w = turn_weights_fast(fbres, fb_blk, cfg) if with_turn else None
+    turn_w = turn_weights_fast_reference(fbres, fb_blk, cfg) \
+        if with_turn else None
     return pair, b12, mask, inf, turn_w
 
 

@@ -14,6 +14,17 @@
 // with tiny the smallest normal of the type and big = -1e38 as the
 // masked factor maximum.
 //
+// Two layouts, two entries sharing the butterflies (wht512) and the
+// weights' epilogue (write_turns):
+//   cnf_turn_*       fw_post, bw [M, 512, R], factors [M, 8, R] (the v2
+//                    scan); replaces the TPU kernel above;
+//   cnf_turn_bmns_*  fw_post, bw [B, M, 8, 64], factors [B, M, 8] (the
+//                    classic scan that carries coherence); replaces the
+//                    JAX package's XLA program hmm/probes.py:400
+//                    turn_weights_fast, which has no TPU kernel.
+// Both write w [B, M, 128].  The notes below are the v2 entry's; the
+// [B, M, NS, S] entry's design is at turn_bmns_kernel.
+//
 // Bound on the H100: memory (2 x 512 loads per pair against 3 x 9 x 256
 // butterflies); the 128 outputs are written straight in the final
 // [B, M, 128] layout.  In [M, 512, R] one pair's 512 values lie at stride
@@ -101,6 +112,25 @@ __device__ __forceinline__ void wht512(T (&v)[16], int lane) {
   shuffle_stage<16>(v, lane);
 }
 
+// the 128 weights of one pair from its D (512 values in shared memory),
+// scaled by descendants d: lane takes t = lane + 32j
+template <typename T>
+__device__ __forceinline__ void write_turns(const T* dr,
+                                            const int* __restrict__ idx,
+                                            T d, T* __restrict__ o,
+                                            int lane) {
+  const T tiny = Tiny<T>::v();
+  const T v0 = dr[0];
+  const T logv0 = log(v0 > tiny ? v0 : tiny);
+#pragma unroll
+  for (int t = lane; t < 128; t += 32) {
+    const T v = dr[idx[t]];
+    const T logv = log(v > tiny ? v : tiny);
+    const T wt = (v > T(0) && v0 > T(0)) ? logv - logv0 : T(cnf::kMinFactor);
+    o[t] = wt * d;
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kUnits * 32)
     turn_kernel(const T* __restrict__ fw_post, const T* __restrict__ bw,
@@ -185,18 +215,83 @@ __global__ void __launch_bounds__(kUnits * 32)
   for (int i = 0; i < 16; ++i) dr[i * 32 + lane] = f[i] * T(1.0 / 512.0);
   __syncwarp();
 
-  const T tiny = Tiny<T>::v();
-  const T v0 = dr[0];
-  const T logv0 = log(v0 > tiny ? v0 : tiny);
-  const T d = desc[r];
-  T* o = out + ((size_t)r * M + m) * 128;
+  write_turns(dr, idx, desc[r], out + ((size_t)r * M + m) * 128, lane);
+}
+
+// The [B, M, NS, S] entry: one warp a (unit b, marker m) pair, whose
+// 512 values lie contiguous, so lane takes x = i*32 + lane straight from
+// device memory (whole sectors) and no tile is staged.  Lane k < 8 of
+// each group of 8 reads the shift factors; the masked maxima are taken
+// by shuffles in the group and register i takes the factor of shift
+// i >> 1 from lane i >> 1.  D goes to the warp's row of shared memory for
+// the gather at the 128 offsets.  Bound: bytes, 2 x 512 loads, 16 factor
+// loads and 128 stores a pair (0.268 / 0.535 ms in float / double at
+// B=1000, M=192).
+constexpr int kPairWarps = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kPairWarps * 32)
+    turn_bmns_kernel(const T* __restrict__ fw_post, const T* __restrict__ bw,
+                     const T* __restrict__ fw_post_f,
+                     const T* __restrict__ bw_f, const int* __restrict__ sh,
+                     const T* __restrict__ desc, const int* __restrict__ idx,
+                     T* __restrict__ out, int M, long long P) {
+  __shared__ T dsh[kPairWarps][512];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long p = (long long)blockIdx.x * kPairWarps + w;
+  if (p >= P) return;  // whole warps; no block barrier follows
+  const int r = (int)(p / M);
+  const size_t base = (size_t)p * 512;
+
+  // shift factors: lane holds shift k = lane & 7
+  const int k = lane & 7;
+  const bool allowed = (k & sh[r]) == 0;
+  const T big = T(-1e38);
+  const T ff = fw_post_f[(size_t)p * 8 + k];
+  const T bf = bw_f[(size_t)p * 8 + k];
+  T ffm = allowed ? ff : big, bfm = bf;
 #pragma unroll
-  for (int t = lane; t < 128; t += 32) {
-    const T v = dr[idx[t]];
-    const T logv = log(v > tiny ? v : tiny);
-    const T wt = (v > T(0) && v0 > T(0)) ? logv - logv0 : T(cnf::kMinFactor);
-    o[t] = wt * d;
+  for (int o = 1; o < 8; o <<= 1) {
+    ffm = fmax(ffm, __shfl_xor_sync(0xffffffffu, ffm, o));
+    bfm = fmax(bfm, __shfl_xor_sync(0xffffffffu, bfm, o));
   }
+  const T fe = allowed ? exp(ff - ffm) : T(0);
+  const T be = exp(bf - bfm);
+
+  T f[16], b[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    f[i] = fw_post[base + i * 32 + lane];
+    b[i] = bw[base + i * 32 + lane];
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    f[i] *= __shfl_sync(0xffffffffu, fe, i >> 1);
+    b[i] *= __shfl_sync(0xffffffffu, be, i >> 1);
+  }
+  wht512(f, lane);
+  wht512(b, lane);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) f[i] *= b[i];
+  wht512(f, lane);
+  T* const dr = dsh[w];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dr[i * 32 + lane] = f[i] * T(1.0 / 512.0);
+  __syncwarp();
+  write_turns(dr, idx, desc[r], out + (size_t)p * 128, lane);
+}
+
+template <typename T>
+int launch_turn_bmns(const T* fw_post, const T* bw, const T* fw_post_f,
+                     const T* bw_f, const int* sh, const T* desc,
+                     const int* idx, T* out, int B, int M, void* stream) {
+  if (M <= 0 || B <= 0) return 0;
+  const long long P = (long long)B * M;
+  const long long grid = (P + kPairWarps - 1) / kPairWarps;
+  turn_bmns_kernel<T><<<(unsigned)grid, kPairWarps * 32, 0,
+                        (cudaStream_t)stream>>>(fw_post, bw, fw_post_f, bw_f,
+                                                sh, desc, idx, out, M, P);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -234,6 +329,22 @@ int cnf_turn_f64(const double* fw_post, const double* bw,
                  int R, int B, void* stream) {
   return launch_turn<double>(fw_post, bw, fw_post_f, bw_f, sh, desc, idx, out,
                              M, R, B, stream);
+}
+
+int cnf_turn_bmns_f32(const float* fw_post, const float* bw,
+                      const float* fw_post_f, const float* bw_f,
+                      const int* sh, const float* desc, const int* idx,
+                      float* out, int B, int M, void* stream) {
+  return launch_turn_bmns<float>(fw_post, bw, fw_post_f, bw_f, sh, desc, idx,
+                                 out, B, M, stream);
+}
+
+int cnf_turn_bmns_f64(const double* fw_post, const double* bw,
+                      const double* fw_post_f, const double* bw_f,
+                      const int* sh, const double* desc, const int* idx,
+                      double* out, int B, int M, void* stream) {
+  return launch_turn_bmns<double>(fw_post, bw, fw_post_f, bw_f, sh, desc,
+                                  idx, out, B, M, stream);
 }
 
 }  // extern "C"

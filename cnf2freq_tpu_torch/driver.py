@@ -140,7 +140,7 @@ from .config import (SEXMARKER, UNKNOWN, ZP_NO_EQUIVALENCE, ModelConfig,
                      RuntimeParams)
 from .engine import recomb_expectations
 from .engine_ng2 import embed7, ng3_equiv
-from .hmm.emission import build_blocks
+from .hmm.emission import build_blocks, scan_blocks
 from .hmm.family import gather_family
 from .hmm.forward_backward import FBResult
 from .hmm.probes import phase_coherence
@@ -1615,8 +1615,8 @@ class Driver:
             cfg, self.params, dists, ratemat=rm)).to(dt)
         fbres = fbres._replace(fw_post=fbres.fw_pre,
                                fw_post_f=fbres.fw_pre_f)
-        return phase_coherence(fbres, build_blocks(fb, cfg, dtype=dt), fb,
-                               cfg, lam)
+        blocks, _ = scan_blocks(fb, cfg, dt, with_e=False)
+        return phase_coherence(fbres, blocks, fb, cfg, lam)
 
     @staticmethod
     def _canonical_scores(scored):

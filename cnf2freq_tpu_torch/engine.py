@@ -9,9 +9,11 @@ states, the deep 7-slot walk, no haplotyping).  The 64-state space runs
 the feature-leading pipeline
 (ops/scan.py; emission, sweep, statistics and turn kernels) unless the
 scan carries adjacent-phase coherence, which runs the classic
-[B, M, NS, S] pipeline: emission blocks -> sweeps (csrc/fb_classic.cu)
--> total log-likelihood -> statistics (the [B, M, NS, S] entry of
-csrc/stats.cu) -> turn weights -> phase coherence.  Two reporters run
+[B, M, NS, S] pipeline: emission blocks and e (the [B, M, NS, S] entry of
+csrc/emission.cu) -> sweeps (csrc/fb_classic.cu) -> total log-likelihood
+-> statistics (the [B, M, NS, S] entry of csrc/stats.cu) -> turn weights
+(the [B, M, NS, S] entry of csrc/turn.cu) -> phase coherence
+(csrc/coherence.cu).  Two reporters run
 their own pass over a chunk: the line-origin classes (``line_origin``, a
 fresh forward/backward through csrc/fb_classic.cu) and the recombination
 expectations of the genetic-map re-estimation (``recomb_expectations``,
@@ -82,7 +84,7 @@ def chromosome_scan(fb: FamilyBatch, dists: torch.Tensor, cfg: ModelConfig,
                                   probe_rules=probe_rules,
                                   n_variants=n_variants)
 
-    from .hmm.emission import assemble_e_all, build_blocks
+    from .hmm.emission import scan_blocks
     from .hmm.forward_backward import combined_loglik, forward_backward
     from .hmm.probes import (haplo_update_mask, phase_coherence,
                              turn_weights_fast)
@@ -90,8 +92,7 @@ def chromosome_scan(fb: FamilyBatch, dists: torch.Tensor, cfg: ModelConfig,
     from .ops.stats import stats_pallas
 
     dtype = fb.ms.dtype
-    blocks = build_blocks(fb, cfg, dtype=dtype)
-    e = assemble_e_all(blocks, cfg)
+    blocks, e = scan_blocks(fb, cfg, dtype)
     fbres = forward_backward(e, dists, cfg, params, ratemat=ratemat)
     del e
     total = combined_loglik(fbres, fb.shiftignore)
@@ -163,11 +164,10 @@ def line_origin(fb: FamilyBatch, dists: torch.Tensor, cfg: ModelConfig,
         raise NotImplementedError(
             "no line-origin reporter for the numgen == 2 haplotyping family "
             "(the JAX package's reporter builds 7-slot blocks only)")
-    from .hmm.emission import assemble_e_all, build_blocks
+    from .hmm.emission import scan_blocks
     from .hmm.forward_backward import combined_loglik, forward_backward
     from .hmm.probes import line_origin_posterior, posterior_weight
-    blocks = build_blocks(fb, cfg, dtype=fb.ms.dtype)
-    e = assemble_e_all(blocks, cfg)
+    blocks, e = scan_blocks(fb, cfg, fb.ms.dtype)
     fbres = forward_backward(e, dists, cfg, params, ratemat=ratemat)
     del e
     total = combined_loglik(fbres, fb.shiftignore)
@@ -186,12 +186,12 @@ def recomb_expectations(fb: FamilyBatch, dists: torch.Tensor,
         from .engine_ext import recomb_expectations_ext
         return recomb_expectations_ext(fb, dists, res, cfg, params,
                                        ratemat=ratemat)
-    from .hmm.emission import assemble_e_all, build_blocks
+    from .hmm.emission import scan_blocks
     from .hmm.forward_backward import FBResult
     from .hmm.probes import recombination_expectations
     from .hmm.transition import interval_recomb, transition_eigenvalues
     dtype = res.fw_pre.dtype
-    e = assemble_e_all(build_blocks(fb, cfg, dtype=dtype), cfg)
+    _, e = scan_blocks(fb, cfg, dtype)
     lam = transition_eigenvalues(
         cfg, interval_recomb(cfg, params, dists, ratemat=ratemat)).to(dtype)
     pe = res.fw_pre * e

@@ -31,7 +31,7 @@ from .hmm.family import FamilyBatch
 from .hmm.forward_backward import (FBResult, combined_loglik,
                                    forward_backward)
 from .hmm.probes import (pair_coherence_from_ej, posterior_weight,
-                         turn_weights_fast)
+                         turn_weights_fast_reference)
 from .hmm.transition import interval_recomb, transition_eigenvalues
 from .utils.transfer import constant
 
@@ -326,7 +326,9 @@ def chromosome_scan_ng2(fb: FamilyBatch, dists: torch.Tensor,
     else:
         inf = torch.zeros((B, M, 3, 2, 2), dtype=dtype, device=W.device)
         pair = torch.zeros((B, M, 2, 2), dtype=dtype, device=W.device)
-    turn_w = turn_weights_fast(fbres, fb, cfg)
+    # the 4-state space's turn weights are plain on every device (no
+    # kernel yet: ROADMAP Queue 2)
+    turn_w = turn_weights_fast_reference(fbres, fb, cfg)
     if with_coherence:
         lam = transition_eigenvalues(cfg, interval_recomb(
             cfg, params, dists, ratemat=ratemat)).to(dtype)

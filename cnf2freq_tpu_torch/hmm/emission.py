@@ -13,7 +13,11 @@ per (unit, marker).  Port of ``cnf2freq_tpu/hmm/emission.py``: the
 preprocessing uses, the GENOS ``update`` mode, and the extended state
 spaces' root options (``root_override``: the selfing
 HBD-collapsed focal pair; ``no_root_collapse``: RELSKEWSTATES keeps both
-root interpretations at a duplicate-allele marker).
+root interpretations at a duplicate-allele marker).  ``scan_blocks`` is
+what the classic scan calls each iteration: ``build_blocks`` +
+``assemble_e_all`` on the CPU, their kernel (the [B, M, NS, S] entry of
+csrc/emission.cu) on the card; ``build_blocks`` itself stays plain for
+its option-bearing callers (preprocessing, the extended spaces).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 from ..config import (GENOS, SEXMARKER, UNKNOWN, ZP_NONE, ZP_PROPAGATE,
                       ModelConfig)
 
+from ..ops.scan import emission_bmns
 from ..utils.transfer import constant
 from .family import FamilyBatch
 
@@ -356,6 +361,22 @@ def assemble_e_all(blocks: EmissionBlocks, cfg: ModelConfig) -> torch.Tensor:
     tops = blocks.top.sum(dim=-2).repeat(1, 1, cfg.numshifts // 2)
     tops = tops[:, :, :, None].expand(B, M, cfg.numshifts, cfg.numtypes)
     return torch.where(blocks.focal_attop[:, None, None, None], tops, e)
+
+
+def scan_blocks(fb: FamilyBatch, cfg: ModelConfig, dtype=torch.float64,
+                with_e: bool = True):
+    """(EmissionBlocks, e [B, M, NS, S] or None) of the standard options,
+    everything the classic scan reads from the emission model: on the CPU
+    ``build_blocks`` + ``assemble_e_all`` (the twin); on the card one
+    launch of the [B, M, NS, S] entry of csrc/emission.cu
+    (``ops.scan.emission_bmns``), which raises on what it does not take.
+    ``with_e=False`` leaves e out (None)."""
+    if fb.ms.device.type == "cpu":
+        blocks = build_blocks(fb, cfg, dtype=dtype)
+        return blocks, assemble_e_all(blocks, cfg) if with_e else None
+    froot, top, pb0, pb1, e = emission_bmns(fb, cfg, dtype, with_e=with_e)
+    return EmissionBlocks(froot=froot, top=top, pb=(pb0, pb1),
+                          focal_attop=fb.attop[:, 0]), e
 
 
 def emission_all(fb: FamilyBatch, cfg: ModelConfig, ci: bool = False,

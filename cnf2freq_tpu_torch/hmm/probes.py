@@ -12,10 +12,11 @@ plain XLA in the JAX package, so they are plain PyTorch here: the
 Walsh-Hadamard products are butterflies (``transition.fwht``), and each
 multi-operand einsum of the coherence emissions is written as pairwise
 contractions, so that no [B, M, ...] intermediate is larger than the
-[B, M, NS, S] result.  The all-slot coherence is the exception on the
-card: ``phase_coherence`` launches csrc/coherence.cu there
-(``ops.coherence``), and ``phase_coherence_reference`` is its plain
-twin.
+[B, M, NS, S] result.  Two stages of the classic scan are exceptions
+on the card: ``phase_coherence`` (every slot) launches csrc/coherence.cu
+there (``ops.coherence``), with ``phase_coherence_reference`` its plain
+twin, and ``turn_weights_fast`` launches the [B, M, NS, S] entry of
+csrc/turn.cu, with ``turn_weights_fast_reference`` its twin.
 
 Conventions: the state axis g decomposes into (fp1, fp0) and the shift
 axis s into (s2, s1, s0); parent-block path bits are summed with the
@@ -32,6 +33,7 @@ from typing import NamedTuple
 from ..config import MINFACTOR, ModelConfig
 from ..ops.coherence import coherence as coherence_kernel
 from ..ops.scan import turn_offsets
+from ..ops.scan import turn_weights_bmns as turn_kernel
 from ..utils.transfer import constant
 from .emission import EmissionBlocks
 from .family import FamilyBatch
@@ -360,8 +362,22 @@ def infprob_stats(W: torch.Tensor, blocks: EmissionBlocks, fb: FamilyBatch,
 
 def turn_weights_fast(fbres: FBResult, fb: FamilyBatch,
                       cfg: ModelConfig) -> torch.Tensor:
+    """Turn clause weights [B, M, T] of the 64-state space:
+    ``turn_weights_fast_reference`` on the CPU; on the card one launch of
+    the [B, M, NS, S] entry of csrc/turn.cu (``ops.scan.turn_weights_bmns``),
+    which raises on what it does not take."""
+    if fbres.fw_post.device.type == "cpu":
+        return turn_weights_fast_reference(fbres, fb, cfg)
+    return turn_kernel(fbres.fw_post, fbres.bw, fbres.fw_post_f, fbres.bw_f,
+                       fb.shiftignore, fb.descendants, cfg)
+
+
+def turn_weights_fast_reference(fbres: FBResult, fb: FamilyBatch,
+                                cfg: ModelConfig) -> torch.Tensor:
     """Turn clause weights [B, M, T] from one joint Walsh-Hadamard
-    xor-correlation over (shift, state):
+    xor-correlation over (shift, state), on any device (the plain twin of
+    csrc/turn.cu's [B, M, NS, S] entry; the two-generation engines call
+    it for their 4-state space):
 
         D[x] = sum_y fw'[y] * bw'[y ^ x],   x = shift*S + state,
 

@@ -22,6 +22,13 @@ Each stage with a TPU kernel has a plain PyTorch version here
 runs the plain version for a CPU tensor and launches the CUDA kernel for a
 CUDA tensor.
 
+Two wrappers serve the classic [B, M, NS, S] scan that carries coherence
+(``engine.chromosome_scan(with_coherence=True)``) with the same kernels'
+[B, M, NS, S] entries: ``emission_bmns`` (the blocks and e, routed from
+``hmm.emission.scan_blocks``) and ``turn_weights_bmns`` (routed from
+``hmm.probes.turn_weights_fast``); their plain twins live beside those
+routers.
+
 The marker-blocked scan (``blocked_carries``, ``blocked_block_pass``,
 ``blocked_scan_chunk``) holds one block of [K, X, R] tensors at a time:
 pass A runs the forward sweep carry-only over each block and keeps the
@@ -163,6 +170,44 @@ def emission(st: SlotTensors, M: int, cfg: ModelConfig) -> torch.Tensor:
 
 
 emission.launches = 0
+
+
+def emission_bmns(fb: FamilyBatch, cfg: ModelConfig, dtype,
+                  with_e: bool = True):
+    """(froot [B,M,2,2], top [B,M,2,2], pb0, pb1 [B,M,2,8,8,2], e
+    [B,M,8,64] or None): the classic scan's blocks and emission in one
+    launch of the [B, M, NS, S] entry of csrc/emission.cu, read from the
+    family batch in place (``hmm.emission.scan_blocks`` routes a CUDA
+    batch here; replaces the JAX package's ``build_blocks`` +
+    ``assemble_e_all`` under the standard options).  ``with_e=False``
+    skips e's stores.  CUDA tensors only (views are copied to contiguous
+    ones, the flags to int32): every argument's type and shape is checked
+    before any device, and all of them before the launch."""
+    _build.check_config(cfg)
+    B, _, M, _ = fb.md.shape
+    i32 = torch.int32
+    md = fb.md.to(i32).contiguous()
+    ms, hw = fb.ms.contiguous(), fb.hw.contiguous()
+    ex, at = (x.to(i32).contiguous() for x in (fb.exists, fb.attop))
+    specs = ((md, i32, (B, 7, M, 2), "md"), (ms, dtype, (B, 7, M, 2), "ms"),
+             (hw, dtype, (B, 7, M), "hw"), (ex, i32, (B, 7), "exists"),
+             (at, i32, (B, 7), "attop"))
+    for spec in specs:
+        _build.check_form(*spec)
+    for spec in specs:
+        _build.check(*spec)
+    kw = dict(dtype=dtype, device=ms.device)
+    froot, top = (torch.empty((B, M, 2, 2), **kw) for _ in range(2))
+    pb0, pb1 = (torch.empty((B, M, 2, 8, 8, 2), **kw) for _ in range(2))
+    e = torch.empty((B, M, 8, 64), **kw) if with_e else None
+    if B and M:
+        _build.launch("emission_bmns", dtype, md, ms, hw, ex, at, froot, top,
+                      pb0, pb1, e, B, M)
+        emission_bmns.launches += 1
+    return froot, top, pb0, pb1, e
+
+
+emission_bmns.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -446,6 +491,43 @@ def turn_weights(fb2: FBv2, sh: torch.Tensor, descendants: torch.Tensor,
 
 
 turn_weights.launches = 0
+
+
+def turn_weights_bmns(fw_post: torch.Tensor, bw: torch.Tensor,
+                      fw_post_f: torch.Tensor, bw_f: torch.Tensor,
+                      shiftignore: torch.Tensor, descendants: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """w [B, M, 128] in fw_post's dtype from the classic sweeps fw_post,
+    bw [B, M, 8, 64] and fw_post_f, bw_f [B, M, 8], shiftignore [B] and
+    descendants [B]: the [B, M, NS, S] entry of csrc/turn.cu
+    (``hmm.probes.turn_weights_fast`` routes a CUDA tensor here; replaces
+    the JAX package's ``turn_weights_fast``).  CUDA tensors only (views
+    are copied to contiguous ones): every argument's type and shape is
+    checked before any device, and all of them before the launch."""
+    _build.check_config(cfg)
+    B, M = fw_post.shape[:2]
+    dt = fw_post.dtype
+    args = [x.contiguous() for x in (fw_post, bw, fw_post_f, bw_f)]
+    sh = shiftignore.to(torch.int32).contiguous()
+    desc = descendants.to(dt).contiguous()
+    specs = [(x, dt, shape, name) for x, shape, name in zip(
+        args, ((B, M, 8, 64), (B, M, 8, 64), (B, M, 8), (B, M, 8)),
+        ("fw_post", "bw", "fw_post_f", "bw_f"))]
+    specs += [(sh, torch.int32, (B,), "shiftignore"),
+              (desc, dt, (B,), "descendants")]
+    for spec in specs:
+        _build.check_form(*spec)
+    for spec in specs:
+        _build.check(*spec)
+    out = torch.empty((B, M, cfg.numturns), dtype=dt, device=fw_post.device)
+    if B and M:
+        idx = constant(turn_offsets(cfg), sh.device)
+        _build.launch("turn_bmns", dt, *args, sh, desc, idx, out, B, M)
+        turn_weights_bmns.launches += 1
+    return out
+
+
+turn_weights_bmns.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -81,9 +81,10 @@ FUNCTIONS = {"gather_family": "gather_family",
              "apply_parent_swaps": "apply_parent_swaps",
              "reference_flips": "reference_flips"}
 # stages inside the classic scan (engine.chromosome_scan imports them at
-# each call): (module, function)
-SCAN_STAGES = (("hmm.emission", "build_blocks"),
-               ("hmm.emission", "assemble_e_all"),
+# each call): (module, function); on the card the routed emission and turn
+# weights launch their kernels (the [B, M, NS, S] entries of
+# csrc/emission.cu and csrc/turn.cu)
+SCAN_STAGES = (("hmm.emission", "scan_blocks"),
                ("hmm.forward_backward", "forward_backward"),
                ("hmm.probes", "turn_weights_fast"),
                ("hmm.probes", "phase_coherence"),
@@ -91,7 +92,7 @@ SCAN_STAGES = (("hmm.emission", "build_blocks"),
                ("engine_ng2", "forward_backward"),
                ("engine_ng2", "haplo_stats_ng2"),
                ("engine_ng2", "infprob_stats_ng2"),
-               ("engine_ng2", "turn_weights_fast"),
+               ("engine_ng2", "turn_weights_fast_reference"),
                ("engine_nohaplo", "forward_backward"),
                ("engine_nohaplo", "nohaplo_pair"))
 # stages of the extended engine (engine_ext looks them up at each call)

@@ -33,6 +33,7 @@ from torch_port_util import (boundary_span, coherence_edge_sweeps, cohort,
 
 from cnf2freq_tpu.engine import chromosome_scan as jax_chromosome_scan
 from cnf2freq_tpu.hmm import probes as jax_probes
+from cnf2freq_tpu.hmm.emission import assemble_e_all as jax_assemble_e_all
 from cnf2freq_tpu.hmm.emission import build_blocks as jax_build_blocks
 from cnf2freq_tpu.hmm.forward_backward import FBResult as JaxFBResult
 from cnf2freq_tpu.hmm.transition import (interval_recomb as jax_recomb,
@@ -54,9 +55,10 @@ CASE = dict(B=5, M=11, seed=11)
 
 
 @functools.lru_cache(maxsize=None)
-def _case():
-    """(numpy cohort, JAX scan with coherence, JAX turn weights and
-    coherence from the scan's sweeps), each JAX program compiled once."""
+def _programs():
+    """(numpy cohort, JAX scan with coherence, the port's sweeps, the JAX
+    turn weights, coherence and eigenvalues from those sweeps and the JAX
+    blocks and emission of the cohort), each JAX program compiled once."""
     ped, fb, dists, cfg, params = cohort(**CASE)
     fbj = jax_batch(fb)
     dj = jnp.asarray(dists)
@@ -69,11 +71,26 @@ def _case():
         blocks = jax_build_blocks(f, cfg, dtype=jnp.float64)
         lam = jax_eig(cfg, jax_recomb(cfg, params, d))
         return (jax_probes.turn_weights_fast(fbres, f, cfg),
-                jax_probes.phase_coherence(fbres, blocks, f, cfg, lam), lam)
+                jax_probes.phase_coherence(fbres, blocks, f, cfg, lam), lam,
+                blocks.froot, blocks.top, blocks.pb[0], blocks.pb[1],
+                jax_assemble_e_all(blocks, cfg))
 
     sweeps = _sweeps(fb, dists, cfg, params)
     return (ped, fb, dists, cfg, params), res, sweeps, \
         probes_of(fbj, dj, *(jnp.asarray(x.numpy()) for x in sweeps))
+
+
+def _case():
+    """(numpy cohort, JAX scan with coherence, the port's sweeps, (JAX
+    turn weights, coherence, eigenvalues))."""
+    case, res, sweeps, out = _programs()
+    return case, res, sweeps, out[:3]
+
+
+def jax_blocks():
+    """The JAX package's (froot, top, pb0, pb1, e) of ``_case``'s cohort:
+    ``build_blocks`` + ``assemble_e_all`` in the same program."""
+    return _programs()[3][3:]
 
 
 def _sweeps(fb, dists, cfg, params):

@@ -47,7 +47,16 @@ marker-blocked scan's two-column boundary span, at M = 2 and 1 and at a
 pair count that fills no whole block (ragged); in float32 held to the
 plain twin's accuracy against float64 on the same inputs promoted (its
 worst error in units of the tolerance within twice the plain float32
-version's, or within the tolerance).
+version's, or within the tolerance).  ``test_emission_bmns_matches_plain``
+holds the [B, M, NS, S] entry of csrc/emission.cu (routed from
+``hmm.emission.scan_blocks``: froot, top, the pathful parent blocks and e)
+against ``build_blocks`` + ``assemble_e_all`` on the cohort, on the edge
+batch, with every focal a recursion top, at one marker, with an untyped
+unit and without e; ``test_turn_bmns_matches_plain`` the [B, M, NS, S]
+entry of csrc/turn.cu (routed from ``hmm.probes.turn_weights_fast``)
+against ``turn_weights_fast_reference`` on the classic sweeps, at the
+edges of ``turn_edge_sweeps`` (those units bit for bit), at one marker and
+with an untyped unit.
 
 Run on a machine with the card (tests/conftest.py imports JAX):
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
@@ -59,16 +68,18 @@ log of the 512-point transform's worst relative rounding at the cut
 (eps * 512 * e^5), in f64 1e-10.
 """
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 from torch_port_util import (boundary_span, coherence_edge_sweeps, cohort,
-                             flat_unit, torch_batch)
+                             flat_unit, torch_batch, turn_edge_sweeps)
 
 from cnf2freq_tpu_torch.config import ModelConfig
 from cnf2freq_tpu_torch.hmm import probes
-from cnf2freq_tpu_torch.hmm.emission import assemble_e_all, build_blocks
+from cnf2freq_tpu_torch.hmm.emission import (assemble_e_all, build_blocks,
+                                             scan_blocks)
 from cnf2freq_tpu_torch.hmm.forward_backward import FBResult, combined_loglik
 from cnf2freq_tpu_torch.hmm.transition import (interval_recomb,
                                                transition_eigenvalues)
@@ -1193,3 +1204,113 @@ def test_coherence_wrapper_refuses_on_card(card):
     with pytest.raises(ValueError):
         pcoh.coherence(*args[:4], lam.cpu(), *args[5:])
     assert pcoh.coherence.launches == before
+
+
+# the classic scan's [B, M, NS, S] entries of csrc/emission.cu and
+# csrc/turn.cu against their plain twins (build_blocks + assemble_e_all,
+# turn_weights_fast_reference)
+EMISSION_BMNS_CASES = ["cohort", "edge_batch", "all_attop", "M1",
+                       "flat_unit", "no_e"]
+
+
+def _bmns_batch(card, dtype, case):
+    """A family batch on the card: the _inputs cohort (407 pairs, a ragged
+    last block of 32), with unit 3 untyped, or the edited batch (at one
+    marker, or with every focal a recursion top)."""
+    if case in ("edge_batch", "all_attop", "M1"):
+        fb, _, cfg, _ = _edge_batch(M=1 if case == "M1" else 11)
+        if case == "all_attop":
+            fb.attop = fb.attop.copy()
+            fb.attop[:, 0] = True
+    else:
+        _, fb, _, cfg, _ = cohort(B=37, M=11, seed=9, with_vacant=True)
+        if case == "flat_unit":
+            fb = flat_unit(fb, 3)
+    return torch_batch(fb).to(card, dtype), cfg
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", EMISSION_BMNS_CASES)
+def test_emission_bmns_matches_plain(card, case, dtype):
+    fbt, cfg = _bmns_batch(card, dtype, case)
+    before = ps.emission_bmns.launches
+    blocks, e = scan_blocks(fbt, cfg, dtype, with_e=case != "no_e")
+    assert ps.emission_bmns.launches == before + 1
+    ref = build_blocks(fbt, cfg, dtype=dtype)
+    got = [blocks.froot, blocks.top, *blocks.pb]
+    want = [ref.froot, ref.top, *ref.pb]
+    if case == "no_e":
+        assert e is None
+    else:
+        got.append(e)
+        want.append(assemble_e_all(ref, cfg))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert bool(torch.isfinite(g).all())
+    _close(got, want, dtype)
+    assert torch.equal(blocks.focal_attop, fbt.attop[:, 0])
+
+
+TURN_BMNS_CASES = ["sweeps", "edges", "M1", "flat_unit"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", TURN_BMNS_CASES)
+def test_turn_bmns_matches_plain(card, case, dtype):
+    """On the classic sweeps of the _inputs cohort (or with unit 3
+    untyped), at their edges (turn_edge_sweeps: shift 0 alone, D exactly 0
+    or negative; those units' weights exactly the twin's) and at one
+    marker; compared above the cut with the v2 entry's slack."""
+    _, fb, dists, cfg, params = cohort(B=37, M=11, seed=9, with_vacant=True)
+    if case == "flat_unit":
+        fb = flat_unit(fb, 3)
+    fbt = torch_batch(fb).to(card, dtype)
+    d = torch.as_tensor(dists, dtype=dtype, device=card)
+    lam = transition_eigenvalues(cfg, interval_recomb(cfg, params, d))
+    fbres = FBResult(*pfb.fb_sweeps(
+        assemble_e_all(build_blocks(fbt, cfg, dtype=dtype), cfg), lam))
+    if case == "edges":
+        fbres, fbt = turn_edge_sweeps(fbres, fbt)
+    if case == "M1":
+        fbres = FBResult(*(x[:, :1].contiguous() for x in fbres))
+    before = ps.turn_weights_bmns.launches
+    got = probes.turn_weights_fast(fbres, fbt, cfg)
+    assert ps.turn_weights_bmns.launches == before + 1
+    ref = probes.turn_weights_fast_reference(fbres, fbt, cfg)
+    assert got.shape == ref.shape and got.dtype == dtype
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    if case == "edges":
+        np.testing.assert_array_equal(got[[0, 2, 3]], ref[[0, 2, 3]])
+        assert (ref[0] == -2e15).all()
+    cut, slack = TURN[dtype]["cut"], TURN[dtype]["slack"]
+    keep = ref > -cut
+    assert (got[~keep] <= -cut + 1.0).all()
+    np.testing.assert_allclose(got[keep], ref[keep], rtol=TOL[dtype]["rtol"],
+                               atol=TOL[dtype]["atol"] + slack)
+
+
+def test_bmns_wrappers_refuse_on_card(card):
+    """A wrong shape, type or device on the card raises before any
+    launch."""
+    fbt, cfg = _bmns_batch(card, torch.float64, "cohort")
+    B, M = fbt.md.shape[0], fbt.md.shape[2]
+    before = (ps.emission_bmns.launches, ps.turn_weights_bmns.launches)
+    with pytest.raises(TypeError):
+        ps.emission_bmns(fbt, cfg, torch.float32)
+    with pytest.raises(ValueError):
+        ps.emission_bmns(dataclasses.replace(fbt, hw=fbt.hw[:, :6]), cfg,
+                         torch.float64)
+    with pytest.raises(ValueError):
+        ps.emission_bmns(dataclasses.replace(fbt, ms=fbt.ms.cpu()), cfg,
+                         torch.float64)
+    x = torch.zeros((B, M, 8, 64), dtype=torch.float64, device=card)
+    f = torch.zeros((B, M, 8), dtype=torch.float64, device=card)
+    sh, desc = fbt.shiftignore, fbt.descendants
+    with pytest.raises(ValueError):
+        ps.turn_weights_bmns(x, x[..., :32], f, f, sh, desc, cfg)
+    with pytest.raises(TypeError):
+        ps.turn_weights_bmns(x, x.float(), f, f, sh, desc, cfg)
+    with pytest.raises(ValueError):
+        ps.turn_weights_bmns(x, x, f.cpu(), f, sh, desc, cfg)
+    assert before == (ps.emission_bmns.launches,
+                      ps.turn_weights_bmns.launches)

@@ -94,6 +94,34 @@ def boundary_span(fbres, m: int):
         bw_f=torch.stack([zero_f, fbres.bw_f[:, m + 1]], dim=1))
 
 
+def turn_edge_sweeps(fbres, fb):
+    """The classic sweeps (B >= 5 units) and torch batch edited at the
+    [B, M, NS, S] turn kernel's edges (as the v2 entry's card test): units
+    1 and 4 allow shift 0 only; unit 0's D is 0 at offset 0 (every weight
+    MINFACTOR), unit 2's D[0] > 0 and D = 0 off offset 0, unit 3's
+    D[12] < 0; units 0, 2 and 3 count 2 descendants."""
+    fw_post, bw = fbres.fw_post.clone(), fbres.bw.clone()
+    fw_post_f, bw_f = fbres.fw_post_f.clone(), fbres.bw_f.clone()
+    B, M = fw_post.shape[:2]
+    fp, bp = fw_post.view(B, M, 512), bw.view(B, M, 512)
+    sh = fb.shiftignore.clone()
+    sh[[1, 4]] = 7
+    for r in (0, 2, 3):
+        fp[r], bp[r] = 0.0, 0.0
+        fw_post_f[r], bw_f[r] = 0.0, 0.0
+        fp[r, :, 5] = 1.0
+        sh[r] = 0
+    bp[0, :, 9] = 1.0                 # D nonzero at 5 ^ 9 = 12 only
+    bp[2, :, 5] = 1.0                 # D[0] = 1, D = 0 elsewhere
+    bp[3, :, 5] = 1.0                 # D[0] = 1, D[12] = -0.5
+    bp[3, :, 5 ^ 12] = -0.5
+    desc = fb.descendants.clone()
+    desc[[0, 2, 3]] = 2
+    return fbres._replace(fw_post=fw_post, bw=bw, fw_post_f=fw_post_f,
+                          bw_f=bw_f), \
+        dataclasses.replace(fb, shiftignore=sh, descendants=desc)
+
+
 def torch_batch(fb_np, dtype=torch.float64) -> FamilyBatch:
     """CPU tensors of a numpy batch."""
     return fb_np.to("cpu", dtype)
