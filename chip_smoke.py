@@ -12,7 +12,8 @@ since the script started (t=); any failure exits non-zero:
            the slices' shapes (M=192, B=1000), float32 and float64: max
            abs/rel error against the stated tolerance, and CUDA-event
            times taken in turns plain, kernel, kernel, plain: the kernel
-           in 6 rounds of 20 launches (median, min and max), the plain
+           in 6 rounds of 20 launches (of 5 for the kernels of tens of
+           ms: #13 and #14) (median, min and max), the plain
            version once on either side (the mean of the two); the sweep
            kernel's two entries of the
            marker-blocked scan at its block's shape (K=256 markers, 1000
@@ -32,6 +33,15 @@ since the script started (t=); any failure exits non-zero:
            the extended sweeps (fb_ext: V = 3 at the selfing slice's
            inputs; fb_ext_relskewstates: V = 2 at the relskewstates
            slice's, relhaplo drawn from U(0.2, 0.95)) at 1000 x 192; the
+           extended spaces' statistics (stats_ext: #13 at the selfing
+           slice's stage inputs, V = 3 and 16 probe-dedup variants;
+           stats_ext_relskewstates: V = 2, 4 variants) and SELFING's
+           seven-slot coherence (coherence_ext: #14, float32 held to the
+           plain twin's accuracy against float64), at 1000 x 192 with the
+           edge units of utils.simulate.edge_units in the batch (#13's
+           infprob entries of the lopsided-share unit also held to the
+           twin in relative terms, SHARE_RTOL), each
+           timed also bare (a CUDA graph of its calls replayed); the
            families' marker-blocked entries at one block (K=256) of the
            blocked family slices' cohorts, random boundary carries,
            float32 held to the plain twin's accuracy against float64:
@@ -291,8 +301,9 @@ since the script started (t=); any failure exits non-zero:
            seconds, synchronising
            calls, chunk size, peak memory; fails on a non-finite output, a
            haploweight outside [0, 1], a relhaplo outside [1e-4, 1 - 1e-4]
-           or none moved, fb_ext never launched or any other kernel
-           launched
+           or none moved, a kernel of the path never launched (fb_ext,
+           stats_ext and, under selfing, coherence_ext) or any other
+           kernel launched
   parity (extended)
            run_parity's 24 x 32 float64 cuda-vs-CPU check for selfing
            (simulate_selfed(24, 32, seed=11)) and relskewstates, 2
@@ -307,8 +318,9 @@ since the script started (t=); any failure exits non-zero:
            preprocess(), iterate(early=True), iterate(), each stage's
            blocked_fam.* split (profile_slice.stage_timers, synchronised),
            the peak memory of preprocess and of the iterations; fails on
-           more than one batch chunk, a blocked entry at 0 launches, any
-           other kernel launched, a non-finite output, a haploweight
+           more than one batch chunk, a blocked entry (or under SELFING
+           stats_ext, pass C's statistics) at 0 launches, any other
+           kernel launched, a non-finite output, a haploweight
            outside [0, 1] or a peak of 40 GB or more
   parity, blocked_parity (blocked families)
            run_parity's 24 x 32 check with marker_block=8 for ng2,
@@ -328,8 +340,10 @@ stats_rules
 from slice_parity, of stats_bmns_rules from scan_parity, and of the
 4-state entry (fb_small at NS = 2, fb_small_nohaplo at NS = 1) from the
 resident slice_ng2 and slice_nohaplo, of the extended sweeps (fb_ext
-at V = 3, fb_ext_relskewstates at V = 2) from the resident slice_selfing
-and slice_relskewstates, and of the families' blocked entries from
+at V = 3, fb_ext_relskewstates at V = 2), statistics (stats_ext,
+stats_ext_relskewstates) and SELFING's coherence (coherence_ext) from
+the resident slice_selfing and slice_relskewstates, and of the
+families' blocked entries from
 slice_blocked_ng2 and slice_blocked_selfing.  The kernels phase holds the
 4-state entry against its plain twin at both families' 1000 x 192 sweep
 inputs.  The last
@@ -448,8 +462,25 @@ KERNELS = {
                   "cnf2freq_tpu/hmm/probes.py:400", "classic"),
     "emission_bmns": ("cnf2freq_tpu_torch/csrc/emission.cu",
                       "cnf2freq_tpu/hmm/emission.py:364", "classic"),
+    # the extended state spaces' update statistics and SELFING's
+    # seven-slot coherence, kernels for the JAX package's XLA programs
+    # (engine_ext.py:351 ext_statistics; :318 coherence_slot_ext): the
+    # cnf_stats_ext_* entry of #3's file (V = 3 and 16 probe-dedup
+    # variants on the selfing path, V = 2 on the relskewstates path; one
+    # wrapper counts both, ops.stats.stats_ext) and the
+    # cnf_coherence_ext_* entry of #10's
+    "stats_ext": ("cnf2freq_tpu_torch/csrc/stats.cu",
+                  "cnf2freq_tpu/engine_ext.py:351", "selfing"),
+    "stats_ext_relskewstates": ("cnf2freq_tpu_torch/csrc/stats.cu",
+                                "cnf2freq_tpu/engine_ext.py:351",
+                                "relskewstates"),
+    "coherence_ext": ("cnf2freq_tpu_torch/csrc/coherence.cu",
+                      "cnf2freq_tpu/engine_ext.py:318", "selfing"),
 }
 UPDATE_KERNELS = tuple(k for k, v in KERNELS.items() if v[2] == "update")
+# the extended paths' rows whose wrappers the two models share
+STATS_EXT = ("stats_ext", "stats_ext_relskewstates")
+EXT_SHARED = ("fb_ext", "fb_ext_relskewstates") + STATS_EXT
 # operations per unit of work, counted from each kernel's arithmetic (for
 # the bound; every kernel here is far below the card's compute balance):
 # emission per (marker, unit): four threads' separable tables (~20 slot
@@ -486,7 +517,17 @@ OPS = {"emission": 2880, "fb_sweep": 2 * 1152, "stats": 19800,
        "coherence": 4096 + 64 * (384 + 768 + 64 + 128 + 64 + 128),
        # per (unit, marker): as turn; the emission entry's four threads'
        # tables (~400 each), 512 pathful entries x 3 and 512 e values x 5
-       "turn_bmns": 15872, "emission_bmns": 4 * 400 + 512 * 3 + 512 * 5}
+       "turn_bmns": 15872, "emission_bmns": 4 * 400 + 512 * 3 + 512 * 5,
+       # per (unit, marker, extension value, probe-rule variant): #3's
+       # body with probe rules (the tables and W once a value: not counted)
+       "stats_ext": 19800 + 576, "stats_ext_relskewstates": 19800 + 576,
+       # per (unit, marker pair): the path-sum tables of the 3 values
+       # (2 markers x 3 x 2 blocks x 32 entries x 8 paths x 4 sums) and,
+       # for each of 8 emissions x 8 shifts and each value: marker m's
+       # emission (64 x 3), two 6-stage FWHTs (768), the scaling and
+       # product (128); marker m + 1's emission (192), the 3-term mix
+       # (6 x 64), the product and dot product (192)
+       "coherence_ext": 12288 + 64 * 3 * (192 + 768 + 128 + 192 + 384 + 192)}
 # the capped entries' operations per lane-step and per lane, counting a
 # log as one: a step is 16 gradient evaluations (the pseudo-likelihood
 # term's 34 and two logs once its 13 products of (y, g, h) alone are
@@ -521,6 +562,12 @@ TURN = {torch.float64: dict(cut=20.0, slack=1e-10),
 # of TOL, within ACCURACY_SLACK times the float32 plain version's (or of
 # TOL itself, where that is within TOL).
 ACCURACY_SLACK = 2.0
+# #13's infprob entries of utils.simulate.edge_units' unit 8 (allele-value
+# shares of value 2 near 1e-6, entries down to ~1e-13): each against the
+# twin's in relative terms (the absolute TOL would pass a share lost to
+# rounding)
+SHARE_UNIT = 8
+SHARE_RTOL = {torch.float64: 1e-9, torch.float32: 1e-3}
 RELHAPLO_CLIP = 1e-4
 # the CLI's text outputs print 5-6 decimals
 CLI_ATOL = 2e-5
@@ -615,7 +662,10 @@ def wrappers():
             "capped_infprob": pcap.capped_infprob,
             "relskew": prs.relskew_ratio, "coherence": pcoh.coherence,
             "turn_bmns": ps.turn_weights_bmns,
-            "emission_bmns": ps.emission_bmns}
+            "emission_bmns": ps.emission_bmns,
+            "stats_ext": pst.stats_ext,
+            "stats_ext_relskewstates": pst.stats_ext,
+            "coherence_ext": pcoh.coherence_ext}
 
 
 def cuda_rounds(fn, rounds, reps, warm=True):
@@ -637,13 +687,13 @@ def cuda_rounds(fn, rounds, reps, warm=True):
     return out
 
 
-def in_turns(plain, kernel):
+def in_turns(plain, kernel, reps=20):
     """(kernel round times, plain_ms) measured plain, kernel, kernel,
-    plain: the kernel in 2 x 3 rounds of 20 launches, the slow plain
+    plain: the kernel in 2 x 3 rounds of ``reps`` launches, the slow plain
     version (100-700 ms, run just before for the comparison, so warm) in
     one call on either side."""
     p1 = cuda_rounds(plain, 1, 1, warm=False)
-    k = cuda_rounds(kernel, 3, 20) + cuda_rounds(kernel, 3, 20)
+    k = cuda_rounds(kernel, 3, reps) + cuda_rounds(kernel, 3, reps)
     p2 = cuda_rounds(plain, 1, 1, warm=False)
     return k, (p1[0] + p2[0]) / 2
 
@@ -701,6 +751,22 @@ def compare_all(gots, refs, dtype):
     res = [compare(g, r, dtype) for g, r in zip(gots, refs)]
     return (max(x[0] for x in res), max(x[1] for x in res),
             all(x[2] for x in res))
+
+
+def compare_shares(gots, refs, dtype):
+    """compare_all() and SHARE_RTOL on the infprob entries (output 1) of
+    the lopsided-share unit SHARE_UNIT."""
+    a, r, ok = compare_all(gots, refs, dtype)
+    g = gots[1][SHARE_UNIT].double()
+    w = refs[1][SHARE_UNIT].double()
+    diff = (g - w).abs()
+    rel = float((diff / w.abs().clamp(min=1e-30)).max())
+    share_ok = bool((diff <= SHARE_RTOL[dtype] * w.abs() + 1e-30).all())
+    say("kernels", dtype=str(dtype).split(".")[-1], unit=SHARE_UNIT,
+        lopsided_share_min=f"{float(w[w > 0].min()):.3e}",
+        lopsided_share_rel_err=f"{rel:.3e}", rtol=SHARE_RTOL[dtype],
+        ok=share_ok)
+    return a, r, ok and share_ok
 
 
 def compare_turn(got, ref, dtype):
@@ -1166,6 +1232,8 @@ def check_kernels(dtype):
                                                          combined_loglik)
     from cnf2freq_tpu_torch.hmm.transition import (interval_recomb,
                                                    transition_eigenvalues)
+    from cnf2freq_tpu_torch import engine_ext as E
+    from cnf2freq_tpu_torch.ops import coherence as pcoh
     from cnf2freq_tpu_torch.ops import fb as pfb
     from cnf2freq_tpu_torch.ops import scan as ps
     from cnf2freq_tpu_torch.ops import stats as pst
@@ -1178,9 +1246,9 @@ def check_kernels(dtype):
     out = {}
 
     def record(name, got, ref, kernel, plain, moved, work, cmp=compare,
-               launches_per_call=1, ops=None, bare=False, **tol):
+               launches_per_call=1, ops=None, bare=False, reps=20, **tol):
         a, r, ok = cmp(got, ref, dtype)
-        rounds, p_ms = in_turns(plain, kernel)
+        rounds, p_ms = in_turns(plain, kernel, reps)
         rounds = [x / launches_per_call for x in rounds]
         p_ms /= launches_per_call
         k_ms = statistics.median(rounds)
@@ -1188,7 +1256,8 @@ def check_kernels(dtype):
         out[name] = dict(max_abs_err=a, max_rel_err=r, ok=ok, ms=k_ms,
                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
         if bare:  # the device work alone, a graph of the kernel's calls
-            br = [x / launches_per_call for x in bare_rounds(kernel)]
+            br = [x / launches_per_call
+                  for x in bare_rounds(kernel, reps=reps)]
             tol.update(bare_ms=f"{statistics.median(br):.4f}",
                        bare_min=f"{min(br):.4f}", bare_max=f"{max(br):.4f}")
         rtol, atol = TOL[dtype]
@@ -1196,7 +1265,7 @@ def check_kernels(dtype):
             max_abs_err=f"{a:.3e}", max_rel_err=f"{r:.3e}", rtol=rtol,
             atol=atol, **tol, ok=ok, ms=f"{k_ms:.4f}",
             ms_min=f"{min(rounds):.4f}", ms_max=f"{max(rounds):.4f}",
-            rounds=f"{len(rounds)}x20", plain_ms=f"{p_ms:.4f}",
+            rounds=f"{len(rounds)}x{reps}", plain_ms=f"{p_ms:.4f}",
             bound_ms=f"{b_ms:.4f}", bound_by=b_by)
 
     # -- the v2 pipeline ([M, 512, R] layout) ---------------------------
@@ -1415,6 +1484,58 @@ def check_kernels(dtype):
         del args, got, ref
         torch.cuda.empty_cache()
 
+    # -- the extended spaces' statistics (#13) at the selfing (V = 3, 16
+    # variants) and relskewstates (V = 2) slices' stage inputs, and
+    # SELFING's coherence (#14) on the same; 1000 x 192 with the edge
+    # units of utils.simulate.edge_units.  #14 in float32 is held to its
+    # plain twin's accuracy against float64 on the same inputs promoted
+    # (a ratio of parity-signed chains, as #10).
+    for name, model in (("stats_ext", "selfing"),
+                        ("stats_ext_relskewstates", "relskewstates")):
+        x = ext_stage_inputs(model, dtype)
+        fbt, fbres, nv = x["fbt"], x["fbres"], x["nv"]
+        args = (fbt, fbres.fw_pre, fbres.bw, fbres.fw_pre_f, fbres.bw_f,
+                x["total"], x["cfg"], nv)
+        got = pst.stats_ext(*args)
+        ref = pst.stats_ext_reference(*args)
+        torch.cuda.synchronize()
+        B, M, V = fbres.fw_pre.shape[:3]
+        moved = nbytes(fbt.md, fbt.ms, fbt.hw, fbt.exists.int(),
+                       fbt.attop.int(), fbt.emptyslot.int(),
+                       fbt.dup_flip[:, :nv].int(), fbt.flag2ignore,
+                       fbt.shiftignore, args[1:6], got)
+        # (tens of ms a launch: rounds of 5)
+        record(name, got, ref, lambda: pst.stats_ext(*args),
+               lambda: pst.stats_ext_reference(*args), moved,
+               M * B * V * nv, cmp=compare_shares, reps=5, bare=True, V=V,
+               n_variants=nv)
+        del got, ref, args
+        if model == "selfing":
+            blocks = x["blocks"]
+            coh_args = (fbres.fw_pre, fbres.bw, fbres.fw_pre_f, fbres.bw_f,
+                        x["lam"], x["C"], [b.froot for b in blocks],
+                        [b.pb[0] for b in blocks], [b.pb[1] for b in blocks],
+                        fbt.flag2ignore, x["cfg"])
+            ref_args = (fbres, blocks, fbt, x["cfg"], x["lam"], x["C"])
+            got = pcoh.coherence_ext(*coh_args)
+            ref = pcoh.coherence_ext_reference(*ref_args)
+            ref64 = [pcoh.coherence_ext_reference(
+                E.ExtFBResult(*(None if v is None else v.double()
+                                for v in fbres)),
+                [b._replace(froot=b.froot.double(),
+                            pb=tuple(p.double() for p in b.pb))
+                 for b in blocks], fbt, x["cfg"], x["lam"].double(),
+                x["C"].double())] if dtype == torch.float32 else None
+            torch.cuda.synchronize()
+            record("coherence_ext", [got], [ref],
+                   lambda: pcoh.coherence_ext(*coh_args),
+                   lambda: pcoh.coherence_ext_reference(*ref_args),
+                   nbytes(coh_args[:10], got), B * (M - 1),
+                   cmp=as_accurate(ref64), reps=5, bare=True, V=V)
+            del got, ref, ref64, coh_args, ref_args, blocks
+        del x, fbt, fbres
+        torch.cuda.empty_cache()
+
     # -- the families' marker-blocked entries: one block (K = BLOCK) of the
     # blocked slices' cohorts, random boundary carries; in float32 held to
     # the plain twin's accuracy against float64 (0.1 cM: as_accurate)
@@ -1617,6 +1738,57 @@ def _ext_sweep_inputs64(model):
     return (e.contiguous(), E._lam(cfg, params, dists, dtype),
             E._vcoupling(fbt, cfg, params, dists, dtype).contiguous(),
             E._prior(fbt, cfg, dtype))
+
+
+@functools.lru_cache(maxsize=2)
+def _ext_stage_batch(model):
+    """(numpy family batch, cfg, dists, n_variants) of an extended slice's
+    cohort (ext_ped) gathered with the Driver's probe-dedup variants (16
+    on the selfed lines), relhaplo (under relskewstates), haploweights
+    and error rates randomised as _ext_sweep_inputs64 makes them, and its
+    first nine units edited by utils.simulate.edge_units (a dead HBD
+    hypothesis, a focal at top, disallowed shifts, empty and vacant
+    slots, tied duplicate pairs, a collapsed homozygous focal with equal
+    markersure, random dup-flip columns, an untyped unit, a unit whose
+    allele-value shares are lopsided)."""
+    from cnf2freq_tpu_torch import Driver
+    from cnf2freq_tpu_torch.hmm.family import gather_family
+    from cnf2freq_tpu_torch.utils.simulate import edge_units
+    ped = ext_ped(model)
+    rng = np.random.default_rng(7)
+    if ped.config.relskewstates:
+        for ind in ped.inds[1:]:
+            if ind.relhaplo is not None:
+                ind.relhaplo[:] = rng.uniform(0.2, 0.95, ind.relhaplo.shape)
+    for ind in ped.inds[1:]:
+        ped.fixtrees(ind.n)
+    ped.count_descendants()
+    nv = Driver(ped, device="cpu")._n_variants()
+    fb = gather_family(ped, list(ped.dous), 0, ped.num_markers - 1,
+                       n_variants=nv)
+    fb.hw = rng.uniform(0.05, 0.95, fb.hw.shape)
+    fb.ms = np.where(fb.md > 0, rng.uniform(0.0, 0.3, fb.ms.shape), fb.ms)
+    return edge_units(fb), ped.config, np.diff(ped.markerposes), nv
+
+
+def ext_stage_inputs(model, dtype):
+    """The inputs of #13 and #14 on the card in ``dtype``: the batch of
+    _ext_stage_batch, each extension value's blocks, the sweeps (fb_ext,
+    fw_post dropped), the totals, the eigenvalues and the coupling."""
+    from cnf2freq_tpu_torch import engine_ext as E
+    from cnf2freq_tpu_torch.config import RuntimeParams
+    fb, cfg, dists, nv = _ext_stage_batch(model)
+    fbt = fb.to("cuda", dtype)
+    d = torch.as_tensor(dists, dtype=dtype, device="cuda")
+    params = RuntimeParams()
+    blocks, e, _, _ = E.ext_blocks(fbt, cfg, dtype=dtype)
+    fbres = E.extended_forward_backward(e, d, fbt, cfg, params)
+    del e
+    fbres = fbres._replace(fw_post=None)
+    return dict(fbt=fbt, cfg=cfg, blocks=blocks, fbres=fbres, nv=nv,
+                total=E.combined_loglik_ext(fbres, fbt.shiftignore),
+                lam=E._lam(cfg, params, d, dtype),
+                C=E._vcoupling(fbt, cfg, params, d, dtype).contiguous())
 
 
 def ext_ped(model, n_units=1000, n_markers=192, seed=None):
@@ -1934,9 +2106,11 @@ def run_slice_blocked_family(model):
     preprocess(), iterate(early=True), iterate(), with the blocked_fam.*
     split (synchronised) and the peak memory of preprocess and of the
     iterations; fails on more than one batch chunk, a blocked entry of
-    the family at 0 launches, any other kernel launched, a non-finite
-    output, a haploweight outside [0, 1] or a peak at or above
-    FAMILY_BLOCKED_PEAK_LIMIT.  Returns the blocked entries' launches."""
+    the family at 0 launches (and under SELFING the statistics kernel
+    stats_ext, #13, which pass C launches once a block), any other kernel
+    launched, a non-finite output, a haploweight outside [0, 1] or a peak
+    at or above FAMILY_BLOCKED_PEAK_LIMIT.  Returns the blocked entries'
+    launches."""
     from cnf2freq_tpu_torch import Driver
     from cnf2freq_tpu_torch.profile_slice import stage_timers
     phase = f"slice_blocked_{model}"
@@ -1977,7 +2151,10 @@ def run_slice_blocked_family(model):
                 torch.cuda.reset_peak_memory_stats()
     peaks["iterations"] = torch.cuda.max_memory_allocated()
     launches = {k: w[k].launches for k in names}
-    others = other_launches(w, names)
+    stats = {k: w[k].launches for k in ("stats_ext",) if model == "selfing"}
+    # (the statistics rows share one wrapper; the whole-chromosome sweep
+    # fb_ext stays among the launches that fail the blocked slice)
+    others = other_launches(w, names + (STATS_EXT if stats else ()))
     updates = {k: w[k].launches for k in UPDATE_KERNELS}
     hw = np.stack([ind.haploweight for ind in ped.inds[1:]])
     tabs = np.stack(list(drv.pair_tables.values()))
@@ -1988,7 +2165,8 @@ def run_slice_blocked_family(model):
     chunks = launches[names[0]] / (2 * nblk)
     say(phase, markers=M, block=BLOCK, blocks=nblk,
         n_variants=drv._n_variants(), resident=drv._use_resident(),
-        launches=json.dumps(launches), update_launches=json.dumps(updates),
+        launches=json.dumps(launches), stats_launches=json.dumps(stats),
+        update_launches=json.dumps(updates),
         other_kernel_launches=json.dumps(others), batch_chunks=chunks,
         finite=finite,
         haploweights_in_range=hw_ok,
@@ -1997,6 +2175,8 @@ def run_slice_blocked_family(model):
         limit_gb=f"{FAMILY_BLOCKED_PEAK_LIMIT / 1e9:.0f}")
     if min(launches.values()) <= 0:
         fail(f"{phase}: a blocked entry never launched: {launches}")
+    if stats and min(stats.values()) <= 0:
+        fail(f"{phase}: the statistics kernel never launched: {stats}")
     if others:
         fail(f"{phase}: another kernel launched: {others}")
     if min(updates[k] for k in ("capped_haplo", "capped_infprob")) <= 0:
@@ -2397,12 +2577,14 @@ def run_ext_slice(model, resident=None, split=True):
     preprocess(), iterate(early=True), iterate() x 2, with each stage's
     seconds and synchronising calls, then (``split``) one more full
     iteration under profile_slice's stage timers (synchronised: the
-    engine's stages as ``ext.*``), the peak memory and fb_ext's launches;
-    fails on a
-    non-finite output, a haploweight outside [0, 1], a relhaplo outside
-    [1e-4, 1 - 1e-4] or none moved, fb_ext never launched or any other
-    kernel launched.  Returns fb_ext's launches in the first four
-    stages."""
+    engine's stages as ``ext.*``), the peak memory and the launches of
+    the path's kernels: the sweeps (fb_ext), the statistics (stats_ext,
+    #13) and, under SELFING, the seven-slot coherence (coherence_ext,
+    #14); fails on a non-finite output, a haploweight outside [0, 1], a
+    relhaplo outside [1e-4, 1 - 1e-4] or none moved, a kernel of the path
+    never launched or any other kernel launched.  Returns the path's
+    launches in the first four stages, under the summary's names (the
+    relskewstates rows' for that model)."""
     from cnf2freq_tpu_torch import Driver
     from cnf2freq_tpu_torch.profile_slice import stage_timers
     phase = f"slice_{model}"
@@ -2438,8 +2620,13 @@ def run_ext_slice(model, resident=None, split=True):
             seconds=f"{sec:.3f}", syncs=sum(here.values()), **extra)
         if out is not None and not math.isfinite(out["loglik"]):
             fail(f"{phase}: non-finite log-likelihood after {name}")
-    launches = w["fb_ext"].launches
-    others = other_launches(w, ("fb_ext", "fb_ext_relskewstates"))
+    suffix = "" if model == "selfing" else "_relskewstates"
+    launches = {"fb_ext" + suffix: w["fb_ext"].launches,
+                "stats_ext" + suffix: w["stats_ext"].launches}
+    if model == "selfing":
+        launches["coherence_ext"] = w["coherence_ext"].launches
+    # (each pair of rows shares one wrapper and its counter)
+    others = other_launches(w, tuple(launches) + EXT_SHARED)
     updates = {k: w[k].launches for k in UPDATE_KERNELS}
     chunk = drv._chunk_size(len(ped.dous), ped.num_markers, True)
     if split:
@@ -2462,7 +2649,7 @@ def run_ext_slice(model, resident=None, split=True):
                   and np.isfinite(rh).all())
     hw_ok = bool((hw >= 0).all() and (hw <= 1).all())
     moved = int((rh != rh0).sum())
-    say(phase, resident=drv._use_resident(), fb_ext_launches=launches,
+    say(phase, resident=drv._use_resident(), launches=json.dumps(launches),
         update_launches=json.dumps(updates),
         other_kernel_launches=json.dumps(others), chunk_units=chunk,
         n_variants=drv._n_variants(), finite=finite,
@@ -2479,8 +2666,8 @@ def run_ext_slice(model, resident=None, split=True):
         fail(f"{phase}: no relhaplo moved from its loaded value")
     if rh.min() < RELHAPLO_CLIP or rh.max() > 1 - RELHAPLO_CLIP:
         fail(f"{phase}: relhaplo outside [1e-4, 1 - 1e-4]")
-    if launches <= 0:
-        fail(f"{phase}: fb_ext never launched")
+    if min(launches.values()) <= 0:
+        fail(f"{phase}: a kernel of the path never launched: {launches}")
     if others:
         fail(f"{phase}: another kernel launched: {others}")
     check_no_capped_syncs(phase, sites)
@@ -2610,10 +2797,10 @@ def run_cli_models(tmp, n_f2=1000):
     with --model selfing, and once more with --markerblock 64, --count 2
     each (the script's time limit; the other CLI phases run 3):
     every F2 (or line) block written, finite, table rows summing to 1
-    within CLI_ATOL, the family's sweep entries launched (fb_small for
-    the two-generation families, fb_ext for the extended ones, the
-    blocked entries fb_ext_init and fb_ext_carry with --markerblock) and
-    no other kernel."""
+    within CLI_ATOL, the family's kernels launched (fb_small for the
+    two-generation families; fb_ext and stats_ext for the extended ones,
+    and coherence_ext under selfing; the blocked entries fb_ext_init and
+    fb_ext_carry and stats_ext with --markerblock) and no other kernel."""
     from cnf2freq_tpu_torch import cli
     from cnf2freq_tpu_torch.utils.simulate import \
         simulate_plantimpute_selfed_files
@@ -2622,9 +2809,10 @@ def run_cli_models(tmp, n_f2=1000):
         os.path.join(tmp, "cli_selfed"), n_lines=n_f2, n_markers=192,
         generations=4, spacing_cm=1.0, seed=3)[:3]
     runs = [("ng2", [], ("fb_small",)), ("nohaplo", [], ("fb_small",)),
-            ("selfing", [], ("fb_ext",)), ("relskewstates", [], ("fb_ext",)),
+            ("selfing", [], ("fb_ext", "stats_ext", "coherence_ext")),
+            ("relskewstates", [], ("fb_ext", "stats_ext")),
             ("selfing", ["--markerblock", "64"],
-             ("fb_ext_init", "fb_ext_carry"))]
+             ("fb_ext_init", "fb_ext_carry", "stats_ext"))]
     for model, extra, kernels in runs:
         tag = model + ("_blocked" if extra else "")
         files = selfed if model == "selfing" else [
@@ -3611,9 +3799,9 @@ def main():
     # the statistics kernel's instantiations (type, layout, probe rules),
     # the capped entries', the coherence kernel's, the carry-only sweep's
     # and the relskew HMM's
-    for m in re.finditer(r"Compiling entry function '(\w*(?:stats|capped_"
-                         r"haplo|capped_infprob|coherence|fb_carry|relskew)"
-                         r"_kernel\w*)'"
+    for m in re.finditer(r"Compiling entry function '(\w*(?:stats|stats_ext|"
+                         r"capped_haplo|capped_infprob|coherence|"
+                         r"coherence_ext|fb_carry|relskew)_kernel\w*)'"
                          r"(.*?)Used (\d+) registers", text, re.S):
         sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                        m.group(2))
@@ -3623,6 +3811,7 @@ def main():
 
     checks = {dt: check_kernels(dt) for dt in (torch.float64, torch.float32)}
     _ext_sweep_inputs64.cache_clear()
+    _ext_stage_batch.cache_clear()
     update_kernel_inputs.cache_clear()
     torch.cuda.empty_cache()
     bad = [(str(dt), k) for dt, c in checks.items()
@@ -3697,9 +3886,9 @@ def main():
         for resident in (True, False):
             run_parity(True, model=model, resident=resident)
     # the extended state spaces, the same way
-    launches["fb_ext"] = run_ext_slice("selfing")
+    launches.update(run_ext_slice("selfing"))
     run_ext_slice("selfing", resident=False, split=False)
-    launches["fb_ext_relskewstates"] = run_ext_slice("relskewstates")
+    launches.update(run_ext_slice("relskewstates"))
     run_ext_slice("relskewstates", resident=False, split=False)
     for model in ("selfing", "relskewstates"):
         for resident in (True, False):

@@ -129,6 +129,19 @@ def check_config(cfg) -> None:
             "the CUDA kernels cover the default F2 haplotyping model only")
 
 
+def check_ext_config(cfg) -> int:
+    """The extended spaces' kernels (#13, #14) are written for the 7-slot
+    haplotyping model with one extension: SELFING (V = 3) or
+    RELSKEWSTATES (V = 2).  Returns V."""
+    if not (cfg.numgen == 3 and cfg.haplotyping
+            and cfg.selfing != cfg.relskewstates and cfg.numtypes == 64
+            and cfg.numshifts == 8 and cfg.numslots == 7):
+        raise NotImplementedError(
+            "the extended kernels cover the SELFING and RELSKEWSTATES "
+            "haplotyping models only")
+    return 3 if cfg.selfing else 2
+
+
 def check_form(t: torch.Tensor, dtype, shape, name: str) -> None:
     """Raise unless ``t`` is a tensor of ``dtype`` and ``shape``, on any
     device."""

@@ -94,13 +94,13 @@ def prep_intervals(fb: FamilyBatch, dists: torch.Tensor, ratemat,
 def block_emission(fb_blk: FamilyBatch, cfg: ModelConfig, n_real: int):
     """(blocks, e) of one block whose first ``n_real`` markers are real
     (the rest padding, whose e is set to 1): ng2's (froot, P2, top,
-    focal_attop) and e [B, K, 2, 4], or the extended (blocks_v,
-    collapses, ovs) and e [B, K, V, NS, 64]."""
+    focal_attop) and e [B, K, 2, 4], or on the extended spaces None (the
+    statistics build their own) and e [B, K, V, NS, 64]."""
     dt = fb_blk.ms.dtype
     if is_ext(cfg):
         from .engine_ext import ext_blocks
-        blocks_v, e, collapses, ovs = ext_blocks(fb_blk, cfg, dtype=dt)
-        em = (blocks_v, collapses, ovs)
+        em = None
+        _, e, _, _ = ext_blocks(fb_blk, cfg, dtype=dt)
     else:
         from .engine_ng2 import assemble_e_ng2, ng2_blocks
         em = ng2_blocks(fb_blk, cfg, dtype=dt)
@@ -227,16 +227,13 @@ def _stats_ng2(em, fbres, fb_blk, total, cfg, with_turn):
     return pair, b12, mask, inf, turn_w
 
 
-def _stats_ext(em, fbres, fb_blk, total, cfg, with_turn, n_variants):
-    # the extended statistics restricted to the block's markers (W is
-    # marker-local given the whole chromosome's totals)
-    from .engine_ext import (ext_statistics, posterior_weight_ext,
-                             turn_weights_ext)
-    blocks_v, collapses, ovs = em
-    W = posterior_weight_ext(fbres, total, fb_blk.shiftignore)
-    b12, mask, inf, pair = ext_statistics(W, blocks_v, collapses, ovs,
-                                          fb_blk, cfg, n_variants)
-    del W
+def _stats_ext(fbres, fb_blk, total, cfg, with_turn, n_variants):
+    # the extended statistics restricted to the block's markers (the
+    # posterior weights are marker-local given the whole chromosome's
+    # totals): kernel #13 on the card
+    from .engine_ext import ext_statistics, turn_weights_ext
+    b12, mask, inf, pair = ext_statistics(fbres, total, fb_blk, cfg,
+                                          n_variants)
     turn_w = turn_weights_ext(fbres, fb_blk, cfg) if with_turn else None
     return pair, b12, mask, inf, turn_w
 
@@ -262,7 +259,7 @@ def family_block_pass(fb: FamilyBatch, fc: FamilyCarries, i: int,
         fbres = ExtFBResult(*pfb.fb_ext_block(e, lam_blk, C_blk, fc.fbound[i],
                                               fc.bbound[i]))
         del e
-        out = _stats_ext(em, fbres, fb_blk, fc.total, cfg, with_turn,
+        out = _stats_ext(fbres, fb_blk, fc.total, cfg, with_turn,
                          n_variants)
     else:
         fbres = FBResult(*pfb.fb_small_block(e, lam_blk, fc.fbound[i],

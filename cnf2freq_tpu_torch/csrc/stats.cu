@@ -39,6 +39,10 @@
 //                     batch fields [B,7,M,2] / [B,7,M] / [B,7], sweeps
 //                     [B,M,512], factors [B,M,8]; consecutive warps take
 //                     consecutive markers of one unit.
+// A third entry, cnf_stats_ext_* (kernel #13, below), runs the
+// probe-rule body per extension value of the SELFING and RELSKEWSTATES
+// sweeps [B, M, V, NS, S], with the root of each value and the variant
+// loop inside.
 //
 // What the TPU body does: it enumerates every parent-block entry
 // (r0, fp, fpath, sk) as one vector lane, 512 for the masked blocks and
@@ -317,10 +321,6 @@ __device__ __forceinline__ T reduce_scatter(T (&v)[N], int lane) {
   return x;
 }
 
-// The register cap allows 4 blocks per SM in f32 (64 registers, 32
-// warps) and 3 in f64 (80 registers, 24 warps).  Uncapped the kernel takes
-// 75 and 114 registers, 3 and 2 blocks; capped it spills 8 and ~300 bytes
-// and still runs 12-14% faster at 1000 x 192 (H100).
 // The probe-rule factor (0 or +-1) of a masked parent-block entry of side
 // k at lane (f, sk) and path p, from the warp's tied and dup-flip slot
 // bit masks.
@@ -339,82 +339,51 @@ __device__ __forceinline__ int rule_factor(unsigned tied, unsigned dup,
   return neg & 1 ? -1 : 1;
 }
 
-template <typename T, class L, bool Rules>
-__global__ void __launch_bounds__(kWarps * 32, sizeof(T) == 4 ? 4 : 3)
-    stats_kernel(const int* __restrict__ md, const T* __restrict__ ms,
-                 const T* __restrict__ hw, const int* __restrict__ ex,
-                 const int* __restrict__ at, const int* __restrict__ em,
-                 const int* __restrict__ df, const int* __restrict__ f2,
-                 const int* __restrict__ sh, const T* __restrict__ fw_pre,
-                 const T* __restrict__ bw, const T* __restrict__ fw_pre_f,
-                 const T* __restrict__ bw_f, const T* __restrict__ total,
-                 T* __restrict__ b12_out, T* __restrict__ acc_out,
-                 T* __restrict__ pair_out, const L lay) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Scratch<T>* all = reinterpret_cast<Scratch<T>*>(smem_raw);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  Scratch<T>& s = all[warp];
-  const long long pair = (long long)blockIdx.x * kWarps + warp;
-  const int M = lay.M;
-  const bool valid = pair < (long long)M * lay.B;
-  int m = 0, r = 0;
-  if (valid) lay.pair(pair, m, r);
-
-  // ---- inputs --------------------------------------------------------
-  if (valid) {
-    if (lane < 7) s.sl[lane] = load_slot(md, ms, hw, ex, at, lane, m, r, lay);
-    if (lane < 8) {
-      const size_t fi = lay.fac(m, lane, r);
-      const T allowed = (lane & sh[r]) == 0 ? T(1) : T(0);
-      s.wexp[lane] = exp(fw_pre_f[fi] + bw_f[fi] - total[r]) * allowed;
+// Where each statistic of a pair goes once its reduction leaves it in the
+// warp's lanes: stats_kernel stores it (StoreOut), stats_ext_kernel sums
+// it over the probe-rule variants (SumOut).
+template <typename T>
+struct StoreOut {
+  T* b12;      // [7][2] of the pair
+  T* acc;      // [7][2][2]
+  T* pair;     // [2][2]
+  T focal;     // side 0's focal share at this lane's index
+  // b12 index lane / 2 (even lanes below 28)
+  __device__ void haplo(T v, int lane) {
+    if ((lane & 1) == 0 && lane < 28) b12[lane >> 1] = v;
+  }
+  // side k's accum values at index lane / 2: the focal's four (idx < 4,
+  // both sides summed), then those of side k's parent and grandparents
+  __device__ void infprob(int side, T red, int lane) {
+    const int idx = lane >> 1;
+    if (side == 0) {
+      focal = red;
+      if ((lane & 1) == 0 && idx >= 4) acc[idx] = red;
+    } else if ((lane & 1) == 0) {
+      acc[idx < 4 ? idx : idx + 12] = idx < 4 ? focal + red : red;
     }
   }
-  if (lane == 0) {
-    s.base = valid ? lay.sweep(m, r) : 0;
-    s.valid = valid;
+  __device__ void pairs(T red, int lane) {
+    if ((lane & 7) == 0) pair[lane >> 3] = red;
   }
-  __syncthreads();
-  // the block's sweeps, adjacent threads on adjacent addresses
-  const size_t stride = lay.xstride();
-  for (int i = threadIdx.x; i < kWarps * 512; i += kWarps * 32) {
-    const int w = L::kUnitsAdjacent ? i % kWarps : i >> 9;
-    const int x = L::kUnitsAdjacent ? i / kWarps : i & 511;
-    Scratch<T>& sw = all[w];
-    if (sw.valid) {
-      const size_t g = sw.base + x * stride;
-      sw.W[x] = fw_pre[g] * bw[g] * sw.wexp[x >> 6];
-    }
-  }
-  if (valid && lane < 5) {
-    if (lane == 0)
-      cnf::root_block(s.sl[0], 0, 0, s.root);
-    else
-      cnf::root_block(s.sl[0], ((lane - 1) & 1) + 1, (lane - 1) >> 1,
-                      s.rootmv[(lane - 1) >> 1][(lane - 1) & 1]);
-  }
-  __syncthreads();
-  if (!valid) return;
-  build_tables(s, lane);
-  __syncwarp();
+};
 
+// The statistics of the warp's pair from its scratch (slots, roots,
+// tables and W in place) for one probe-rule variant: tied / dup are the
+// warp's rule slot masks (Rules decorates froot and the masked
+// parent-block entries with them).  ``shares``: null, or the lane-minor
+// table [side][p][t][mvi][lane] of the shares (ext_shares) that the caller
+// keeps for its variants, in place of the allele-value entries.
+template <typename T, bool Rules, class Out>
+__device__ __forceinline__ void pair_statistics(Scratch<T>& s, int lane,
+                                                int f2ig, unsigned tied,
+                                                unsigned dup,
+                                                const T* shares, Out& out) {
   // lane = (r0, f, sk) of the masked blocks = (r0, a, u) of the side
   // loops below
   const int rr = lane >> 4, f = (lane >> 1) & 7, sk = lane & 1;
-  const int f2ig = f2[r];
   T fr[2] = {s.root.froot[rr][0], s.root.froot[rr][1]};
-  // the probe-rule slot masks: bit s of tied / dup for slot s
-  unsigned tied = 0, dup = 0;
   if constexpr (Rules) {
-    bool t = false, d = false;
-    if (lane < 7) {
-      const cnf::Slot<T>& sl = s.sl[lane];
-      const size_t i = lay.ex(lane, r);
-      t = sl.exists && em[i] == 0 && sl.md[0] == sl.md[1] &&
-          sl.ms[0] == sl.ms[1];
-      d = df[i] != 0;
-    }
-    tied = __ballot_sync(kFull, t);
-    dup = __ballot_sync(kFull, d);
 #pragma unroll
     for (int t0 = 0; t0 < 2; ++t0) {
       const int f0 = (tied & 1) ? (rr ^ t0) : 1;
@@ -503,19 +472,13 @@ __global__ void __launch_bounds__(kWarps * 32, sizeof(T) == 4 ? 4 : 3)
       hb[2 + (k * 3 + q) * 2 + 1] = ftk * (c[q] ? e[q][0] : e[q][1]);
     }
   }
-  {
-    const T v = reduce_scatter(hb, lane);
-    if ((lane & 1) == 0 && lane < 28)
-      b12_out[((size_t)r * M + m) * 14 + (lane >> 1)] = v;
-  }
+  out.haplo(reduce_scatter(hb, lane), lane);
 
   // ---- infprob stats and pair shares --------------------------------
   // Per side, v[w*2 + mvi] is the focal's share (slot 0) and
   // v[4 + (j*2 + w)*2 + mvi] that of slot ps + j (j = 0 the parent, 1, 2
   // its parents); each side is reduced on its own, so that lane l holds
   // index l >> 1 of it.
-  T* ao = acc_out + ((size_t)r * M + m) * 28;
-  T focal = T(0);  // side 0's focal share at this lane's index
   T p0r[2][2];     // side-0 pair collapse [mvi][t] of this lane
 #pragma unroll
   for (int side = 0; side < 2; ++side) {
@@ -533,18 +496,34 @@ __global__ void __launch_bounds__(kWarps * 32, sizeof(T) == 4 ? 4 : 3)
     T P[2][2] = {};
 #pragma unroll
     for (int p = 0; p < 8; ++p) {
-      const T pbp0 = entry(s, side, b0, mask[side], pex[side], pat[side], f,
-                           p, sk);
-      const T pbp1 = entry(s, side, b1, mask[side], pex[side], pat[side], f,
-                           p, sk);
+      // sh[mvi][t]: the shares of the allele values 1 and 2
+      T sh[2][2];
+      if (shares != nullptr) {
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const T* st = shares + (((side * 8 + p) * 2 + t) * 2) * 32;
+          sh[0][t] = st[lane];
+          sh[1][t] = st[32 + lane];
+        }
+      } else {
+        const T pbp0 = entry(s, side, b0, mask[side], pex[side], pat[side],
+                             f, p, sk);
+        const T pbp1 = entry(s, side, b1, mask[side], pex[side], pat[side],
+                             f, p, sk);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const T u0 = fm[0][t] * pbp0, u1 = fm[1][t] * pbp1;
+          const T den = u0 + u1;
+          const T inv = den > T(0) ? T(1) / den : T(0);
+          sh[0][t] = u0 * inv;
+          sh[1][t] = u1 * inv;
+        }
+      }
       T x[2] = {};
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
-        const T u0 = fm[0][t] * pbp0, u1 = fm[1][t] * pbp1;
-        const T den = u0 + u1;
-        const T inv = den > T(0) ? T(1) / den : T(0);
-        const T q0 = pb[side][p] * (u0 * inv);
-        const T q1 = pb[side][p] * (u1 * inv);
+        const T q0 = pb[side][p] * sh[0][t];
+        const T q1 = pb[side][p] * sh[1][t];
         P[0][t] += q0;
         P[1][t] += q1;
         x[0] += ft[t] * q0;
@@ -571,18 +550,13 @@ __global__ void __launch_bounds__(kWarps * 32, sizeof(T) == 4 ? 4 : 3)
         v[12 + w * 2 + mvi] = (f & 1) == 0 ? T(0) : g[1][w][mvi];
       }
     }
-    const T red = reduce_scatter(v, lane);
-    const int idx = lane >> 1;
+    out.infprob(side, reduce_scatter(v, lane), lane);
     if (side == 0) {
-      focal = red;
-      if ((lane & 1) == 0 && idx >= 4) ao[idx] = red;
 #pragma unroll
       for (int mvi = 0; mvi < 2; ++mvi)
 #pragma unroll
         for (int t = 0; t < 2; ++t) p0r[mvi][t] = P[mvi][t];
     } else {
-      if ((lane & 1) == 0) ao[idx < 4 ? idx : idx + 12] =
-          idx < 4 ? focal + red : red;
 #pragma unroll
       for (int mvi = 0; mvi < 2; ++mvi)
 #pragma unroll
@@ -609,8 +583,371 @@ __global__ void __launch_bounds__(kWarps * 32, sizeof(T) == 4 ? 4 : 3)
       pv[0 * 2 + j] += fr[t] * (p0r[0][t] * tv);
       pv[1 * 2 + j] += fr[t] * (p0r[1][t] * tv);
     }
-  const T red = reduce_scatter(pv, lane);
-  if ((lane & 7) == 0) pair_out[((size_t)r * M + m) * 4 + (lane >> 3)] = red;
+  out.pairs(reduce_scatter(pv, lane), lane);
+  __syncwarp();  // the warp's scratch is free for its next use
+}
+
+// The register cap allows 4 blocks per SM in f32 (64 registers, 32
+// warps) and 3 in f64 (80 registers, 24 warps).  Uncapped the kernel takes
+// 75 and 114 registers, 3 and 2 blocks; capped it spills 8 and ~300 bytes
+// and still runs 12-14% faster at 1000 x 192 (H100).
+template <typename T, class L, bool Rules>
+__global__ void __launch_bounds__(kWarps * 32, sizeof(T) == 4 ? 4 : 3)
+    stats_kernel(const int* __restrict__ md, const T* __restrict__ ms,
+                 const T* __restrict__ hw, const int* __restrict__ ex,
+                 const int* __restrict__ at, const int* __restrict__ em,
+                 const int* __restrict__ df, const int* __restrict__ f2,
+                 const int* __restrict__ sh, const T* __restrict__ fw_pre,
+                 const T* __restrict__ bw, const T* __restrict__ fw_pre_f,
+                 const T* __restrict__ bw_f, const T* __restrict__ total,
+                 T* __restrict__ b12_out, T* __restrict__ acc_out,
+                 T* __restrict__ pair_out, const L lay) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Scratch<T>* all = reinterpret_cast<Scratch<T>*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  Scratch<T>& s = all[warp];
+  const long long pair = (long long)blockIdx.x * kWarps + warp;
+  const int M = lay.M;
+  const bool valid = pair < (long long)M * lay.B;
+  int m = 0, r = 0;
+  if (valid) lay.pair(pair, m, r);
+
+  // ---- inputs --------------------------------------------------------
+  if (valid) {
+    if (lane < 7) s.sl[lane] = load_slot(md, ms, hw, ex, at, lane, m, r, lay);
+    if (lane < 8) {
+      const size_t fi = lay.fac(m, lane, r);
+      const T allowed = (lane & sh[r]) == 0 ? T(1) : T(0);
+      s.wexp[lane] = exp(fw_pre_f[fi] + bw_f[fi] - total[r]) * allowed;
+    }
+  }
+  if (lane == 0) {
+    s.base = valid ? lay.sweep(m, r) : 0;
+    s.valid = valid;
+  }
+  __syncthreads();
+  // the block's sweeps, adjacent threads on adjacent addresses
+  const size_t stride = lay.xstride();
+  for (int i = threadIdx.x; i < kWarps * 512; i += kWarps * 32) {
+    const int w = L::kUnitsAdjacent ? i % kWarps : i >> 9;
+    const int x = L::kUnitsAdjacent ? i / kWarps : i & 511;
+    Scratch<T>& sw = all[w];
+    if (sw.valid) {
+      const size_t g = sw.base + x * stride;
+      sw.W[x] = fw_pre[g] * bw[g] * sw.wexp[x >> 6];
+    }
+  }
+  if (valid && lane < 5) {
+    if (lane == 0)
+      cnf::root_block(s.sl[0], 0, 0, s.root);
+    else
+      cnf::root_block(s.sl[0], ((lane - 1) & 1) + 1, (lane - 1) >> 1,
+                      s.rootmv[(lane - 1) >> 1][(lane - 1) & 1]);
+  }
+  __syncthreads();
+  if (!valid) return;
+  build_tables(s, lane);
+  __syncwarp();
+
+  // the probe-rule slot masks: bit s of tied / dup for slot s
+  unsigned tied = 0, dup = 0;
+  if constexpr (Rules) {
+    bool t = false, d = false;
+    if (lane < 7) {
+      const cnf::Slot<T>& sl = s.sl[lane];
+      const size_t i = lay.ex(lane, r);
+      t = sl.exists && em[i] == 0 && sl.md[0] == sl.md[1] &&
+          sl.ms[0] == sl.ms[1];
+      d = df[i] != 0;
+    }
+    tied = __ballot_sync(kFull, t);
+    dup = __ballot_sync(kFull, d);
+  }
+  const size_t pm = (size_t)r * M + m;
+  StoreOut<T> out{b12_out + pm * 14, acc_out + pm * 28, pair_out + pm * 4,
+                  T(0)};
+  pair_statistics<T, Rules>(s, lane, f2[r], tied, dup, nullptr, out);
+}
+
+// ---- kernel #13: the extended spaces' statistics ----------------------
+//
+// Replaces no TPU kernel: the JAX package runs this stage as XLA
+// (cnf2freq_tpu/engine_ext.py:351 ext_statistics, with hmm/probes.py's
+// probe_rule_factors, side_collapse, haplo_stats, _share_blocks and
+// infprob_stats), and the port has no XLA.  Plain twin:
+// ops/stats.py::stats_ext_reference.  Per pair (m, r) of the
+// [B, M, V, NS, S] sweeps, for each extension value v (3 HBD statuses
+// under SELFING, 2 coherence-bit values under RELSKEWSTATES):
+//   W_v = fw_pre[.., v] * bw[.., v] * exp(fw_pre_f + bw_f - total)
+//         * allowed (the factors are joint over V),
+//   the root of v (ext_root) and the blocks' tables built on it, then
+//   for each probe-rule variant w < nv the body of #3's probe-rule form
+//   (pair_statistics) with rule 3 off (SELFING) or exempting the focal
+//   (RELSKEWSTATES), summed (SumOut) and divided by nv.
+// b12 is written per v ([B, M, V, 7, 2]: the caller masks each v's by
+// its own update mask); accum and pair are summed over v, accum without
+// its side-1 probes under RELSKEWSTATES (drop_side1).  One warp a pair
+// reads each W_v once and builds its tables and the allele-value shares
+// (variant-independent: the rules decorate only the masked entries and
+// froot) once a value; the variants reuse them from the warp's scratch.
+// Bound: operations (~20,400 a body, 48 bodies a pair at selfing), far
+// above the 2 x V x 512 sweep values it reads.
+
+// the focal's HBD-collapsed allele, its error value and the dead-marker
+// flag (models/selfing.py::collapse_focal)
+template <typename T>
+__device__ __forceinline__ void collapse_focal(const cnf::Slot<T>& f,
+                                               int& allele, T& sure,
+                                               bool& dead) {
+  const int first = f.md[0], second = f.md[1];
+  const bool miss = first != cnf::kUnknown &&
+                    !(second == cnf::kUnknown && first != cnf::kSexMarker) &&
+                    first != second;
+  allele = miss || first == cnf::kUnknown ? second : first;
+  sure = miss ? T(1) - f.ms[0] * (T(1) - f.ms[1])
+              : T(1) - (T(1) - f.ms[0]) * (T(1) - f.ms[1]);
+  dead = miss && f.ms[0] == T(0);
+}
+
+// cnf::root_block with the pair (md_r, ms_r) on the root's own
+// interpretation and (md_o, ms_o) on the other, per r0, and the phase
+// collapse given (hmm/emission.py::root_block's root_override and
+// no_root_collapse)
+template <typename T>
+__device__ __forceinline__ void root_block_of(
+    const cnf::Slot<T>& f, const int (&md_r)[2], const T (&ms_r)[2],
+    const int (&md_o)[2], const T (&ms_o)[2], bool collapse, int iv,
+    int side, cnf::Root<T>& out) {
+#pragma unroll
+  for (int r0 = 0; r0 < 2; ++r0) {
+    T bv_raw, pre;
+    int bound;
+    cnf::match_raw(iv, T(0), md_r[r0], ms_r[r0], bv_raw, pre, bound);
+    const T bv_abs = bv_raw + pre;
+    const T ms_nab = cnf::safe_div(pre, bv_raw);
+    const T bv = f.attop ? bv_abs : bv_raw;
+    const T mo = ms_o[r0];
+    const T secfac = mo != T(0) ? T(1) - mo : T(1);
+#pragma unroll
+    for (int s0 = 0; s0 < 2; ++s0) {
+      const T f2n = T(r0 ^ side ^ s0);
+      const T ph = collapse ? f2n : fabs(f2n - f.hw);
+      out.froot[r0][s0] = f.attop ? bv_abs * ph : bv * ph * secfac;
+    }
+    out.vA[r0] = bound;
+    out.svA[r0] = f.attop ? T(0) : ms_nab;
+    out.vB[r0] = md_o[r0];
+    out.svB[r0] = mo != T(0) ? cnf::safe_div(mo, T(1) - mo) : T(0);
+  }
+}
+
+// Lane 0: the root of extension value v; lanes 1-4: its allele-value
+// roots (side (lane - 1) >> 1, focal value ((lane - 1) & 1) + 1), which
+// stay undecorated.  SELFING: v = 0 the focal's own pair; v = 1, 2 the
+// HBD-collapsed pair on interpretation slot 0 or 1 with the collapse
+// forced on (models/selfing.py::hbd_overrides), froot times alive.
+// RELSKEWSTATES: the focal's own pair with no root collapse, froot
+// pinned to r0 = v (engine_ext.py::ext_blocks).
+template <typename T>
+__device__ __forceinline__ void ext_root(Scratch<T>& s, int lane, int v,
+                                         bool selfing) {
+  const cnf::Slot<T>& f = s.sl[0];
+  int md_r[2] = {f.md[0], f.md[1]}, md_o[2] = {f.md[1], f.md[0]};
+  T ms_r[2] = {f.ms[0], f.ms[1]}, ms_o[2] = {f.ms[1], f.ms[0]};
+  bool collapse = selfing && f.md[0] == f.md[1] && f.ms[0] == f.ms[1];
+  T alive = T(1);
+  if (selfing && v > 0) {
+    int c;
+    T cs;
+    bool dead;
+    collapse_focal(f, c, cs, dead);
+#pragma unroll
+    for (int r0 = 0; r0 < 2; ++r0) {
+      md_r[r0] = v == 1 ? c : cnf::kUnknown;
+      ms_r[r0] = v == 1 ? cs : T(0);
+      md_o[r0] = v == 1 ? cnf::kUnknown : c;
+      ms_o[r0] = v == 1 ? T(0) : cs;
+    }
+    collapse = true;
+    alive = dead ? T(0) : T(1);
+  }
+  const int iv = lane == 0 ? 0 : ((lane - 1) & 1) + 1;
+  const int side = lane == 0 ? 0 : (lane - 1) >> 1;
+  cnf::Root<T>& out = lane == 0 ? s.root : s.rootmv[side][(lane - 1) & 1];
+  root_block_of(f, md_r, ms_r, md_o, ms_o, collapse, iv, side, out);
+  if (lane == 0) {
+#pragma unroll
+    for (int r0 = 0; r0 < 2; ++r0)
+#pragma unroll
+      for (int s0 = 0; s0 < 2; ++s0)
+        out.froot[r0][s0] *= selfing ? alive : T(r0 == v ? 1 : 0);
+  }
+}
+
+// pair_statistics' share table for the warp's current roots and tables:
+// each lane its 64 entries, in the lane-minor layout
+// [side][p][t][mvi][lane]
+template <typename T>
+__device__ __forceinline__ void ext_shares(const Scratch<T>& s, T* shares,
+                                           int lane) {
+  const int rr = lane >> 4, f = (lane >> 1) & 7, sk = lane & 1;
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    const cnf::Slot<T>& par = s.sl[1 + 3 * side];
+    const int mask = path_mask(s, side);
+    const int rs = side == 0 ? rr : 1 - rr;
+    const int b0 = side * 6 + 2 + rs, b1 = side * 6 + 4 + rs;
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const T pbp0 = entry(s, side, b0, mask, par.exists, par.attop, f, p,
+                           sk);
+      const T pbp1 = entry(s, side, b1, mask, par.exists, par.attop, f, p,
+                           sk);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        // as pair_statistics forms them without a table: each share its
+        // own quotient, so that a small one keeps its relative precision
+        const T u0 = s.rootmv[side][0].froot[rs][t] * pbp0;
+        const T u1 = s.rootmv[side][1].froot[rs][t] * pbp1;
+        const T den = u0 + u1;
+        const T inv = den > T(0) ? T(1) / den : T(0);
+        T* st = shares + (((side * 8 + p) * 2 + t) * 2) * 32;
+        st[lane] = u0 * inv;
+        st[32 + lane] = u1 * inv;
+      }
+    }
+  }
+}
+
+// a warp's scratch in the extended kernel: #3's and the share table
+constexpr int kExtWarps = 4;
+template <typename T>
+struct ExtScratch {
+  Scratch<T> s;
+  T shares[2 * 8 * 2 * 2 * 32];
+};
+
+template <typename T>
+struct SumOut {
+  T hb, side[2], pair;
+  __device__ void haplo(T v, int) { hb += v; }
+  __device__ void infprob(int k, T red, int) { side[k] += red; }
+  __device__ void pairs(T red, int) { pair += red; }
+};
+
+struct ExtShape {
+  int M, B, V;   // markers, units, extension values
+  int nv, nvt;   // variants averaged, variants in dup_flip
+  int selfing;   // 1: SELFING, 0: RELSKEWSTATES
+};
+
+// 4 warps a block; the scratch of 4 warps (49.6 / 98.4 KB in f32 / f64)
+// lets 4 / 2 blocks share an SM, and the register cap matches that.  Both
+// shares of a table entry are stored: one stored share and its decoded
+// complement ran 12% slower in f32 at 1000 x 192 (H100), the same in f64.
+template <typename T>
+__global__ void __launch_bounds__(kExtWarps * 32, sizeof(T) == 4 ? 4 : 2)
+    stats_ext_kernel(const int* __restrict__ md, const T* __restrict__ ms,
+                     const T* __restrict__ hw, const int* __restrict__ ex,
+                     const int* __restrict__ at, const int* __restrict__ em,
+                     const int* __restrict__ df, const int* __restrict__ f2,
+                     const int* __restrict__ sh,
+                     const T* __restrict__ fw_pre, const T* __restrict__ bw,
+                     const T* __restrict__ fw_pre_f,
+                     const T* __restrict__ bw_f, const T* __restrict__ total,
+                     T* __restrict__ b12_out, T* __restrict__ acc_out,
+                     T* __restrict__ pair_out, const ExtShape e) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  ExtScratch<T>& es = reinterpret_cast<ExtScratch<T>*>(smem_raw)[warp];
+  Scratch<T>& s = es.s;
+  const long long pair = (long long)blockIdx.x * kExtWarps + warp;
+  // a warp works alone on its pair: no block-wide barrier follows
+  if (pair >= (long long)e.M * e.B) return;
+  const BMNSLayout lay{e.M, e.B};
+  int m, r;
+  lay.pair(pair, m, r);
+  if (lane < 7) s.sl[lane] = load_slot(md, ms, hw, ex, at, lane, m, r, lay);
+  if (lane < 8) {
+    const size_t fi = lay.fac(m, lane, r);
+    const T allowed = (lane & sh[r]) == 0 ? T(1) : T(0);
+    s.wexp[lane] = exp(fw_pre_f[fi] + bw_f[fi] - total[r]) * allowed;
+  }
+  __syncwarp();
+  // rule 3's tied members: none under SELFING, the focal exempt under
+  // RELSKEWSTATES
+  bool t = false;
+  if (lane < 7) {
+    const cnf::Slot<T>& sl = s.sl[lane];
+    t = sl.exists && em[lay.ex(lane, r)] == 0 && sl.md[0] == sl.md[1] &&
+        sl.ms[0] == sl.ms[1];
+  }
+  const unsigned tb = __ballot_sync(kFull, t);
+  const unsigned tied = e.selfing ? 0u : tb & ~1u;
+  const int f2ig = f2[r];
+  const size_t pm = (size_t)r * e.M + m;
+  T acc[2] = {T(0), T(0)}, pr = T(0);
+  for (int v = 0; v < e.V; ++v) {
+    if (lane < 5) ext_root(s, lane, v, e.selfing != 0);
+    const size_t base = (pm * e.V + v) * 512;
+#pragma unroll 4
+    for (int x = lane; x < 512; x += 32)
+      s.W[x] = fw_pre[base + x] * bw[base + x] * s.wexp[x >> 6];
+    __syncwarp();
+    build_tables(s, lane);
+    __syncwarp();
+    // the allele-value shares are the same for every variant (each lane
+    // writes and reads its own entries)
+    ext_shares(s, es.shares, lane);
+    SumOut<T> sum{T(0), {T(0), T(0)}, T(0)};
+    for (int w = 0; w < e.nv; ++w) {
+      const bool d = lane < 7 && df[((size_t)r * e.nvt + w) * 7 + lane] != 0;
+      const unsigned dup = __ballot_sync(kFull, d);
+      pair_statistics<T, true>(s, lane, f2ig, tied, dup, es.shares, sum);
+    }
+    const T n = T(e.nv);
+    if ((lane & 1) == 0 && lane < 28)
+      b12_out[(pm * e.V + v) * 14 + (lane >> 1)] = sum.hb / n;
+    acc[0] += sum.side[0] / n;
+    acc[1] += sum.side[1] / n;
+    pr += sum.pair / n;
+  }
+  // RELSKEWSTATES drops the side-1 probes (they are structurally dead)
+  if (!e.selfing) acc[1] = T(0);
+  if ((lane & 1) == 0) {
+    const int idx = lane >> 1;
+    T* ao = acc_out + pm * 28;
+    if (idx < 4) {
+      ao[idx] = acc[0] + acc[1];
+    } else {
+      ao[idx] = acc[0];
+      ao[idx + 12] = acc[1];
+    }
+  }
+  if ((lane & 7) == 0) pair_out[pm * 4 + (lane >> 3)] = pr;
+}
+
+template <typename T>
+int launch_stats_ext(const int* md, const T* ms, const T* hw, const int* ex,
+                     const int* at, const int* em, const int* df,
+                     const int* f2, const int* sh, const T* fw_pre,
+                     const T* bw, const T* fw_pre_f, const T* bw_f,
+                     const T* total, T* b12, T* accum, T* pair,
+                     const ExtShape& e, void* stream) {
+  if (e.M <= 0 || e.B <= 0) return 0;
+  if (e.V < 1 || e.nv < 1 || e.nvt < e.nv) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(ExtScratch<T>) * kExtWarps;
+  cudaError_t err = cudaFuncSetAttribute(
+      stats_ext_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long pairs = (long long)e.M * e.B;
+  const dim3 grid((unsigned)((pairs + kExtWarps - 1) / kExtWarps));
+  stats_ext_kernel<T><<<grid, kExtWarps * 32, smem,
+                        (cudaStream_t)stream>>>(
+      md, ms, hw, ex, at, em, df, f2, sh, fw_pre, bw, fw_pre_f, bw_f, total,
+      b12, accum, pair, e);
+  return (int)cudaGetLastError();
 }
 
 // em / df are null for the form without probe rules
@@ -733,6 +1070,37 @@ int cnf_stats_bmns_rules_f64(const int* md, const double* ms,
   return launch_stats<double, BMNSLayout, true>(
       md, ms, hw, ex, at, em, df, f2, sh, fw_pre, bw, fw_pre_f, bw_f, total,
       b12, accum, pair, BMNSLayout{M, B}, stream);
+}
+
+// kernel #13 on the [B, M, V, NS, S] sweeps: em [B, 7] empty-slot flags,
+// df [B, nvt, 7] dup-flip flags of which the first nv variants are
+// averaged; b12 [B, M, V, 7, 2], accum [B, M, 7, 2, 2], pair [B, M, 2, 2];
+// selfing = 1 for SELFING (V = 3), 0 for RELSKEWSTATES (V = 2)
+int cnf_stats_ext_f32(const int* md, const float* ms, const float* hw,
+                      const int* ex, const int* at, const int* em,
+                      const int* df, const int* f2, const int* sh,
+                      const float* fw_pre, const float* bw,
+                      const float* fw_pre_f, const float* bw_f,
+                      const float* total, float* b12, float* accum,
+                      float* pair, int M, int B, int V, int nv, int nvt,
+                      int selfing, void* stream) {
+  return launch_stats_ext<float>(md, ms, hw, ex, at, em, df, f2, sh, fw_pre,
+                                 bw, fw_pre_f, bw_f, total, b12, accum, pair,
+                                 ExtShape{M, B, V, nv, nvt, selfing}, stream);
+}
+
+int cnf_stats_ext_f64(const int* md, const double* ms, const double* hw,
+                      const int* ex, const int* at, const int* em,
+                      const int* df, const int* f2, const int* sh,
+                      const double* fw_pre, const double* bw,
+                      const double* fw_pre_f, const double* bw_f,
+                      const double* total, double* b12, double* accum,
+                      double* pair, int M, int B, int V, int nv, int nvt,
+                      int selfing, void* stream) {
+  return launch_stats_ext<double>(md, ms, hw, ex, at, em, df, f2, sh,
+                                  fw_pre, bw, fw_pre_f, bw_f, total, b12,
+                                  accum, pair,
+                                  ExtShape{M, B, V, nv, nvt, selfing}, stream);
 }
 
 }  // extern "C"

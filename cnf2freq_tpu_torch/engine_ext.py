@@ -15,11 +15,18 @@ RELSKEWSTATES) beside the 64-state axis:
   ``root_override``) or pinned (the RELSKEWSTATES interpretation as a
   one-hot factor on the root block);
 * every update statistic is the standard contraction per extension
-  value, summed over the axis (``ext_statistics``).  Kernel #3 rebuilds
-  the blocks from the raw family data inside its body and has no root
-  override or interpretation pin, so these statistics are the plain
-  PyTorch contractions of ``hmm.probes`` (``haplo_stats``,
-  ``infprob_stats``), as the JAX package computes them with XLA.
+  value and probe-rule variant, summed over the axis
+  (``ext_statistics``): on the card one launch of kernel #13 (the
+  ``cnf_stats_ext_*`` entry of csrc/stats.cu, ``ops.stats.stats_ext``),
+  which rebuilds each value's blocks from the family batch and forms
+  the posterior weights itself; on the CPU its plain twin
+  ``ext_statistics_reference``, the contractions of ``hmm.probes``
+  (``haplo_stats``, ``infprob_stats``) as the JAX package computes them
+  with XLA;
+* SELFING's per-slot coherence (``coherence_ext``): on the card one
+  launch of kernel #14 (``cnf_coherence_ext_*`` in csrc/coherence.cu,
+  ``ops.coherence.coherence_ext``) for all seven slots, on the CPU the
+  plain ``coherence_slot_ext`` per slot.
 """
 
 from __future__ import annotations
@@ -34,8 +41,11 @@ from .hmm.emission import assemble_e_all, build_blocks
 from .hmm.family import FamilyBatch
 from .hmm.transition import (apply_transition, fwht, interval_recomb,
                              transition_eigenvalues)
+from .ops.coherence import coherence_ext as coherence_ext_kernel
+from .ops.coherence import coherence_ext_reference
 from .ops.fb import emit_normalise_ext, fb_ext
 from .ops.scan import turn_offsets
+from .ops.stats import stats_ext
 from .utils.transfer import constant
 
 
@@ -83,15 +93,28 @@ def _prior(fb: FamilyBatch, cfg: ModelConfig, dtype) -> torch.Tensor:
     return base
 
 
-def ext_blocks(fb: FamilyBatch, cfg: ModelConfig, ci: bool = False,
-               dtype=torch.float64):
-    """Per-extension-value emission blocks.  Returns (blocks[v], e_ext
-    [B, M, V, NS, S], collapses[v] [B, M] focal duplicate-allele collapse
-    flags, root_overrides[v])."""
+def ext_collapses(fb: FamilyBatch, cfg: ModelConfig, ci: bool = False):
+    """collapses[v] [B, M]: the focal's duplicate-allele collapse flags of
+    each extension value (SELFING: the standard pair's, then forced on
+    for the HBD-collapsed pairs; RELSKEWSTATES: none)."""
     md, ms = fb.md[:, 0], fb.ms[:, 0]
     collapse_std = md[..., 0] == md[..., 1]
     if not ci:
         collapse_std = collapse_std & (ms[..., 0] == ms[..., 1])
+    if cfg.selfing:
+        forced = torch.ones_like(collapse_std)
+        return [collapse_std, forced, forced]
+    # no root collapse under RELSKEWSTATES
+    nc = torch.zeros_like(collapse_std)
+    return [nc, nc]
+
+
+def ext_block_list(fb: FamilyBatch, cfg: ModelConfig, ci: bool = False,
+                   dtype=torch.float64):
+    """Per-extension-value emission blocks.  Returns (blocks[v],
+    collapses[v] [B, M] focal duplicate-allele collapse flags
+    (``ext_collapses``), root_overrides[v])."""
+    md, ms = fb.md[:, 0], fb.ms[:, 0]
     b0 = build_blocks(fb, cfg, ci=ci, dtype=dtype)
     if cfg.selfing:
         from .models.selfing import hbd_overrides
@@ -105,8 +128,6 @@ def ext_blocks(fb: FamilyBatch, cfg: ModelConfig, ci: bool = False,
             blocks.append(bv._replace(froot=bv.froot * alive,
                                       top=bv.top * alive))
             ovs.append(ov)
-        coll = ov1[4]
-        collapses = [collapse_std, coll, coll]
     else:
         blocks, ovs = [], []
         for v in range(2):
@@ -115,9 +136,14 @@ def ext_blocks(fb: FamilyBatch, cfg: ModelConfig, ci: bool = False,
             blocks.append(b0._replace(froot=b0.froot * sel,
                                       top=b0.top * sel))
             ovs.append(None)
-        # no root collapse under RELSKEWSTATES
-        nc = torch.zeros_like(collapse_std)
-        collapses = [nc, nc]
+    return blocks, ext_collapses(fb, cfg, ci=ci), ovs
+
+
+def ext_blocks(fb: FamilyBatch, cfg: ModelConfig, ci: bool = False,
+               dtype=torch.float64):
+    """``ext_block_list`` and the emissions: (blocks[v], e_ext
+    [B, M, V, NS, S], collapses[v], root_overrides[v])."""
+    blocks, collapses, ovs = ext_block_list(fb, cfg, ci=ci, dtype=dtype)
     e_ext = torch.stack([assemble_e_all(b, cfg) for b in blocks], dim=2)
     return blocks, e_ext, collapses, ovs
 
@@ -208,7 +234,7 @@ def _same_share(J: torch.Tensor) -> torch.Tensor:
     same = J[..., 0, 0] + J[..., 1, 1]
     ok = tot > 0
     c = torch.where(ok, same / torch.where(ok, tot, 1.0), 0.5)
-    return torch.cat([c, torch.full_like(c[:, :1], 0.5)], dim=1)
+    return torch.cat([c, c.new_full((c.shape[0], 1), 0.5)], dim=1)
 
 
 def relskew_coherence_ext(fbres: ExtFBResult, e_ext: torch.Tensor,
@@ -241,11 +267,20 @@ def coherence_slot_ext(fbres: ExtFBResult, blocks_v, fb: FamilyBatch,
     over an extended state space: the per-value phase-resolved emissions
     ride the V axis and the interval transition composes the base-state
     kernel with the V coupling."""
-    from .hmm.probes import _phase_resolved_emission
-    B, M, V, NS, S = fbres.fw_pre.shape
     dtype = fbres.fw_pre.dtype
-    lam = _lam(cfg, params, dists, dtype, ratemat)
-    C = _vcoupling(fb, cfg, params, dists, dtype)
+    return slot_coherence_ext(fbres, blocks_v, fb, cfg,
+                              _lam(cfg, params, dists, dtype, ratemat),
+                              _vcoupling(fb, cfg, params, dists, dtype),
+                              slot)
+
+
+def slot_coherence_ext(fbres: ExtFBResult, blocks_v, fb: FamilyBatch,
+                       cfg: ModelConfig, lam: torch.Tensor, C: torch.Tensor,
+                       slot: int) -> torch.Tensor:
+    """``coherence_slot_ext`` on given interval eigenvalues lam [M-1, S]
+    and coupling C [B, M-1, V, V]."""
+    from .hmm.probes import _phase_resolved_emission
+    V = fbres.fw_pre.shape[2]
     e_j = torch.stack([_phase_resolved_emission(blocks_v[v], fb, cfg, slot)
                        for v in range(V)], dim=2)    # [B, M, V, j, NS, S]
     w = _shift_weights(fbres.fw_pre_f[:, :-1], fbres.bw_f[:, 1:])
@@ -258,20 +293,56 @@ def coherence_slot_ext(fbres: ExtFBResult, blocks_v, fb: FamilyBatch,
     return _same_share(J)
 
 
-def ext_statistics(W, blocks_v, collapses, ovs, fb: FamilyBatch,
-                   cfg: ModelConfig, n_variants: int,
-                   with_infprobs: bool = True):
-    """The extended-space statistics: per extension value v, the
-    probe-dedup-variant average of the haplo / infprob statistics, and
-    the selfing focal-collapse masking.  W: [B, M, V, NS, S] posterior
-    weights; returns (b12, mask, inf, pair).  The share tensors of the
-    infprob probes depend on v's root only and the side-collapsed
-    posterior on (v, variant) only, so each is computed once and shared
-    (the JAX package's XLA program does the same by common-subexpression
-    elimination)."""
-    from .hmm.probes import (_valid_paths, haplo_stats, haplo_update_mask,
-                             infprob_shares, infprob_stats,
-                             probe_rule_factors, side_collapse, _w_bits)
+def coherence_ext(fbres: ExtFBResult, blocks_v, fb: FamilyBatch,
+                  cfg: ModelConfig, params: RuntimeParams,
+                  dists: torch.Tensor, ratemat=None) -> torch.Tensor:
+    """C[b, m, slot]: SELFING's per-slot adjacent-phase coherence, every
+    slot.  On the CPU the stack of ``coherence_slot_ext`` per slot
+    (``ops.coherence.coherence_ext_reference``); on the card one launch
+    of kernel #14 (``ops.coherence.coherence_ext``), which raises on what
+    it does not take."""
+    dtype = fbres.fw_pre.dtype
+    lam = _lam(cfg, params, dists, dtype, ratemat)
+    C = _vcoupling(fb, cfg, params, dists, dtype)
+    if fbres.fw_pre.device.type == "cpu":
+        return coherence_ext_reference(fbres, blocks_v, fb, cfg, lam, C)
+    return coherence_ext_kernel(
+        fbres.fw_pre, fbres.bw, fbres.fw_pre_f, fbres.bw_f, lam, C,
+        [b.froot for b in blocks_v], [b.pb[0] for b in blocks_v],
+        [b.pb[1] for b in blocks_v], fb.flag2ignore, cfg)
+
+
+def ext_update_masks(fb: FamilyBatch, cfg: ModelConfig, collapses):
+    """[B, M, slot] haplo update mask per extension value: the standard
+    one, and under SELFING the focal's duplicate-allele collapse of the
+    value's own pair (collapses[v])."""
+    from .hmm.probes import haplo_update_mask
+    mask_std = haplo_update_mask(fb, cfg)
+    masks = []
+    for v, coll in enumerate(collapses):
+        mask_v = mask_std
+        if cfg.selfing:
+            # the focal's duplicate-allele collapse (no haplo update)
+            # tests the HBD-collapsed pair for selfval > 0
+            mv0 = fb.exists[:, None, 0:1] & ~coll[:, :, None]
+            first = mask_std[..., 0:1] & mv0 if v == 0 else mv0
+            mask_v = torch.cat([first, mask_std[..., 1:]], dim=-1)
+        masks.append(mask_v)
+    return masks
+
+
+def ext_statistics_per_v(W, blocks_v, ovs, fb: FamilyBatch,
+                         cfg: ModelConfig, n_variants: int):
+    """For each extension value v, the probe-dedup-variant average of the
+    haplo / infprob statistics: yields (b12_v [B, M, 7, 2], inf_v
+    [B, M, 7, 2, 2], pair_v [B, M, 2, 2]).  W: [B, M, V, NS, S] posterior
+    weights.  The share tensors of the infprob probes depend on v's root
+    only and the side-collapsed posterior on (v, variant) only, so each
+    is computed once and shared (the JAX package's XLA program does the
+    same by common-subexpression elimination)."""
+    from .hmm.probes import (_valid_paths, haplo_stats, infprob_shares,
+                             infprob_stats, probe_rule_factors,
+                             side_collapse, _w_bits)
 
     dtype, dev = fb.ms.dtype, fb.ms.device
     B, M = fb.md.shape[0], fb.md.shape[2]
@@ -281,55 +352,82 @@ def ext_statistics(W, blocks_v, collapses, ovs, fb: FamilyBatch,
     tied = "nonfocal" if cfg.relskewstates else False
     rule_factors = [probe_rule_factors(fb, cfg, dtype, w, tied_rule=tied)
                     for w in range(n_variants)]
-    mask_std = haplo_update_mask(fb, cfg)
-    b12 = torch.zeros((B, M, S, 2), dtype=dtype, device=dev)
-    inf = torch.zeros((B, M, S, 2, 2), dtype=dtype, device=dev)
-    pair = torch.zeros((B, M, 2, 2), dtype=dtype, device=dev)
-    mask = torch.zeros((B, M, S), dtype=torch.bool, device=dev)
     for v, blk in enumerate(blocks_v):
         PBm = [blk.pb[k] * VP[k][:, None, None, None, :, None]
                for k in range(2)]
-        shares = infprob_shares(fb, cfg, dtype, root_override=ovs[v]) \
-            if with_infprobs else None
+        shares = infprob_shares(fb, cfg, dtype, root_override=ovs[v])
         Wv = W[:, :, v]
         Wr = _w_bits(Wv)
-        b12_v = torch.zeros_like(b12)
-        inf_v = torch.zeros_like(inf)
-        pair_v = torch.zeros_like(pair)
+        b12_v = torch.zeros((B, M, S, 2), dtype=dtype, device=dev)
+        inf_v = torch.zeros((B, M, S, 2, 2), dtype=dtype, device=dev)
+        pair_v = torch.zeros((B, M, 2, 2), dtype=dtype, device=dev)
         for F0, FPs in rule_factors:
             frootw = blk.froot * F0
             PBw = [PBm[k] * FPs[k] for k in range(2)]
             t01 = side_collapse(PBw, Wr)
             b12_v += haplo_stats(Wv, blk, fb, cfg, t01=t01, froot=frootw,
                                  PB=PBw).b12
-            if with_infprobs:
-                ist = infprob_stats(Wv, blk, fb, cfg, t01=t01, froot=frootw,
-                                    PB=PBw, root_override=ovs[v],
-                                    drop_side1=cfg.relskewstates,
-                                    shares=shares)
-                inf_v += ist.accum
-                pair_v += ist.pair
-        b12_v, inf_v, pair_v = (x / n_variants
-                                for x in (b12_v, inf_v, pair_v))
-        mask_v = mask_std
-        if cfg.selfing:
-            # the focal's duplicate-allele collapse (no haplo update)
-            # tests the HBD-collapsed pair for selfval > 0
-            mv0 = fb.exists[:, None, 0:1] & ~collapses[v][:, :, None]
-            first = mask_std[..., 0:1] & mv0 if v == 0 else mv0
-            mask_v = torch.cat([first, mask_std[..., 1:]], dim=-1)
+            ist = infprob_stats(Wv, blk, fb, cfg, t01=t01, froot=frootw,
+                                PB=PBw, root_override=ovs[v],
+                                drop_side1=cfg.relskewstates, shares=shares)
+            inf_v += ist.accum
+            pair_v += ist.pair
+        yield tuple(x / n_variants for x in (b12_v, inf_v, pair_v))
+
+
+def ext_statistics_reference(W, blocks_v, collapses, ovs, fb: FamilyBatch,
+                             cfg: ModelConfig, n_variants: int):
+    """The extended-space statistics from the posterior weights W
+    [B, M, V, NS, S], on any device: per extension value v the
+    probe-dedup-variant average of the haplo / infprob statistics
+    (``ext_statistics_per_v``) and the selfing focal-collapse masking
+    (``ext_update_masks``).  Returns (b12, mask, inf, pair)."""
+    dtype, dev = fb.ms.dtype, fb.ms.device
+    B, M = fb.md.shape[0], fb.md.shape[2]
+    S = cfg.numslots
+    b12 = torch.zeros((B, M, S, 2), dtype=dtype, device=dev)
+    inf = torch.zeros((B, M, S, 2, 2), dtype=dtype, device=dev)
+    pair = torch.zeros((B, M, 2, 2), dtype=dtype, device=dev)
+    mask = torch.zeros((B, M, S), dtype=torch.bool, device=dev)
+    per_v = ext_statistics_per_v(W, blocks_v, ovs, fb, cfg, n_variants)
+    for mask_v, (b12_v, inf_v, pair_v) in zip(
+            ext_update_masks(fb, cfg, collapses), per_v):
         mask = mask | mask_v
         b12 = b12 + torch.where(mask_v[..., None], b12_v, 0.0)
-        if with_infprobs:
-            inf = inf + inf_v
-            pair = pair + pair_v
+        inf = inf + inf_v
+        pair = pair + pair_v
+    return b12, mask, inf, pair
+
+
+def ext_statistics(fbres: ExtFBResult, total: torch.Tensor,
+                   fb: FamilyBatch, cfg: ModelConfig, n_variants: int):
+    """The extended-space statistics (b12, mask, inf, pair) of a scan's
+    sweeps and totals.  On the CPU each value's blocks
+    (``ext_block_list``), the posterior weights and
+    ``ext_statistics_reference``; on the card one launch of kernel #13
+    (``ops.stats.stats_ext``: the blocks and weights formed inside it,
+    none stored), then each value's update mask on its b12."""
+    if fbres.fw_pre.device.type == "cpu":
+        blocks_v, collapses, ovs = ext_block_list(fb, cfg,
+                                                  dtype=fb.ms.dtype)
+        W = posterior_weight_ext(fbres, total, fb.shiftignore)
+        return ext_statistics_reference(W, blocks_v, collapses, ovs, fb,
+                                        cfg, n_variants)
+    b12_v, inf, pair = stats_ext(fb, fbres.fw_pre, fbres.bw, fbres.fw_pre_f,
+                                 fbres.bw_f, total, cfg, n_variants)
+    b12 = torch.zeros_like(b12_v[:, :, 0])
+    mask = torch.zeros(b12.shape[:-1], dtype=torch.bool, device=b12.device)
+    for v, mask_v in enumerate(ext_update_masks(fb, cfg,
+                                                ext_collapses(fb, cfg))):
+        mask = mask | mask_v
+        b12 = b12 + torch.where(mask_v[..., None], b12_v[:, :, v], 0.0)
     return b12, mask, inf, pair
 
 
 def chromosome_scan_ext(fb: FamilyBatch, dists: torch.Tensor,
                         cfg: ModelConfig, params: RuntimeParams,
-                        with_infprobs: bool = True, ratemat=None,
-                        n_variants: int = 1, with_coherence: bool = False):
+                        ratemat=None, n_variants: int = 1,
+                        with_coherence: bool = False):
     """One extended-state chromosome scan with the ScanResult contract of
     ``engine.chromosome_scan`` (totals, haplo / infprob statistics,
     genotype-pair posteriors, turn weights, coherence and the sweeps).
@@ -343,15 +441,11 @@ def chromosome_scan_ext(fb: FamilyBatch, dists: torch.Tensor,
 
     dtype = fb.ms.dtype
     B, M = fb.md.shape[0], fb.md.shape[2]
-    blocks_v, e_ext, collapses, ovs = ext_blocks(fb, cfg, dtype=dtype)
+    blocks_v, e_ext, _, _ = ext_blocks(fb, cfg, dtype=dtype)
     fbres = extended_forward_backward(e_ext, dists, fb, cfg, params,
                                       ratemat=ratemat)
     total = combined_loglik_ext(fbres, fb.shiftignore)
-    W = posterior_weight_ext(fbres, total, fb.shiftignore)
-    b12, mask, inf, pair = ext_statistics(
-        W, blocks_v, collapses, ovs, fb, cfg, n_variants,
-        with_infprobs=with_infprobs)
-    del W
+    b12, mask, inf, pair = ext_statistics(fbres, total, fb, cfg, n_variants)
     turn_w = turn_weights_ext(fbres, fb, cfg)
     coh = torch.full((B, M, cfg.numslots), 0.5, dtype=dtype,
                      device=fb.ms.device)
@@ -360,10 +454,8 @@ def chromosome_scan_ext(fb: FamilyBatch, dists: torch.Tensor,
                                    ratemat=ratemat)
         coh = torch.cat([c0[..., None], coh[..., 1:]], dim=-1)
     elif with_coherence and cfg.selfing:
-        coh = torch.stack([coherence_slot_ext(fbres, blocks_v, fb, cfg,
-                                              params, dists, slot,
-                                              ratemat=ratemat)
-                           for slot in range(cfg.numslots)], dim=-1)
+        coh = coherence_ext(fbres, blocks_v, fb, cfg, params, dists,
+                            ratemat=ratemat)
     return ScanResult(total=total, haplo_b12=b12, haplo_mask=mask,
                       inf_accum=inf, pair=pair, turn_weight=turn_w,
                       coherence=coh, fw_pre=fbres.fw_pre, bw=fbres.bw,

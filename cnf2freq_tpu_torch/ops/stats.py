@@ -24,6 +24,13 @@ variant and averaged.  ``stats_rules`` and ``stats_bmns_rules`` are its
 wrappers (one variant a call; the rules entries of ``csrc/stats.cu``);
 ``stats(probe_rules=True)`` and ``stats_pallas(probe_rules=True)`` average
 them over the variants.
+
+``stats_ext`` is the wrapper of kernel #13, the third entry of
+csrc/stats.cu: the extended spaces' statistics (SELFING, RELSKEWSTATES)
+from the [B, M, V, NS, S] sweeps, every extension value and probe-rule
+variant in one launch, for the JAX package's XLA program
+``engine_ext.ext_statistics``; ``stats_ext_reference`` is its plain twin.
+``engine_ext.ext_statistics`` routes a CUDA tensor to it.
 """
 
 from __future__ import annotations
@@ -711,3 +718,87 @@ def stats_bmns_rules(fb, variant: int, fw_pre, bw, fw_pre_f, bw_f, total,
 
 
 stats_bmns_rules.launches = 0
+
+
+def stats_ext_reference(fb, fw_pre, bw, fw_pre_f, bw_f, total,
+                        cfg: ModelConfig, n_variants: int):
+    """The plain twin of ``stats_ext`` on any device: each extension
+    value's blocks from the family batch (``engine_ext.ext_block_list``),
+    the posterior weights W, and ``engine_ext.ext_statistics_per_v``.
+    Returns (b12 [B, M, V, 7, 2], accum [B, M, 7, 2, 2], pair
+    [B, M, 2, 2]): b12 per extension value before its update mask, accum
+    and pair summed over the values, each value's statistics the
+    average of its ``n_variants`` probe-rule variants."""
+    from ..engine_ext import (ExtFBResult, ext_block_list,
+                              ext_statistics_per_v, posterior_weight_ext)
+    blocks_v, _, ovs = ext_block_list(fb, cfg, dtype=fw_pre.dtype)
+    fbres = ExtFBResult(fw_pre, None, bw, fw_pre_f, None, bw_f)
+    W = posterior_weight_ext(fbres, total, fb.shiftignore)
+    b12, inf, pair = [], 0.0, 0.0
+    for b12_v, inf_v, pair_v in ext_statistics_per_v(
+            W, blocks_v, ovs, fb, cfg, n_variants):
+        b12.append(b12_v)
+        inf = inf + inf_v
+        pair = pair + pair_v
+    return torch.stack(b12, dim=2), inf, pair
+
+
+def stats_ext(fb, fw_pre, bw, fw_pre_f, bw_f, total, cfg: ModelConfig,
+              n_variants: int):
+    """The extended spaces' statistics (kernel #13, the ``cnf_stats_ext_*``
+    entry of csrc/stats.cu): one launch for every (unit, marker) pair,
+    extension value and probe-rule variant, the blocks of each value
+    rebuilt from the family batch inside the kernel.  fw_pre, bw
+    [B, M, V, 8, 64], fw_pre_f, bw_f [B, M, 8], total [B]; fb's fields
+    [B, 7, M, ...] with ``dup_flip`` [B, NV, 7] (NV >= n_variants; None
+    is one variant without flips).  Returns what ``stats_ext_reference``
+    returns.  CUDA tensors only: every argument's type and shape is
+    checked before any device, and all of them before the launch; a
+    refused argument or a failed launch raises."""
+    V = _build.check_ext_config(cfg)
+    B, M = fw_pre.shape[:2]
+    dt = fw_pre.dtype
+    i32 = torch.int32
+    if not isinstance(n_variants, int) or n_variants < 1:
+        raise ValueError(f"n_variants={n_variants}: a positive int")
+    df = fb.dup_flip
+    if df is None:
+        df = torch.zeros((B, 1, 7), dtype=torch.bool, device=fw_pre.device)
+    if df.ndim != 3 or df.shape[1] < n_variants:
+        raise ValueError(f"dup_flip: shape {tuple(df.shape)} holds fewer "
+                         f"than {n_variants} variants")
+    em = fb.emptyslot
+    if em is None:
+        raise ValueError("emptyslot: required by the probe rules")
+    md, ms, hw, ex, at, em, df, f2, sh = (
+        x.to(t).contiguous() for x, t in (
+            (fb.md, i32), (fb.ms, dt), (fb.hw, dt), (fb.exists, i32),
+            (fb.attop, i32), (em, i32), (df, i32), (fb.flag2ignore, i32),
+            (fb.shiftignore, i32)))
+    NV = df.shape[1]
+    specs = ((fw_pre, dt, (B, M, V, 8, 64), "fw_pre"),
+             (bw, dt, (B, M, V, 8, 64), "bw"),
+             (fw_pre_f, dt, (B, M, 8), "fw_pre_f"),
+             (bw_f, dt, (B, M, 8), "bw_f"), (total, dt, (B,), "total"),
+             (md, i32, (B, 7, M, 2), "md"), (ms, dt, (B, 7, M, 2), "ms"),
+             (hw, dt, (B, 7, M), "hw"), (ex, i32, (B, 7), "exists"),
+             (at, i32, (B, 7), "attop"), (em, i32, (B, 7), "emptyslot"),
+             (df, i32, (B, NV, 7), "dup_flip"),
+             (f2, i32, (B,), "flag2ignore"), (sh, i32, (B,), "shiftignore"))
+    for spec in specs:
+        _build.check_form(*spec)
+    for spec in specs:
+        _build.check(*spec)
+    kw = dict(dtype=dt, device=fw_pre.device)
+    outs = (torch.empty((B, M, V, 7, 2), **kw),
+            torch.empty((B, M, 7, 2, 2), **kw),
+            torch.empty((B, M, 2, 2), **kw))
+    if B and M:
+        _build.launch("stats_ext", dt, md, ms, hw, ex, at, em, df, f2, sh,
+                      fw_pre, bw, fw_pre_f, bw_f, total, *outs, M, B, V,
+                      n_variants, NV, int(cfg.selfing))
+        stats_ext.launches += 1
+    return outs
+
+
+stats_ext.launches = 0

@@ -98,7 +98,7 @@ SCAN_STAGES = (("hmm.emission", "scan_blocks"),
 # stages of the extended engine (engine_ext looks them up at each call)
 EXT_STAGES = ("ext_blocks", "extended_forward_backward", "ext_statistics",
               "turn_weights_ext", "relskew_coherence_ext",
-              "coherence_slot_ext")
+              "coherence_ext")
 # the passes of the marker-blocked scan: (module, function, stage)
 BLOCKED_STAGES = (("ops.scan", "blocked_pass_a", "blocked.pass_a"),
                   ("ops.scan", "blocked_pass_b", "blocked.pass_b"),

@@ -175,6 +175,40 @@ def simulate_selfed(n_lines: int = 20, n_markers: int = 30,
     return ped
 
 
+def edge_units(fb):
+    """Edit the first nine units of a numpy FamilyBatch (>= 6 markers)
+    so that every branch of the extended spaces' statistics and coherence
+    kernels occurs, and return it: unit 0's focal heterozygous with a
+    certain first allele at markers 2-4 (the selfing HBD hypothesis dead
+    there), unit 1's focal a recursion top, unit 2 with shift modes
+    disallowed (shiftignore 5), unit 3 with empty members in slots 1-2
+    and a vacant slot 5, unit 4 with its first parent and grandparent
+    homozygous with equal error values (tied duplicate pairs: probe rule
+    3), unit 5's focal homozygous with equal markersure (the exact phase
+    collapse), unit 6 with random dup-flip columns, unit 7 untyped at
+    every slot and unit 8 typed 1/1 with error rate 1e-6 wherever its
+    members are typed and no dup-flip column set (allele-value shares of
+    value 2 near 1e-6, whose infprob entries are compared in relative
+    terms)."""
+    fb.md[0, 0, 2:5] = (1, 2)
+    fb.ms[0, 0, 2:5] = (0.0, 0.1)
+    fb.attop[1, 0] = True
+    fb.shiftignore[2] = 5
+    fb.emptyslot[3, 1:3] = True
+    fb.exists[3, 5] = False
+    fb.md[4, 1], fb.ms[4, 1] = 1, 0.05
+    fb.md[4, 2], fb.ms[4, 2] = 2, 0.1
+    fb.md[5, 0], fb.ms[5, 0] = 2, 0.07
+    fb.dup_flip[6] = np.random.default_rng(3).random(fb.dup_flip[6].shape) \
+        < 0.5
+    fb.md[7], fb.ms[7] = 0, 0.0
+    typed = fb.md[8] > 0
+    fb.md[8] = np.where(typed, 1, fb.md[8])
+    fb.ms[8] = np.where(typed, 1e-6, fb.ms[8])
+    fb.dup_flip[8] = False
+    return fb
+
+
 def simulate_plantimpute_files(dirpath, n_f2: int = 20, n_markers: int = 30,
                                spacing_cm: float = 5.0,
                                missing_rate: float = 0.1,

@@ -56,7 +56,22 @@ unit and without e; ``test_turn_bmns_matches_plain`` the [B, M, NS, S]
 entry of csrc/turn.cu (routed from ``hmm.probes.turn_weights_fast``)
 against ``turn_weights_fast_reference`` on the classic sweeps, at the
 edges of ``turn_edge_sweeps`` (those units bit for bit), at one marker and
-with an untyped unit.
+with an untyped unit.  ``test_stats_ext_matches_plain`` holds the
+extended spaces' statistics (kernel #13, csrc/stats.cu's
+``cnf_stats_ext_*``) against ``stats_ext_reference`` on selfed lines
+(V = 3, 16 probe-dedup variants) and an F2 cohort under RELSKEWSTATES
+(V = 2), at 1, 3 and all variants, on the cohort, on the edge units of
+``utils.simulate.edge_units`` (a dead HBD hypothesis, a focal at top,
+disallowed shifts, empty and vacant slots, tied duplicate pairs, a
+collapsed homozygous focal with equal markersure, random dup-flip
+columns, an untyped unit), at two markers and one, and at a pair count
+that fills no whole block; the routed ``engine_ext.ext_statistics``
+against the plain stage, its mask exactly.
+``test_coherence_ext_matches_plain`` holds SELFING's seven-slot
+coherence (kernel #14, csrc/coherence.cu's ``cnf_coherence_ext_*``) on
+the same cohorts, in float32 to the plain twin's accuracy against
+float64, as #10; ``test_ext_wrappers_count_and_refuse`` their counts and
+refusals.
 
 Run on a machine with the card (tests/conftest.py imports JAX):
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
@@ -80,6 +95,7 @@ from cnf2freq_tpu_torch.config import ModelConfig
 from cnf2freq_tpu_torch.hmm import probes
 from cnf2freq_tpu_torch.hmm.emission import (assemble_e_all, build_blocks,
                                              scan_blocks)
+from cnf2freq_tpu_torch.hmm.family import gather_family
 from cnf2freq_tpu_torch.hmm.forward_backward import FBResult, combined_loglik
 from cnf2freq_tpu_torch.hmm.transition import (interval_recomb,
                                                transition_eigenvalues)
@@ -424,7 +440,6 @@ def _rules_inputs(card, dtype):
     four probe-dedup variants, in both layouts: (fbt, st, v2 sweeps and
     total, [B, M, NS, S] sweeps and total, cfg, B, M)."""
     from cnf2freq_tpu_torch.config import ModelConfig, RuntimeParams
-    from cnf2freq_tpu_torch.hmm.family import gather_family
     from cnf2freq_tpu_torch.utils.simulate import simulate_f2
     ped = simulate_f2(n_f2=1000, n_markers=192, n_founder_pairs=20, seed=7)
     for ind in ped.inds[1:]:
@@ -1314,3 +1329,192 @@ def test_bmns_wrappers_refuse_on_card(card):
         ps.turn_weights_bmns(x, x, f.cpu(), f, sh, desc, cfg)
     assert before == (ps.emission_bmns.launches,
                       ps.turn_weights_bmns.launches)
+
+
+# the extended spaces' kernels: #13 (csrc/stats.cu's cnf_stats_ext_*,
+# routed from engine_ext.ext_statistics) and #14 (csrc/coherence.cu's
+# cnf_coherence_ext_*, routed from engine_ext.coherence_ext), on cohorts
+# of (units, markers)
+EXT_CASES = {"cohort": (24, 13), "edges": (24, 13), "M2": (9, 2),
+             "M1": (9, 1), "ragged": (13, 7)}
+
+
+def _ext_kernel_inputs(card, dtype, model, case):
+    """The extended engine's stage inputs on the card for a simulated
+    cohort of the case's (units, markers): selfed lines
+    (simulate_selfed, 16 probe-dedup variants) or an F2 cohort under
+    RELSKEWSTATES with relhaplo from U(0.2, 0.95), weights randomised,
+    gathered with at least 4 variants (a unit with fewer repeats them);
+    ``edges`` edits its first nine units (utils.simulate.edge_units).
+    Returns a dict of the family batch, config, blocks, collapses,
+    overrides, sweeps, totals, eigenvalues, coupling, variant count,
+    parameters and distances."""
+    from cnf2freq_tpu_torch import Driver
+    from cnf2freq_tpu_torch import engine_ext as PE
+    from cnf2freq_tpu_torch.config import RuntimeParams
+    from cnf2freq_tpu_torch.utils.simulate import (edge_units,
+                                                   simulate_f2 as port_f2,
+                                                   simulate_selfed)
+    B, M = EXT_CASES[case]
+    rng = np.random.default_rng(21)
+    if model == "selfing":
+        ped = simulate_selfed(n_lines=B, n_markers=M, generations=4, seed=5)
+    else:
+        ped = port_f2(n_f2=B, n_markers=M, n_founder_pairs=3, seed=6)
+        ped.config = ModelConfig(relskewstates=True)
+        for ind in ped.inds[1:]:
+            if ind.relhaplo is not None:
+                ind.relhaplo[:] = rng.uniform(0.2, 0.95, ind.relhaplo.shape)
+    for ind in ped.inds[1:]:
+        ped.fixtrees(ind.n)
+    ped.count_descendants()
+    nv = max(Driver(ped, device="cpu")._n_variants(), 4)
+    fb = gather_family(ped, list(ped.dous), 0, M - 1, n_variants=nv)
+    fb.hw = rng.uniform(0.05, 0.95, fb.hw.shape)
+    fb.ms = np.where(fb.md > 0, rng.uniform(0.0, 0.3, fb.ms.shape), fb.ms)
+    if case == "edges":
+        fb = edge_units(fb)
+    cfg, params = ped.config, RuntimeParams()
+    fbt = fb.to(card, dtype)
+    d = torch.as_tensor(np.diff(ped.markerposes), dtype=dtype, device=card)
+    blocks, e_ext, colls, ovs = PE.ext_blocks(fbt, cfg, dtype=dtype)
+    fbres = PE.extended_forward_backward(e_ext, d, fbt, cfg, params)
+    return dict(fbt=fbt, cfg=cfg, blocks=blocks, colls=colls, ovs=ovs,
+                fbres=fbres, total=PE.combined_loglik_ext(fbres,
+                                                          fbt.shiftignore),
+                lam=PE._lam(cfg, params, d, dtype),
+                C=PE._vcoupling(fbt, cfg, params, d, dtype), nv=nv,
+                params=params, d=d)
+
+
+def _stats_ext_args(x, nv):
+    f = x["fbres"]
+    return (x["fbt"], f.fw_pre, f.bw, f.fw_pre_f, f.bw_f, x["total"],
+            x["cfg"], nv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nv", [1, 3, "all"])
+@pytest.mark.parametrize("model", ["selfing", "relskewstates"])
+@pytest.mark.parametrize("case", list(EXT_CASES))
+def test_stats_ext_matches_plain(card, case, model, nv, dtype):
+    """Kernel #13 against its plain twin (b12 per extension value, accum
+    and pair summed over the values) at 1, 3 and all of the cohort's
+    probe-dedup variants, on the cohorts of EXT_CASES (the edge batch, two
+    and one markers, a pair count that fills no whole block of 8), on the
+    edge batch the infprob entries of its lopsided-share unit (8) also in
+    relative terms; and
+    the routed ext_statistics on the card against the plain stage
+    (ext_statistics_reference on the card's posterior weights), its
+    update mask exactly."""
+    from cnf2freq_tpu_torch import engine_ext as PE
+    x = _ext_kernel_inputs(card, dtype, model, case)
+    nv = x["nv"] if nv == "all" else nv
+    args = _stats_ext_args(x, nv)
+    before = pst.stats_ext.launches
+    got = pst.stats_ext(*args)
+    assert pst.stats_ext.launches == before + 1
+    ref = pst.stats_ext_reference(*args)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == dtype
+        assert bool(torch.isfinite(g).all())
+    _close(got, ref, dtype)
+    if case == "edges":
+        # value 2's shares near 1e-6, the entries down to ~1e-13: the
+        # absolute tolerance alone would pass a share lost to rounding
+        np.testing.assert_allclose(got[1][8].cpu().numpy(),
+                                   ref[1][8].cpu().numpy(), atol=1e-30,
+                                   rtol=TOL[dtype]["rtol"])
+    fbt, cfg = x["fbt"], x["cfg"]
+    routed = PE.ext_statistics(x["fbres"], x["total"], fbt, cfg, nv)
+    assert pst.stats_ext.launches == before + 2
+    W = PE.posterior_weight_ext(x["fbres"], x["total"], fbt.shiftignore)
+    plain = PE.ext_statistics_reference(W, x["blocks"], x["colls"],
+                                        x["ovs"], fbt, cfg, nv)
+    assert torch.equal(routed[1], plain[1])
+    _close([routed[i] for i in (0, 2, 3)], [plain[i] for i in (0, 2, 3)],
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", list(EXT_CASES))
+def test_coherence_ext_matches_plain(card, case, dtype):
+    """Kernel #14 (SELFING, all seven slots in one launch) against its
+    plain twin, through the routed engine_ext.coherence_ext; in float32
+    held to the plain twin's accuracy against float64 on the same inputs
+    promoted, as #10."""
+    from cnf2freq_tpu_torch import engine_ext as PE
+    x = _ext_kernel_inputs(card, dtype, "selfing", case)
+    fbres, blocks, fbt, cfg = x["fbres"], x["blocks"], x["fbt"], x["cfg"]
+    args = (fbres.fw_pre, fbres.bw, fbres.fw_pre_f, fbres.bw_f, x["lam"],
+            x["C"], [b.froot for b in blocks], [b.pb[0] for b in blocks],
+            [b.pb[1] for b in blocks], fbt.flag2ignore, cfg)
+    before = pcoh.coherence_ext.launches
+    got = pcoh.coherence_ext(*args)
+    assert pcoh.coherence_ext.launches == before + 1
+    ref = pcoh.coherence_ext_reference(fbres, blocks, fbt, cfg, x["lam"],
+                                       x["C"])
+    assert got.shape == ref.shape == (fbt.md.shape[0], fbt.md.shape[2], 7)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    assert (got[:, -1] == 0.5).all()
+    if case in ("cohort", "edges"):
+        # informative: not every interval at 0.5
+        assert (ref[:, :-1] - 0.5).abs().max() > 1e-3
+    if dtype == torch.float64:
+        _close([got], [ref], dtype)
+    else:
+        f64 = PE.ExtFBResult(*(None if v is None else v.double()
+                               for v in fbres))
+        b64 = [b._replace(froot=b.froot.double(),
+                          pb=tuple(p.double() for p in b.pb))
+               for b in blocks]
+        ref64 = pcoh.coherence_ext_reference(f64, b64, fbt, cfg,
+                                             x["lam"].double(),
+                                             x["C"].double())
+
+        def worst(v):
+            return float(((v.double() - ref64).abs() /
+                          (TOL[dtype]["atol"] + TOL[dtype]["rtol"] *
+                           ref64.abs())).max())
+        assert worst(got) <= 2.0 * max(worst(ref), 1.0)
+    routed = PE.coherence_ext(fbres, blocks, fbt, cfg, x["params"], x["d"])
+    assert pcoh.coherence_ext.launches == before + 2
+    assert torch.equal(routed, got)
+
+
+def test_ext_wrappers_count_and_refuse(card):
+    """Both extended wrappers raise on a wrong shape, a wrong type, a CPU
+    tensor, too few dup-flip variants or the wrong model before any
+    launch, and count one launch a call."""
+    x = _ext_kernel_inputs(card, torch.float64, "selfing", "ragged")
+    args = _stats_ext_args(x, x["nv"])
+    before = pst.stats_ext.launches
+    bad = [(ValueError, (args[0], args[1][:, :, :2], *args[2:])),
+           (TypeError, (args[0], args[1].float(), *args[2:])),
+           (ValueError, (args[0], args[1].cpu(), *args[2:])),
+           (ValueError, (*args[:7], x["nv"] + 1)),
+           (ValueError, (dataclasses.replace(args[0], md=args[0].md[:, :6]),
+                         *args[1:]))]
+    for err, a in bad:
+        with pytest.raises(err):
+            pst.stats_ext(*a)
+    with pytest.raises(NotImplementedError):
+        pst.stats_ext(*args[:6], ModelConfig(), x["nv"])
+    assert pst.stats_ext.launches == before
+    pst.stats_ext(*args)
+    assert pst.stats_ext.launches == before + 1
+    fbres, blocks, fbt, cfg = x["fbres"], x["blocks"], x["fbt"], x["cfg"]
+    cargs = [fbres.fw_pre, fbres.bw, fbres.fw_pre_f, fbres.bw_f, x["lam"],
+             x["C"], [b.froot for b in blocks], [b.pb[0] for b in blocks],
+             [b.pb[1] for b in blocks], fbt.flag2ignore, cfg]
+    before = pcoh.coherence_ext.launches
+    for err, i, v in ((ValueError, 4, x["lam"][1:]),
+                      (TypeError, 1, fbres.bw.float()),
+                      (ValueError, 5, x["C"].cpu()),
+                      (ValueError, 6, cargs[6][:2]),
+                      (ValueError, 7, [p[:, :, :1] for p in cargs[7]])):
+        with pytest.raises(err):
+            pcoh.coherence_ext(*cargs[:i], v, *cargs[i + 1:])
+    with pytest.raises(NotImplementedError):
+        pcoh.coherence_ext(*cargs[:-1], ModelConfig(relskewstates=True))
+    assert pcoh.coherence_ext.launches == before

@@ -45,12 +45,12 @@ MODEL = "relskewstates"
 
 @pytest.fixture(scope="module")
 def x():
-    return U.ext_inputs(MODEL)
+    return U.model_reference(MODEL)[0]
 
 
 @pytest.fixture(scope="module")
 def ref(x):
-    return U.jax_reference(x)
+    return U.model_reference(MODEL)[1]
 
 
 @pytest.fixture(scope="module")

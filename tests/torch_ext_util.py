@@ -1,15 +1,18 @@
 """Shared inputs and checks of the extended-state-space parity tests
 (tests/test_torch_selfing.py, tests/test_torch_relskewstates.py).
 
-Each test file builds its cohort once (``ext_inputs``), runs the JAX
-package's functions on it once (``jax_reference``, eagerly: a jit of the
-whole scan compiles for minutes on the CPU at 16 probe-dedup variants)
-and holds the port's functions against them in float64.  The Driver and
+Each model's cohort is built (``ext_inputs``) and the JAX package's
+functions run on it (``jax_stages``, ``jax_reference``, eagerly: a jit of
+the whole scan compiles for minutes on the CPU at 16 probe-dedup
+variants) once a process (``model_stages``, ``model_reference``), which
+the test files of that model and tests/test_torch_ext_kernels.py share;
+the tests hold the port's functions against them in float64.  The Driver and
 the CLI run on one PlantImpute file set (``files_pedigree``), so that the
 JAX Driver's scan program compiles once for both.  JAX is imported inside
 the functions that need it.
 """
 
+import functools
 import os
 
 import numpy as np
@@ -73,11 +76,10 @@ def ext_inputs(model):
                 pparams=pconfig.RuntimeParams(), nv=nv)
 
 
-def jax_reference(x):
-    """The JAX package's extended-engine functions on the cohort, each run
-    once: blocks, sweeps, totals, posterior weights, statistics, turn
-    weights, coherence, recombination expectations (from the sweeps and
-    from the stored sweeps) and the model module's own scan."""
+def jax_stages(x):
+    """The JAX package's extended-engine stages on the cohort, each run
+    once: blocks, sweeps, totals, posterior weights, statistics and the
+    coherence (SELFING's seven slots, or RELSKEWSTATES' coherence bit)."""
     import jax.numpy as jnp
 
     from cnf2freq_tpu import engine_ext as JE
@@ -89,17 +91,34 @@ def jax_reference(x):
     W = JE.posterior_weight_ext(fbres, total, fbj.shiftignore)
     stats = JE.ext_statistics(W, blocks, colls, ovs, fbj, cfg, x["nv"])
     out = dict(blocks=blocks, e_ext=e_ext, collapses=colls, fbres=fbres,
-               total=total, W=W, stats=stats,
-               turn=JE.turn_weights_ext(fbres, fbj, cfg))
+               total=total, W=W, stats=stats)
     if cfg.selfing:
         out["coh"] = np.stack([np.asarray(JE.coherence_slot_ext(
             fbres, blocks, fbj, cfg, params, d, slot))
             for slot in range(cfg.numslots)], axis=-1)
-        from cnf2freq_tpu.models import selfing as JM
-        out["model_scan"] = JM.selfing_scan(fbj, d, fbj.selfgen, cfg, params)
     else:
         out["coh"] = JE.relskew_coherence_ext(fbres, e_ext, fbj, cfg, params,
                                               d)
+    return out
+
+
+def jax_reference(x, stages):
+    """``stages`` (``jax_stages`` of the cohort) and the JAX package's
+    other extended-engine functions on the cohort, each run once: turn
+    weights, recombination expectations (from the sweeps and from the
+    stored sweeps) and the model module's own scan."""
+    import jax.numpy as jnp
+
+    from cnf2freq_tpu import engine_ext as JE
+    fbj, cfg, params = x["fbj"], x["jcfg"], x["jparams"]
+    d = jnp.asarray(x["dists"])
+    out = dict(stages)
+    fbres, e_ext = out["fbres"], out["e_ext"]
+    out["turn"] = JE.turn_weights_ext(fbres, fbj, cfg)
+    if cfg.selfing:
+        from cnf2freq_tpu.models import selfing as JM
+        out["model_scan"] = JM.selfing_scan(fbj, d, fbj.selfgen, cfg, params)
+    else:
         from cnf2freq_tpu.models import relskew_states as JM
         out["model_scan"] = JM.relstate_scan(fbj, d, fbj.relh[:, :-1], cfg,
                                              params)
@@ -109,6 +128,21 @@ def jax_reference(x):
     out["recomb_stored"] = getattr(run, "__wrapped__", run)(
         fbj, d, fbres.fw_pre, fbres.bw, fbres.fw_pre_f, fbres.bw_f)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def model_stages(model):
+    """(ext_inputs(model), its jax_stages), computed once a process."""
+    x = ext_inputs(model)
+    return x, jax_stages(x)
+
+
+@functools.lru_cache(maxsize=None)
+def model_reference(model):
+    """(ext_inputs(model), its jax_reference), computed once a process on
+    model_stages."""
+    x, stages = model_stages(model)
+    return x, jax_reference(x, stages)
 
 
 def port_sweeps(x):
@@ -210,12 +244,13 @@ def check_sweeps(x, ref):
 
 
 def check_statistics(x, ref):
-    """ext_statistics at the Driver's variant count, on the JAX package's
-    posterior weights and the port's blocks."""
+    """ext_statistics_reference (the CPU route of ext_statistics) at the
+    Driver's variant count, on the JAX package's posterior weights and
+    the port's blocks."""
     blocks, _, colls, ovs, _ = port_sweeps(x)
     W = torch.as_tensor(np.array(ref["W"]))
-    got = PE.ext_statistics(W, blocks, colls, ovs, x["fbt"], x["pcfg"],
-                            x["nv"])
+    got = PE.ext_statistics_reference(W, blocks, colls, ovs, x["fbt"],
+                                      x["pcfg"], x["nv"])
     for g, r, name in zip(got, ref["stats"], ("b12", "mask", "inf",
                                               "pair")):
         if name == "mask":
